@@ -1,0 +1,280 @@
+"""Multi-head attention layer with a swappable score mechanism.
+
+Port of :mod:`repro.core.attention`.  The mechanism and the execution
+backend both come from :mod:`repro_torch.core.mechanism`:
+``plan_attention(cfg, shapes)`` returns an inspectable plan and
+``apply_attention`` executes it.
+
+Decode caches are updated **in place**: the new keys/values are written
+into the layer's cache storage with ``index_put_`` (the reference's
+functional ``.at[].set``), and the returned cache shares that storage
+with only its cursor advanced.  A layer-stacked state must therefore own
+real per-layer storage (``models.transformer.init_states`` allocates it
+with ``torch.zeros``), never a broadcast view.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Optional
+
+import torch
+
+from repro_torch.core.mechanism import (
+    DEFAULT_BLOCKED_THRESHOLD, DEFAULT_CHUNKED_THRESHOLD,
+    MASK_FREE_BACKENDS, AttnShapes, PagedLayout, Structural, execute_plan,
+    get_mechanism, plan_attention)
+from repro_torch.nn.linear import apply_dense, init_dense
+
+
+@dataclasses.dataclass(frozen=True)
+class AttentionConfig:
+    kind: Optional[str] = None      # DEPRECATED mechanism name; set
+                                    # ``mechanism`` instead
+    num_heads: int = 8
+    num_kv_heads: int = 8
+    head_dim: int = 64
+    qkv_bias: bool = False
+    out_bias: bool = False
+    use_rope: bool = True
+    rope_base: float = 10000.0
+    rope_pct: float = 1.0           # fraction of head_dim rotated
+    score_shift: float = 0.5        # inhibitor α (paper: 0.5)
+    score_scale: Optional[float] = None  # default √head_dim (paper γ)
+    normalize: bool = True          # key-count normalization
+    sliding_window: Optional[int] = None
+    causal: bool = True
+    mechanism: Optional[str] = None  # registry name; None -> ``kind``
+    backend: Optional[str] = None   # force a backend; None = planner auto
+    use_kernel: bool = False        # DEPRECATED: shim for backend="pallas"
+    kv_chunk: int = 256             # chunk size for streaming forms
+    # kernel launch overrides (None = the kernel registry's choice)
+    kernel_block_q: Optional[int] = None
+    kernel_block_k: Optional[int] = None
+    kernel_sub_k: Optional[int] = None
+    kernel_pages_per_step: Optional[int] = None
+    chunked_threshold: int = DEFAULT_CHUNKED_THRESHOLD
+    blocked_threshold: int = DEFAULT_BLOCKED_THRESHOLD
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor       # (b, max_len, h_kv, d)
+    v: torch.Tensor       # (b, max_len, h_kv, d)
+    length: torch.Tensor  # () int32 shared cursor, or (b,) per-slot cursors
+
+
+def init_kv_cache(batch: int, max_len: int, num_kv_heads: int,
+                  head_dim: int, dtype=torch.bfloat16, *,
+                  per_slot: bool = False, device=None) -> KVCache:
+    shape = (batch, max_len, num_kv_heads, head_dim)
+    length = torch.zeros((batch,) if per_slot else (), dtype=torch.int32,
+                         device=device)
+    return KVCache(torch.zeros(shape, dtype=dtype, device=device),
+                   torch.zeros(shape, dtype=dtype, device=device), length)
+
+
+class PagedKVCache(NamedTuple):
+    """Paged decode cache: KV rows live in a shared pool of fixed-size
+    pages.  New tokens are written to ``block_tables[row, pos // ps]`` at
+    offset ``pos % ps``.  Physical page 0 is the trash page: unmapped
+    table entries point there, so inactive batch rows write harmlessly.
+    ``block_tables`` and ``length`` are shared by every layer."""
+    k: torch.Tensor             # (num_pages, page_size, h_kv, d) pool
+    v: torch.Tensor             # (num_pages, page_size, h_kv, d) pool
+    block_tables: torch.Tensor  # (b, pages_per_slot) int32
+    length: torch.Tensor        # (b,) int32 per-slot cursors
+
+
+def init_paged_kv_cache(batch: int, max_len: int, num_kv_heads: int,
+                        head_dim: int, dtype=torch.bfloat16, *,
+                        page_size: int = 16,
+                        num_pages: Optional[int] = None,
+                        device=None) -> PagedKVCache:
+    pages_per_slot = -(-max_len // page_size)
+    if num_pages is None:
+        num_pages = batch * pages_per_slot + 1      # +1: trash page 0
+    shape = (num_pages, page_size, num_kv_heads, head_dim)
+    return PagedKVCache(
+        torch.zeros(shape, dtype=dtype, device=device),
+        torch.zeros(shape, dtype=dtype, device=device),
+        torch.zeros((batch, pages_per_slot), dtype=torch.int32,
+                    device=device),
+        torch.zeros((batch,), dtype=torch.int32, device=device))
+
+
+def init_attention(gen: torch.Generator, cfg: AttentionConfig,
+                   embed_dim: int, *, dtype=torch.float32,
+                   device=None) -> dict:
+    h, hk, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    kw = dict(dtype=dtype, device=device)
+    return {
+        "wq": init_dense(gen, (embed_dim,), (h, d), use_bias=cfg.qkv_bias,
+                         **kw),
+        "wk": init_dense(gen, (embed_dim,), (hk, d), use_bias=cfg.qkv_bias,
+                         **kw),
+        "wv": init_dense(gen, (embed_dim,), (hk, d), use_bias=cfg.qkv_bias,
+                         **kw),
+        "wo": init_dense(gen, (h, d), (embed_dim,), use_bias=cfg.out_bias,
+                         **kw),
+    }
+
+
+def structural_mask_predicate(causal: bool, window, qi, kj):
+    """Attendability of (query index ``qi``, key index ``kj``) under the
+    causal / sliding-window structure: a window implies causality.
+    Works on numpy arrays and tensors alike; None when unstructured."""
+    masks = []
+    if causal:
+        masks.append(kj <= qi)
+    if window is not None:
+        masks.append((kj > qi - window) & (kj <= qi))
+    if not masks:
+        return None
+    m = masks[0]
+    for extra in masks[1:]:
+        m = m & extra
+    return m
+
+
+def _build_mask(cfg: AttentionConfig, n_q: int, n_k: int, q_offset,
+                kv_valid_len=None, *, device=None) -> Optional[torch.Tensor]:
+    """Boolean (b|1, 1, n_q, n_k) mask combining causality, sliding window
+    and KV-cache validity.  ``q_offset`` / ``kv_valid_len`` may be
+    scalars or (b,) tensors."""
+    masks = []
+    qoff = torch.as_tensor(q_offset, device=device).reshape(-1)
+    qi = qoff[:, None, None] + torch.arange(n_q, device=device)[None, :, None]
+    kj = torch.arange(n_k, device=device)[None, None, :]
+    structural = structural_mask_predicate(cfg.causal, cfg.sliding_window,
+                                           qi, kj)
+    if structural is not None:
+        masks.append(structural)
+    if kv_valid_len is not None:
+        kv = torch.as_tensor(kv_valid_len, device=device).reshape(-1)
+        masks.append((kj < kv[:, None, None]).expand(kv.shape[0], n_q, n_k))
+    if not masks:
+        return None
+    m = masks[0]
+    for extra in masks[1:]:
+        m = m & extra
+    return m[:, None]
+
+
+def _write_paged(cache: PagedKVCache, k, v, n_q: int) -> None:
+    """Scatter the new rows into the block-table pages, in place."""
+    ps = cache.k.shape[1]
+    b = k.shape[0]
+    dev = cache.k.device
+    pos = cache.length.long()[:, None] + torch.arange(n_q, device=dev)[None]
+    logical = (pos // ps).clamp(max=cache.block_tables.shape[1] - 1)
+    rows = torch.arange(b, device=dev)[:, None]
+    pages = cache.block_tables.long()[rows, logical]             # (b, n_q)
+    offs = pos % ps
+    cache.k[pages, offs] = k.to(cache.k.dtype)
+    cache.v[pages, offs] = v.to(cache.v.dtype)
+
+
+def _write_contiguous(cache: KVCache, k, v, n_q: int) -> None:
+    """Write the new rows at the cursor(s), in place; the start clamps to
+    ``max_len - n_q`` as the reference's dynamic_update_slice does."""
+    b, max_len = cache.k.shape[:2]
+    dev = cache.k.device
+    start = cache.length.long().reshape(-1).expand(b).clamp(
+        0, max_len - n_q)
+    pos = start[:, None] + torch.arange(n_q, device=dev)[None]
+    rows = torch.arange(b, device=dev)[:, None]
+    cache.k[rows, pos] = k.to(cache.k.dtype)
+    cache.v[rows, pos] = v.to(cache.v.dtype)
+
+
+def apply_attention(params: dict, cfg: AttentionConfig, x: torch.Tensor, *,
+                    positions: Optional[torch.Tensor] = None,
+                    cache=None, attn_mask: Optional[torch.Tensor] = None,
+                    compute_dtype=None):
+    """Self-attention over ``x`` (b, n_q, embed).  Returns (y, cache').
+
+    ``positions`` (b, n_q) are absolute RoPE positions (default: arange,
+    or cache.length + arange when decoding).
+    """
+    from repro_torch.nn.rotary import apply_rope
+
+    cdt = compute_dtype or x.dtype
+    b, n_q, _ = x.shape
+    dev = x.device
+
+    q = apply_dense(params["wq"], x, 1, cdt)          # (b, n_q, h, d)
+    k = apply_dense(params["wk"], x, 1, cdt)          # (b, n_q, hk, d)
+    v = apply_dense(params["wv"], x, 1, cdt)
+
+    if positions is None:
+        ar = torch.arange(n_q, device=dev)[None, :]
+        if cache is None:
+            positions = ar
+        else:
+            off = cache.length.long()
+            positions = off[:, None] + ar if off.dim() == 1 else ar + off
+        positions = positions.expand(b, n_q)
+
+    if cfg.use_rope:
+        if cfg.rope_pct >= 1.0:
+            q = apply_rope(q, positions, base=cfg.rope_base)
+            k = apply_rope(k, positions, base=cfg.rope_base)
+        else:
+            rd = int(cfg.head_dim * cfg.rope_pct)
+            rd -= rd % 2
+            q = torch.cat([apply_rope(q[..., :rd], positions,
+                                      base=cfg.rope_base), q[..., rd:]], -1)
+            k = torch.cat([apply_rope(k[..., :rd], positions,
+                                      base=cfg.rope_base), k[..., rd:]], -1)
+
+    new_cache = None
+    kv_valid_len = None
+    paged_layout = None
+    if isinstance(cache, PagedKVCache):
+        _write_paged(cache, k, v, n_q)
+        new_cache = cache._replace(length=cache.length + n_q)
+        k, v = cache.k.to(cdt), cache.v.to(cdt)
+        kv_valid_len = new_cache.length
+        n_k = cache.block_tables.shape[1] * cache.k.shape[1]
+        paged_layout = PagedLayout(cache.block_tables, cache.k.shape[1])
+    elif cache is not None:
+        _write_contiguous(cache, k, v, n_q)
+        new_cache = cache._replace(length=cache.length + n_q)
+        k, v = cache.k.to(cdt), cache.v.to(cdt)
+        kv_valid_len = new_cache.length
+
+    if paged_layout is None:
+        n_k = k.shape[1]
+    q_offset = cache.length if cache is not None else 0
+    scalar_cursor = cache is None or cache.length.dim() == 0
+
+    shapes = AttnShapes(
+        batch=b, n_q=n_q, n_k=n_k, num_heads=cfg.num_heads,
+        num_kv_heads=k.shape[2], head_dim=cfg.head_dim, dtype=q.dtype,
+        has_explicit_mask=attn_mask is not None, is_cross=False,
+        has_cache=cache is not None, scalar_cursor=scalar_cursor,
+        platform=dev.type, paged=paged_layout is not None)
+    plan = plan_attention(cfg, shapes)
+    mech = get_mechanism(plan.mechanism)
+    mech_params = mech.make_params(
+        score_scale=cfg.score_scale, score_shift=cfg.score_shift,
+        normalize=cfg.normalize, kv_chunk=cfg.kv_chunk,
+        kernel_block_q=cfg.kernel_block_q, kernel_block_k=cfg.kernel_block_k,
+        kernel_sub_k=cfg.kernel_sub_k,
+        kernel_pages_per_step=cfg.kernel_pages_per_step)
+
+    if plan.backend in MASK_FREE_BACKENDS:
+        structural = Structural(causal=cfg.causal, window=cfg.sliding_window,
+                                q_offset=q_offset, kv_valid_len=kv_valid_len)
+        out = execute_plan(plan, q, k, v, params=mech_params,
+                           structural=structural, paged=paged_layout)
+    else:
+        mask = attn_mask
+        if mask is None:
+            mask = _build_mask(cfg, n_q, n_k, q_offset, kv_valid_len,
+                               device=dev)
+        out = execute_plan(plan, q, k, v, mask=mask, params=mech_params,
+                           paged=paged_layout)
+
+    y = apply_dense(params["wo"], out, 2, cdt)        # out: (b, n_q, h, d)
+    return y, new_cache

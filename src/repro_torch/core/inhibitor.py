@@ -1,0 +1,214 @@
+"""The Inhibitor attention mechanism (Brännvall & Stoian), forward forms.
+
+Port of :mod:`repro.core.inhibitor` (forward only; the analytic VJP comes
+with the training slice):
+
+  * :func:`manhattan_scores`        — eq. 5 (+ shifted-score variant)
+  * :func:`inhibit_naive`           — eq. 6, broadcast form (oracle)
+  * :func:`inhibit_signed_naive`    — eq. 7, broadcast form (oracle)
+  * :func:`inhibit_fused`           — eq. 9, cdist-decomposed form
+  * :func:`inhibit_signed_fused`    — eq. 10, cdist-decomposed form
+  * :func:`inhibitor_attention`     — multi-head GQA entry point
+  * :func:`inhibitor_attention_chunked` — blockwise streaming form
+
+Notation follows the paper: ``Z[i,j] = (1/γ)·Σ_k |Q[i,k] − K[j,k]|`` with
+γ = √d, shifted score ``Z' = (Z − α)⁺``; inhibition
+``H[i,k] = Σ_j (V[j,k] − Z'[i,j])⁺``.
+
+All math runs in float32 whatever the input dtype: the sums of ReLU terms
+are unnormalized and reach seq_len·|V| magnitude.  The fused forms mask by
+*exclusion* from the sums; only the naive oracle masks by ``Z = MASK_Z``.
+
+Eager PyTorch materialises the broadcast cubes that XLA fuses away:
+``|q − k|`` is ``(..., n_q, n_k, d)`` and :func:`_abs_cross` builds
+``(..., n_q, n_k, d_v)`` (twice for the signed form).  At the serving
+slice's prefill chunks this is tens of MB per layer call; the decode hot
+loop never runs it (the paged CUDA kernel does).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+MASK_Z: float = 1e9
+
+
+def manhattan_scores(q: torch.Tensor, k: torch.Tensor, *,
+                     score_scale: Optional[float] = None,
+                     score_shift: float = 0.0) -> torch.Tensor:
+    """Eq. 5 (+ shift): ``Z[..., i, j] = ((1/γ)·Σ_d |q_i − k_j| − α)⁺``.
+
+    q: (..., n_q, d), k: (..., n_k, d) -> (..., n_q, n_k), float32.
+    """
+    d = q.shape[-1]
+    gamma = score_scale if score_scale is not None else float(d) ** 0.5
+    z = (q.float()[..., :, None, :] - k.float()[..., None, :, :]).abs().sum(-1)
+    z = z / gamma
+    if score_shift:
+        z = torch.relu(z - score_shift)
+    return z
+
+
+def inhibit_naive(v: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """Eq. 6: ``H[i,k] = Σ_j (V[j,k] − Z[i,j])⁺``."""
+    vf = v.float()
+    return torch.relu(vf[..., None, :, :] - z[..., :, :, None]).sum(-2)
+
+
+def inhibit_signed_naive(v: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """Eq. 7: ``H[i,k] = Σ_j (V⁺−Z)⁺ + Σ_j (V⁻+Z)⁻`` (signed values)."""
+    vf = v.float()
+    vp = torch.relu(vf)
+    vn = vf - vp
+    t1 = torch.relu(vp[..., None, :, :] - z[..., :, :, None])
+    t2 = torch.clamp(vn[..., None, :, :] + z[..., :, :, None], max=0.0)
+    return (t1 + t2).sum(-2)
+
+
+def _abs_cross(a: torch.Tensor, b: torch.Tensor,
+               mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Σ_j |a[..., j, k] − b[..., i, j]|: (..., n_k, d_v), (..., n_q, n_k)
+    -> (..., n_q, d_v).  ``mask`` (..., n_q, n_k) excludes pairs from the
+    sum (never large constants: the eq. 9 terms cancel only exactly)."""
+    cube = (a[..., None, :, :] - b[..., :, :, None]).abs()
+    if mask is not None:
+        cube = cube * mask[..., None].to(cube.dtype)
+    return cube.sum(-2)
+
+
+def _masked_col_v(vf: torch.Tensor,
+                  mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """Σ_j V[j,k] over attendable j: (..., n_q, d_v) (or (..., 1, d_v))."""
+    if mask is None:
+        return vf.sum(-2, keepdim=True)
+    return mask.to(vf.dtype) @ vf
+
+
+def inhibit_fused(v: torch.Tensor, z: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Eq. 9: H = ½·Σ_j V − ½·Σ_j Z + ½·Σ_j |V − Z|  (≡ eq. 6)."""
+    vf = v.float()
+    col_v = _masked_col_v(vf, mask)
+    zm = z if mask is None else z * mask.to(z.dtype)
+    row_z = zm.sum(-1, keepdim=True)
+    cross = _abs_cross(vf, z, mask)
+    return 0.5 * (col_v - row_z + cross)
+
+
+def inhibit_signed_fused(v: torch.Tensor, z: torch.Tensor,
+                         mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Eq. 10: H = ½·Σ_j V + ½·Σ_j|V⁺−Z| − ½·Σ_j|V⁻+Z|  (≡ eq. 7)."""
+    vf = v.float()
+    vp = torch.relu(vf)
+    vn = vf - vp
+    col_v = _masked_col_v(vf, mask)
+    t_pos = _abs_cross(vp, z, mask)
+    t_neg = _abs_cross(-vn, z, mask)
+    return 0.5 * (col_v + t_pos - t_neg)
+
+
+def mask_scores(z: torch.Tensor,
+                mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """Apply a boolean mask (True = attend) by setting Z to +MASK_Z."""
+    if mask is None:
+        return z
+    return torch.where(mask, z, torch.full_like(z, MASK_Z))
+
+
+def causal_mask(n_q: int, n_k: int, *, q_offset=0,
+                device=None) -> torch.Tensor:
+    """(n_q, n_k) boolean causal mask; query i sits at q_offset + i."""
+    qi = torch.arange(n_q, device=device)[:, None] + q_offset
+    kj = torch.arange(n_k, device=device)[None, :]
+    return kj <= qi
+
+
+def _repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
+    """(b, s, kv_heads, d) -> (b, s, kv_heads*n_rep, d) for GQA."""
+    if n_rep == 1:
+        return x
+    b, s, h, d = x.shape
+    return x[:, :, :, None, :].expand(b, s, h, n_rep, d).reshape(
+        b, s, h * n_rep, d)
+
+
+def _inhibitor_core(qt, kt, vt, mask, *, gamma: float, shift: float,
+                    signed: bool, normalize: bool) -> torch.Tensor:
+    """(b, h, n, d) operands -> (b, h, n_q, d) float32 (the forward of the
+    reference's custom-VJP core)."""
+    z = manhattan_scores(qt, kt, score_scale=gamma, score_shift=shift)
+    out = (inhibit_signed_fused(vt, z, mask) if signed
+           else inhibit_fused(vt, z, mask))
+    if normalize:
+        if mask is not None:
+            cnt = mask.float().sum(-1, keepdim=True)
+        else:
+            cnt = torch.full(z.shape[:-1] + (1,), float(kt.shape[-2]),
+                             dtype=torch.float32, device=z.device)
+        out = out / cnt.clamp(min=1.0)
+    return out
+
+
+def inhibitor_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, mask: Optional[torch.Tensor] = None,
+                        score_scale: Optional[float] = None,
+                        score_shift: float = 0.5, signed: bool = True,
+                        normalize: bool = True) -> torch.Tensor:
+    """Multi-head inhibitor attention.
+
+    q: (b, n_q, h, d); k, v: (b, n_k, h_kv, d) with h % h_kv == 0 (GQA).
+    mask: broadcastable to (b, h, n_q, n_k), True = attend.
+    Returns (b, n_q, h, d) in q.dtype.  ``normalize`` divides H by the
+    count of attendable keys (a constant multiplication).
+    """
+    b, n_q, h, d = q.shape
+    n_k, h_kv = k.shape[1], k.shape[2]
+    k = _repeat_kv(k, h // h_kv)
+    v = _repeat_kv(v, h // h_kv)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    gamma = score_scale if score_scale is not None else float(d) ** 0.5
+    if mask is not None:
+        mask = mask.expand(b, h, n_q, n_k)
+    out = _inhibitor_core(qt, kt, vt, mask, gamma=float(gamma),
+                          shift=float(score_shift), signed=bool(signed),
+                          normalize=bool(normalize))
+    return out.transpose(1, 2).to(q.dtype)
+
+
+def inhibitor_attention_chunked(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, *,
+                                mask: Optional[torch.Tensor] = None,
+                                score_scale: Optional[float] = None,
+                                score_shift: float = 0.5, signed: bool = True,
+                                normalize: bool = True,
+                                kv_chunk: int = 512) -> torch.Tensor:
+    """Inhibitor attention accumulated over key/value chunks.
+
+    Inhibition is a plain sum of ReLU terms over keys (no Softmax
+    normalizer), so chunked accumulation is exact: partial sums and
+    counts combine by addition, with no running max or rescaling.
+    Shapes as :func:`inhibitor_attention`.
+    """
+    b, n_q, h, d = q.shape
+    n_k, h_kv = k.shape[1], k.shape[2]
+    qt = q.transpose(1, 2).float()
+    kt = _repeat_kv(k, h // h_kv).transpose(1, 2).float()
+    vt = _repeat_kv(v, h // h_kv).transpose(1, 2).float()
+    if mask is not None:
+        mask = mask.expand(b, h, n_q, n_k)
+    acc = torch.zeros((b, h, n_q, d), dtype=torch.float32, device=q.device)
+    cnt = torch.zeros((b, h, n_q), dtype=torch.float32, device=q.device)
+    for lo in range(0, n_k, kv_chunk):
+        hi = min(lo + kv_chunk, n_k)
+        z = manhattan_scores(qt, kt[:, :, lo:hi], score_scale=score_scale,
+                             score_shift=score_shift)
+        m = None if mask is None else mask[..., lo:hi]
+        cnt = cnt + (float(hi - lo) if m is None else m.float().sum(-1))
+        vc = vt[:, :, lo:hi]
+        acc = acc + (inhibit_signed_fused(vc, z, m) if signed
+                     else inhibit_fused(vc, z, m))
+    if normalize:
+        acc = acc / cnt[..., None].clamp(min=1.0)
+    return acc.transpose(1, 2).to(q.dtype)

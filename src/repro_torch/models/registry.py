@@ -1,0 +1,48 @@
+"""Model registry: one uniform API over the architecture families.
+
+``get_model(cfg)`` returns a :class:`ModelApi` whose members close over
+the config:
+
+  * ``init(gen, device=None)``             -> parameter dict
+  * ``forward(params, batch)``             -> logits        [prefill]
+  * ``init_states(batch, max_len, **kw)``  -> decode state
+  * ``step(params, tokens, states, batch)`` -> (logits, states')  [decode]
+
+This slice ports the dense branch.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import transformer as tfm
+
+
+class ModelApi(NamedTuple):
+    cfg: ModelConfig
+    init: Callable
+    forward: Callable
+    init_states: Callable
+    step: Callable
+
+
+def get_model(cfg: ModelConfig) -> ModelApi:
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported to PyTorch yet (ROADMAP "
+            f"queue 1 item 11)")
+
+    def forward(params, batch):
+        return tfm.lm_forward(params, cfg, batch["tokens"])
+
+    def step(params, tokens, states, batch=None):
+        return tfm.lm_step(params, cfg, tokens, states)
+
+    return ModelApi(
+        cfg=cfg,
+        init=lambda gen, device=None: tfm.init_lm(gen, cfg, device=device),
+        forward=forward,
+        init_states=lambda b, s, **kw: tfm.init_states(cfg, b, s, **kw),
+        step=step,
+    )

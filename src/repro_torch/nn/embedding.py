@@ -1,0 +1,34 @@
+"""Token embedding with optional logit tying."""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.nn.init import normal
+
+
+def init_embedding(gen: torch.Generator, vocab_size: int, embed_dim: int,
+                   *, dtype=torch.float32, device=None,
+                   stddev: float = 0.02) -> dict:
+    return {"table": normal(gen, (vocab_size, embed_dim), stddev,
+                            dtype=dtype, device=device)}
+
+
+def apply_embedding(params: dict, token_ids: torch.Tensor,
+                    compute_dtype=None) -> torch.Tensor:
+    """Lookup: (...,) int -> (..., embed).  Gathers rows first, then casts
+    (the same values as casting the table first, without casting rows no
+    token reads)."""
+    out = F.embedding(token_ids.long(), params["table"])
+    return out if compute_dtype is None else out.to(compute_dtype)
+
+
+def attend_logits(params: dict, x: torch.Tensor,
+                  compute_dtype=None) -> torch.Tensor:
+    """Tied-softmax logits: (..., embed) @ table.T -> (..., vocab)."""
+    table = params["table"]
+    if compute_dtype is not None:
+        table = table.to(compute_dtype)
+        x = x.to(compute_dtype)
+    return x @ table.t()

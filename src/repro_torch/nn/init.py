@@ -1,0 +1,24 @@
+"""Parameter initializers: draws from a CPU ``torch.Generator``."""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+# stddev of a unit normal truncated to [-2, 2]; dividing by it restores
+# the requested stddev (same correction as the reference initializer)
+_TRUNC_STD = 0.87962566103423978
+
+
+def truncated_normal(gen: torch.Generator, shape: Sequence[int], std: float,
+                     *, dtype=torch.float32, device=None) -> torch.Tensor:
+    x = torch.empty(tuple(shape), dtype=torch.float32)
+    torch.nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    return (x * (std / _TRUNC_STD)).to(device=device, dtype=dtype)
+
+
+def normal(gen: torch.Generator, shape: Sequence[int], std: float, *,
+           dtype=torch.float32, device=None) -> torch.Tensor:
+    x = torch.randn(tuple(shape), generator=gen, dtype=torch.float32)
+    return (x * std).to(device=device, dtype=dtype)

@@ -1,0 +1,45 @@
+"""General dense layer: contracts the trailing input dims with a kernel
+of shape ``(*in_shape, *out_shape)``."""
+
+from __future__ import annotations
+
+import math
+from typing import Sequence
+
+import torch
+
+from repro_torch.nn.init import truncated_normal
+
+
+def init_dense(gen: torch.Generator, in_shape: Sequence[int],
+               out_shape: Sequence[int], *, use_bias: bool = False,
+               dtype=torch.float32, device=None) -> dict:
+    """Truncated-normal kernel with stddev 1/sqrt(prod(in_shape))."""
+    in_shape, out_shape = tuple(in_shape), tuple(out_shape)
+    std = math.prod(in_shape) ** -0.5
+    params = {"kernel": truncated_normal(gen, in_shape + out_shape, std,
+                                         dtype=dtype, device=device)}
+    if use_bias:
+        params["bias"] = torch.zeros(out_shape, dtype=dtype, device=device)
+    return params
+
+
+def apply_dense(params: dict, x: torch.Tensor, n_in_dims: int = 1,
+                compute_dtype=None) -> torch.Tensor:
+    """Contract the last ``n_in_dims`` dims of ``x`` with the kernel."""
+    kernel = params["kernel"]
+    if compute_dtype is not None:
+        kernel = kernel.to(compute_dtype)
+        x = x.to(compute_dtype)
+    in_shape = kernel.shape[:n_in_dims]
+    out_shape = kernel.shape[n_in_dims:]
+    lead = x.shape[:x.dim() - n_in_dims]
+    y = x.reshape(*lead, math.prod(in_shape)) @ kernel.reshape(
+        math.prod(in_shape), math.prod(out_shape))
+    y = y.reshape(*lead, *out_shape)
+    if "bias" in params:
+        b = params["bias"]
+        if compute_dtype is not None:
+            b = b.to(compute_dtype)
+        y = y + b
+    return y

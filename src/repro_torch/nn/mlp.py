@@ -1,0 +1,50 @@
+"""Feed-forward blocks: classic ReLU/GELU MLP (paper eq. 4) and the gated
+SiLU (SwiGLU) variant of the llama family."""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.nn.linear import apply_dense, init_dense
+
+_ACT = {
+    "relu": F.relu,
+    # the reference's gelu is the tanh approximation
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),
+    "silu": F.silu,
+    "tanh": torch.tanh,
+}
+
+
+def init_mlp(gen: torch.Generator, embed_dim: int, hidden_dim: int, *,
+             use_bias: bool = False, dtype=torch.float32,
+             device=None) -> dict:
+    """Two-layer MLP (paper eq. 4): x -> act(x W1 + b1) W2 + b2."""
+    kw = dict(use_bias=use_bias, dtype=dtype, device=device)
+    return {"wi": init_dense(gen, (embed_dim,), (hidden_dim,), **kw),
+            "wo": init_dense(gen, (hidden_dim,), (embed_dim,), **kw)}
+
+
+def apply_mlp(params: dict, x: torch.Tensor, *, activation: str = "relu",
+              compute_dtype=None) -> torch.Tensor:
+    h = _ACT[activation](apply_dense(params["wi"], x, 1, compute_dtype))
+    return apply_dense(params["wo"], h, 1, compute_dtype)
+
+
+def init_gated_mlp(gen: torch.Generator, embed_dim: int, hidden_dim: int,
+                   *, use_bias: bool = False, dtype=torch.float32,
+                   device=None) -> dict:
+    """SwiGLU-style gated MLP: x -> (act(x Wg) * (x Wu)) Wd."""
+    kw = dict(use_bias=use_bias, dtype=dtype, device=device)
+    return {"wg": init_dense(gen, (embed_dim,), (hidden_dim,), **kw),
+            "wu": init_dense(gen, (embed_dim,), (hidden_dim,), **kw),
+            "wd": init_dense(gen, (hidden_dim,), (embed_dim,), **kw)}
+
+
+def apply_gated_mlp(params: dict, x: torch.Tensor, *,
+                    activation: str = "silu",
+                    compute_dtype=None) -> torch.Tensor:
+    g = _ACT[activation](apply_dense(params["wg"], x, 1, compute_dtype))
+    u = apply_dense(params["wu"], x, 1, compute_dtype)
+    return apply_dense(params["wd"], g * u, 1, compute_dtype)

@@ -1,0 +1,37 @@
+"""LayerNorm and RMSNorm; statistics always in float32."""
+
+from __future__ import annotations
+
+import torch
+
+
+def init_layernorm(embed_dim: int, *, use_bias: bool = True,
+                   dtype=torch.float32, device=None) -> dict:
+    p = {"scale": torch.ones(embed_dim, dtype=dtype, device=device)}
+    if use_bias:
+        p["bias"] = torch.zeros(embed_dim, dtype=dtype, device=device)
+    return p
+
+
+def apply_layernorm(params: dict, x: torch.Tensor, *,
+                    eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    mean = xf.mean(-1, keepdim=True)
+    var = (xf - mean).square().mean(-1, keepdim=True)
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    y = y * params["scale"].float()
+    if "bias" in params:
+        y = y + params["bias"].float()
+    return y.to(x.dtype)
+
+
+def init_rmsnorm(embed_dim: int, *, dtype=torch.float32,
+                 device=None) -> dict:
+    return {"scale": torch.ones(embed_dim, dtype=dtype, device=device)}
+
+
+def apply_rmsnorm(params: dict, x: torch.Tensor, *,
+                  eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    y = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
+    return (y * params["scale"].float()).to(x.dtype)

@@ -1,0 +1,37 @@
+"""Import guard for the PyTorch port: ``src/repro_torch`` and
+``chip_smoke.py`` import neither JAX nor the JAX package ``repro``, and
+importing the port's serving path leaves ``jax`` out of ``sys.modules``."""
+
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = re.compile(
+    r"^\s*(?:import|from)\s+(?:jax|jaxlib|repro)(?:[.\s,]|$)", re.M)
+
+
+def test_port_sources_import_no_jax_and_no_reference_package():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 20
+    offenders = {str(f.relative_to(ROOT)): FORBIDDEN.findall(f.read_text())
+                 for f in files}
+    assert {f: m for f, m in offenders.items() if m} == {}
+    # the pattern itself catches what it must, and spares the port
+    assert FORBIDDEN.search("import jax.numpy as jnp")
+    assert FORBIDDEN.search("from repro.core import attention")
+    assert not FORBIDDEN.search("from repro_torch.core import attention")
+
+
+def test_importing_the_serve_path_loads_no_jax():
+    code = ("import sys; sys.path.insert(0, 'src'); "
+            "import repro_torch.launch.serve, repro_torch.serve.engine, "
+            "repro_torch.convert, repro_torch.kernels.ops; "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')); print(bad); "
+            "sys.exit(1 if bad else 0)")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr

@@ -1,0 +1,176 @@
+"""The CUDA paged decode kernels (csrc/paged_decode.cu) against their
+plain versions, on the card.  Every test here needs a CUDA card and skips
+without one; the file imports no JAX, so it runs where only PyTorch is
+installed:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
+
+Tolerances: float32 — rtol = atol = 1e-5 (summation order only); bf16 —
+the kernel and the plain version round the same float32 value, so two
+ulps (2^-7) of the output's largest magnitude.  Unnormalized inhibitor
+sums are not swept: their plain version cancels n_k-term sums (see
+chip_smoke.py for that case).
+
+Inputs are drawn so that no check passes on zeros.  For the inhibitor, q
+and k have stddev 1/sqrt(d): the score Z = sum_d |q - k| / sqrt(d) - 0.5
+is then about 0.6 at every head_dim, so relu(v - Z) and min(v + Z, 0) are
+nonzero for a quarter to a half of unit-normal values.  At unit q and k,
+Z would be about 8.5 at d = 64 and every output exactly 0.  Each check
+also asserts that a share of the reference lies above the tolerance, and
+that the reference computed on V pages shifted by one disagrees.
+"""
+
+import pytest
+import torch
+
+from repro_torch.kernels import paged as kpaged
+
+# full float32 matmuls and convolutions on a card (TF32 keeps ~3 digits)
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+ULP = {torch.float32: None, torch.bfloat16: 2.0 ** -7}
+# least share of reference elements above the tolerance: window 1,
+# unsigned gives about 0.2 (one key per row, relu(v - Z) > 0 for a
+# quarter of values, one row of eight has length 0)
+MIN_NONZERO_SHARE = 0.1
+
+
+def _needs_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+
+
+def _case(seed, *, batch, heads, kv_heads, d, ps, width, lengths, dtype,
+          qk_std=1.0, share=True, poison=float("nan")):
+    """Pool, tables and lengths on the card; q and k have stddev
+    ``qk_std``, v is unit normal.  Unmapped entries and every tail past a
+    cursor hold ``poison`` (never read by the kernels)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    pages = batch * width + 1
+    kp = (torch.randn((pages, ps, kv_heads, d), generator=g, device="cuda")
+          * qk_std).to(dtype)
+    vp = torch.randn((pages, ps, kv_heads, d), generator=g,
+                     device="cuda").to(dtype)
+    perm = (torch.randperm(pages - 1, generator=g, device="cuda")
+            + 1).tolist()
+    tables = torch.zeros((batch, width), dtype=torch.int32)
+    nxt = 0
+    for row, ln in enumerate(lengths):
+        used = -(-ln // ps)
+        tables[row, :used] = torch.tensor(perm[nxt:nxt + used],
+                                          dtype=torch.int32)
+        nxt += used
+    if share and batch > 1 and lengths[0] >= ps and lengths[1] >= ps:
+        tables[1, 0] = tables[0, 0]       # rows 0/1 share their first page
+    q = (torch.randn((batch, 1, heads, d), generator=g, device="cuda")
+         * qk_std).to(dtype)
+    clean = (kp.clone(), vp.clone())
+    kp[0], vp[0] = poison, poison
+    for row, ln in enumerate(lengths):
+        if ln % ps:
+            page = int(tables[row, ln // ps])
+            kp[page, ln % ps:], vp[page, ln % ps:] = poison, poison
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    return q, kp, vp, clean, tables.cuda(), lens
+
+
+def _err_tol(out, ref, dtype):
+    if ULP[dtype] is None:
+        tol = 1e-5 + 1e-5 * ref.float().abs()
+    else:
+        tol = 2 * ULP[dtype] * max(1.0, ref.float().abs().max().item())
+    return (out.float() - ref.float()).abs(), tol
+
+
+def _check(out, ref, dtype, control):
+    """out within tolerance of ref; ref materially nonzero; ``control``
+    (the reference on wrong V pages) outside it."""
+    assert torch.isfinite(out).all()
+    err, tol = _err_tol(out, ref, dtype)
+    assert bool((err <= tol).all()), f"max_abs_err {err.max().item()}"
+    share = (ref.float().abs() > tol).float().mean().item()
+    assert share >= MIN_NONZERO_SHARE, f"reference is ~0 ({share=})"
+    bad, _ = _err_tol(control, ref, dtype)
+    assert not bool((bad <= tol).all()), "control within tolerance"
+
+
+SHAPES = [  # (heads, kv_heads, d, page_size)
+    (9, 3, 64, 16),      # smollm-135m
+    (4, 4, 32, 8),       # paper-tiny widths, no GQA
+    (8, 2, 128, 32),     # wide heads, big pages
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pages_per_step", [1, 4, 8])
+def test_kernels_match_plain_versions(shape, dtype, pages_per_step):
+    _needs_card()
+    heads, kv_heads, d, ps = shape
+    width = 8
+    lengths = [ps * width, ps + 1, 1, 0, ps - 1, 3 * ps, 2 * ps + 5, ps]
+    kw = dict(batch=len(lengths), heads=heads, kv_heads=kv_heads, d=d,
+              ps=ps, width=width, lengths=lengths, dtype=dtype)
+    inh = _case(0, qk_std=d ** -0.5, **kw)
+    att = _case(1, **kw)
+    for window in (None, 1, 5, 2 * ps + 3):
+        q, kp, vp, (kc, vc), tables, lens = inh
+        for signed in (True, False):
+            out = kpaged.paged_flash_inhibitor_fwd(
+                q, kp, vp, tables, lens, signed=signed, window=window,
+                pages_per_step=pages_per_step)
+            ref, control = (kpaged.paged_flash_inhibitor_plain(
+                q, kc, v, tables, lens, signed=signed, window=window)
+                for v in (vc, vc.roll(1, dims=0)))
+            _check(out, ref, dtype, control)
+        q, kp, vp, (kc, vc), tables, lens = att
+        out = kpaged.paged_flash_attention_fwd(
+            q, kp, vp, tables, lens, window=window,
+            pages_per_step=pages_per_step)
+        ref, control = (kpaged.paged_flash_attention_plain(
+            q, kc, v, tables, lens, window=window)
+            for v in (vc, vc.roll(1, dims=0)))
+        _check(out, ref, dtype, control)
+        assert not out[3].any()            # the length-0 row
+
+
+@pytest.mark.cuda
+def test_pages_per_step_does_not_change_a_bit():
+    """The staging depth is a launch knob: float32 results are identical
+    up to summation order, and the nan poison is never read."""
+    _needs_card()
+    q, kp, vp, _, tables, lens = _case(
+        1, batch=4, heads=9, kv_heads=3, d=64, ps=16, width=32,
+        lengths=[512, 300, 17, 1], dtype=torch.float32, qk_std=0.125)
+    outs = [kpaged.paged_flash_inhibitor_fwd(q, kp, vp, tables, lens,
+                                             pages_per_step=pps)
+            for pps in (1, 2, 4, 8)]
+    assert (outs[0].abs() > 1e-3).float().mean().item() >= 0.5
+    for o in outs[1:]:
+        torch.testing.assert_close(o, outs[0], rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_wrapper_counts_launches_and_rejects_bad_operands():
+    _needs_card()
+    q, kp, vp, _, tables, lens = _case(
+        2, batch=2, heads=4, kv_heads=2, d=16, ps=8, width=2,
+        lengths=[9, 4], dtype=torch.float32)
+    kpaged.reset_counts()
+    kpaged.paged_flash_inhibitor_fwd(q, kp, vp, tables, lens)
+    kpaged.paged_flash_attention_fwd(q, kp, vp, tables, lens)
+    assert kpaged.counts() == {
+        "paged_inhibitor": 1, "paged_attention": 1,
+        "paged_inhibitor_plain": 0, "paged_attention_plain": 0}
+    with pytest.raises(TypeError, match="int32"):
+        kpaged.paged_flash_inhibitor_fwd(q, kp, vp, tables.long(), lens)
+    with pytest.raises(TypeError, match="share"):
+        kpaged.paged_flash_inhibitor_fwd(q.half(), kp, vp, tables, lens)
+    with pytest.raises(ValueError, match="contiguous"):
+        kpaged.paged_flash_inhibitor_fwd(q, kp, vp, tables.t().contiguous()
+                                         .t(), lens)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        kpaged.paged_flash_inhibitor_fwd(q, kp, vp, tables.cpu(), lens)
+    assert kpaged.counts()["paged_inhibitor"] == 1

@@ -1,0 +1,151 @@
+"""The port's paged decode kernels (repro_torch.kernels.paged) against the
+JAX package's Pallas kernels run in interpret mode, on the sweep of
+tests/test_paged_kernels.py: signed/unsigned, window None/5, normalize,
+ragged and page-straddling cursors, shared pages, a length-0 row and a
+poisoned trash page.  On the CPU the wrappers run their plain versions
+(gather + fused form); the CUDA kernels themselves are held against the
+same plain versions on the card (tests/test_torch_kernels_cuda.py and
+chip_smoke.py).
+
+Tolerance: both sides compute in float32 and differ only in summation
+order (the JAX kernel sums page by page, the plain version over the whole
+gathered row), so rtol = atol = 1e-5.  Without normalization the eq. 9/10
+forms of both sides cancel sums of up to n_k terms of size |V| + Z, so
+the absolute tolerance there is 1e-5 per key of the longest row.
+
+A length-0 row outputs 0 under both mechanisms, as the reference kernels
+do; the reference's dot-product gather oracle would instead average the
+masked values, which is why the port's plain version is held against the
+kernel and not the oracle.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.paged import (paged_flash_attention_fwd as jax_attention,
+                                 paged_flash_inhibitor_fwd as jax_inhibitor)
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels import paged as kpaged
+
+# full float32 matmuls and convolutions on a card (TF32 keeps ~3 digits)
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+RAGGED_LENGTHS = [13, 8, 1, 24]     # page 8: straddle, exact, single, full
+
+
+def _pool(rng, *, batch, pages_per_slot, page_size, kv_heads, d, lengths):
+    """Ragged pool in the engine's layout (numpy): non-contiguous pages,
+    trash page 0 behind every unmapped table entry."""
+    num_pages = batch * pages_per_slot + 1
+    kp = rng.normal(size=(num_pages, page_size, kv_heads, d)).astype(
+        np.float32)
+    vp = rng.normal(size=(num_pages, page_size, kv_heads, d)).astype(
+        np.float32)
+    perm = rng.permutation(np.arange(1, num_pages))
+    tables = np.zeros((batch, pages_per_slot), np.int32)
+    nxt = 0
+    for b, ln in enumerate(lengths):
+        used = -(-int(ln) // page_size)
+        tables[b, :used] = perm[nxt:nxt + used]
+        nxt += used
+    return kp, vp, tables, np.asarray(lengths, np.int32)
+
+
+def _both(q, kp, vp, tables, lengths, *, attention=False, **kw):
+    """(JAX interpret-mode kernel, port wrapper on CPU tensors)."""
+    j = (jax_attention if attention else jax_inhibitor)(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
+        jnp.asarray(tables), jnp.asarray(lengths), interpret=True, **kw)
+    t = (kpaged.paged_flash_attention_fwd if attention
+         else kpaged.paged_flash_inhibitor_fwd)(
+        torch.from_numpy(q), torch.from_numpy(kp), torch.from_numpy(vp),
+        torch.from_numpy(tables), torch.from_numpy(lengths), **kw)
+    return np.asarray(j), t.numpy()
+
+
+@pytest.mark.parametrize("signed", [True, False])
+@pytest.mark.parametrize("window", [None, 5])
+@pytest.mark.parametrize("normalize", [True, False])
+def test_paged_inhibitor_matches_jax_kernel(rng, signed, window, normalize):
+    kp, vp, tables, lengths = _pool(
+        rng, batch=4, pages_per_slot=4, page_size=8, kv_heads=2, d=16,
+        lengths=RAGGED_LENGTHS)
+    q = rng.normal(size=(4, 1, 4, 16)).astype(np.float32)
+    ref, out = _both(q, kp, vp, tables, lengths, signed=signed,
+                     window=window, normalize=normalize)
+    tol = TOL if normalize else dict(rtol=1e-5,
+                                     atol=1e-5 * max(RAGGED_LENGTHS))
+    np.testing.assert_allclose(out, ref, **tol)
+
+
+@pytest.mark.parametrize("window", [None, 5])
+def test_paged_attention_matches_jax_kernel(rng, window):
+    kp, vp, tables, lengths = _pool(
+        rng, batch=4, pages_per_slot=4, page_size=8, kv_heads=2, d=16,
+        lengths=RAGGED_LENGTHS)
+    q = rng.normal(size=(4, 1, 4, 16)).astype(np.float32)
+    ref, out = _both(q, kp, vp, tables, lengths, attention=True,
+                     window=window)
+    np.testing.assert_allclose(out, ref, **TOL)
+
+
+@pytest.mark.parametrize("attention", [False, True])
+def test_shared_pages_zero_length_and_poisoned_trash(rng, attention):
+    """Rows 0/1 share two physical pages, row 3 has length 0 (output 0),
+    and the trash page plus every tail past a cursor hold ±1e9: the port
+    on the poisoned pool equals the JAX kernel on the clean one."""
+    heads, kv_heads, d, ps = 4, 2, 16, 8
+    kp = rng.normal(size=(13, ps, kv_heads, d)).astype(np.float32)
+    vp = rng.normal(size=(13, ps, kv_heads, d)).astype(np.float32)
+    lengths = np.asarray([21, 18, 13, 0], np.int32)
+    tables = np.zeros((4, 4), np.int32)
+    tables[0, :3] = [1, 2, 3]
+    tables[1, :3] = [1, 2, 4]
+    tables[2, :2] = [5, 6]
+    q = rng.normal(size=(4, 1, heads, d)).astype(np.float32)
+    kp_bad, vp_bad = kp.copy(), vp.copy()
+    unused = np.setdiff1d(np.arange(13), tables[tables > 0])
+    kp_bad[unused], vp_bad[unused] = 1e9, -1e9
+    for b, ln in enumerate(lengths):
+        if ln % ps:
+            page = tables[b, ln // ps]
+            kp_bad[page, ln % ps:], vp_bad[page, ln % ps:] = 1e9, -1e9
+    ref, _ = _both(q, kp, vp, tables, lengths, attention=attention)
+    _, out = _both(q, kp_bad, vp_bad, tables, lengths, attention=attention)
+    np.testing.assert_allclose(out, ref, **TOL)
+    assert not out[3].any()
+
+
+def test_cpu_wrappers_run_the_plain_version_and_count(rng):
+    kp, vp, tables, lengths = _pool(
+        rng, batch=2, pages_per_slot=2, page_size=8, kv_heads=2, d=16,
+        lengths=[5, 9])
+    args = [torch.from_numpy(a) for a in (kp, vp, tables, lengths)]
+    q = torch.from_numpy(rng.normal(size=(2, 1, 4, 16)).astype(np.float32))
+    kpaged.reset_counts()
+    kops.paged_flash_inhibitor(q, *args)
+    kops.paged_flash_attention(q, *args)
+    assert kpaged.counts() == {
+        "paged_inhibitor": 0, "paged_attention": 0,
+        "paged_inhibitor_plain": 1, "paged_attention_plain": 1}
+    with pytest.raises(ValueError, match="single-query"):
+        kpaged.paged_flash_inhibitor_fwd(q.expand(2, 3, 4, 16), *args)
+
+
+def test_registry_default_override_and_native_platforms(rng):
+    assert kops.NATIVE_PLATFORMS["paged"] == ("cuda",)
+    assert all(not v for k, v in kops.NATIVE_PLATFORMS.items()
+               if k != "paged")
+    r = kops.KernelRegistry()
+    key = ("inhibitor", 4, 8, 4, 2, 16)
+    assert r.choose("paged", key, "cpu") == kops.CANDIDATES["paged"][0]
+    assert r.decisions[("paged",) + key]["source"] == "default"
+    assert r.decisions[("paged",) + key]["native"] is False
+    got = r.choose("paged", key, "cuda", kops.KernelChoice(pages_per_step=2))
+    assert got.pages_per_step == 2
+    d = r.decisions[("paged",) + key]
+    assert d["source"] == "override" and d["native"] is True
