@@ -2,8 +2,10 @@
 
 Port of :mod:`repro.configs.base` for the dense slice.  Field names and
 defaults match the reference so that a config compares field by field;
-the families this slice does not serve (MoE, SSM, encoder-decoder,
-frontends) and the JAX-only knobs (``remat``, ``unroll``) are left out.
+the families the port does not run yet (MoE, SSM, encoder-decoder,
+frontends) and the JAX-only ``unroll`` knob are left out.  ``remat``
+selects activation checkpointing per block in training
+(``models.transformer``).
 """
 
 from __future__ import annotations
@@ -39,6 +41,9 @@ class ModelConfig:
     max_seq_len: int = 131072
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
+    # remat policy per block in training: "none" | "full" ("dots" and
+    # "offload" are not ported yet)
+    remat: str = "full"
     source: str = ""
 
     @property
@@ -59,11 +64,12 @@ class ModelConfig:
     def reduced(self, *, num_layers=2, d_model=64, d_ff=128, vocab_size=256,
                 num_heads=4, num_kv_heads=2, head_dim=16,
                 max_seq_len=512) -> "ModelConfig":
-        """A tiny same-family config for CPU tests (float32 compute)."""
+        """A tiny same-family config for CPU tests (float32 compute, no
+        remat)."""
         attn = dataclasses.replace(
             self.attention, num_heads=num_heads, num_kv_heads=num_kv_heads,
             head_dim=head_dim)
         return dataclasses.replace(
             self, num_layers=num_layers, d_model=d_model, d_ff=d_ff,
             vocab_size=vocab_size, attention=attn, max_seq_len=max_seq_len,
-            compute_dtype="float32")
+            remat="none", compute_dtype="float32")

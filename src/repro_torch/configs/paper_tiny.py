@@ -22,5 +22,6 @@ CONFIG = ModelConfig(
     tie_embeddings=False,
     max_seq_len=512,
     compute_dtype="float32",
+    remat="none",
     source="paper (Brännvall & Stoian 2024)",
 )

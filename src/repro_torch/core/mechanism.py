@@ -15,17 +15,21 @@ Backends implemented in this slice:
                (prefill chunks; the CPU's decode)
   ``paged_pallas``  the block-table-native decode kernel — on CUDA the
                hand-written kernels of ``csrc/paged_decode.cu``
+  ``pallas``   the blockwise flash kernels (training forward, contiguous
+               prefill) — on CUDA the hand-written kernels of
+               ``csrc/flash_prefill.cu``, differentiable through the
+               reference's backward (``kernels.ops``)
 
-``blocked``, ``pallas``, ``int`` and ``fhe_sim`` stay registered under the
+``blocked``, ``int`` and ``fhe_sim`` stay registered under the
 reference's names, so the planner returns the same plan as the reference
 for the same shapes, but running one raises ``NotImplementedError``
 naming the ROADMAP item that ports it.
 
 Selection order is the reference's (see :func:`plan_attention`); kernel
 preference keys on :func:`kernel_native`, i.e. on the kernel modules'
-``LOWERS_ON`` declarations (``paged`` lowers on ``"cuda"``; no other
-family has a kernel yet).  ``AttnShapes.resolved_platform`` is the device
-type of the call's tensors.
+``LOWERS_ON`` declarations (``inhibitor``, ``flash`` and ``paged`` lower
+on ``"cuda"``).  ``AttnShapes.resolved_platform`` is the device type of
+the call's tensors.
 """
 
 from __future__ import annotations
@@ -438,8 +442,6 @@ def _not_ported(backend: str, roadmap: str) -> BackendFn:
 
 
 _BLOCKED = _not_ported("blocked", "ROADMAP queue 1 item 3: core/blocked.py")
-_PALLAS = _not_ported(
-    "pallas", "ROADMAP queue 2 items 2 and 4: the blockwise flash kernels")
 _INT = _not_ported("int", "ROADMAP queue 1 item 9: integer lanes")
 _FHE_SIM = _not_ported("fhe_sim", "ROADMAP queue 1 item 9: FHE simulator")
 
@@ -523,6 +525,32 @@ def _inhibitor_chunked(q, k, v, *, mask=None, params, structural=None):
         normalize=params.normalize, kv_chunk=params.kv_chunk)
 
 
+def _structural_is_plain(s: Structural) -> bool:
+    """True when the Structural carries no decode-cache cursors: the
+    differentiable training kernel applies; otherwise the cursor-carrying
+    (inference only) entry point."""
+    return (s.kv_valid_len is None
+            and isinstance(s.q_offset, int) and s.q_offset == 0)
+
+
+def _inhibitor_pallas(q, k, v, *, mask=None, params, structural=None):
+    from repro_torch.kernels import ops as kops
+
+    s = structural or Structural()
+    choice = _kernel_choice(params)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if _structural_is_plain(s):
+        return kops.flash_inhibitor(q, k, v, params.score_scale,
+                                    params.score_shift, params.signed,
+                                    params.normalize, s.causal, s.window,
+                                    choice)
+    return kops.flash_inhibitor_cached(
+        q, k, v, s.q_offset, s.kv_valid_len, score_scale=params.score_scale,
+        score_shift=params.score_shift, signed=params.signed,
+        normalize=params.normalize, causal=s.causal, window=s.window,
+        choice=choice)
+
+
 def _inhibitor_paged(q, k, v, *, mask=None, params, structural=None,
                      paged=None):
     kc, vc = _gather_pages(k, v, paged)
@@ -567,6 +595,20 @@ def _dotprod_fused(q, k, v, *, mask=None, params, structural=None):
                                     score_scale=params.score_scale)
 
 
+def _dotprod_pallas(q, k, v, *, mask=None, params, structural=None):
+    from repro_torch.kernels import ops as kops
+
+    s = structural or Structural()
+    choice = _kernel_choice(params)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if _structural_is_plain(s):
+        return kops.flash_attention(q, k, v, params.score_scale, s.causal,
+                                    s.window, choice)
+    return kops.flash_attention_cached(
+        q, k, v, s.q_offset, s.kv_valid_len, score_scale=params.score_scale,
+        causal=s.causal, window=s.window, choice=choice)
+
+
 def _dotprod_paged(q, k, v, *, mask=None, params, structural=None,
                    paged=None):
     kc, vc = _gather_pages(k, v, paged)
@@ -596,7 +638,7 @@ def _register_builtins() -> None:
         backends={
             "naive": _dotprod_naive,
             "fused": _dotprod_fused,
-            "pallas": _PALLAS,
+            "pallas": _dotprod_pallas,
             "paged": _dotprod_paged,
             "paged_pallas": _dotprod_paged_pallas,
             "int": _INT,
@@ -608,7 +650,7 @@ def _register_builtins() -> None:
         "fused": _inhibitor_fused,
         "chunked": _inhibitor_chunked,
         "blocked": _BLOCKED,
-        "pallas": _PALLAS,
+        "pallas": _inhibitor_pallas,
         "paged": _inhibitor_paged,
         "paged_pallas": _inhibitor_paged_pallas,
         "int": _INT,

@@ -2,10 +2,12 @@
 
 The sources under ``repro_torch/csrc/`` are compiled with ``nvcc`` for
 ``sm_90a`` into one shared library with a plain C interface, loaded with
-``ctypes`` (no PyTorch headers, so a build takes seconds).  The library is
-built at first use into ``build/kernels/`` at the repository root, keyed
-by a hash of the sources and flags, and reused while they are unchanged.
-Nothing here runs at import time.
+``ctypes`` (no PyTorch headers, so a build takes seconds).  Each source
+compiles to an object in its own ``nvcc`` process, all started together,
+and one more links them.  The library is built at first use into
+``build/kernels/`` at the repository root, keyed by a hash of the sources
+and flags, and reused while they are unchanged.  Nothing here runs at
+import time.
 """
 
 from __future__ import annotations
@@ -21,10 +23,11 @@ from pathlib import Path
 from typing import Optional
 
 _PKG = Path(__file__).resolve().parents[1]
-SOURCES = (_PKG / "csrc" / "paged_decode.cu",)
+SOURCES = (_PKG / "csrc" / "paged_decode.cu",
+           _PKG / "csrc" / "flash_prefill.cu")
 BUILD_DIR = _PKG.parents[1] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,19 +71,36 @@ def build() -> BuildInfo:
     if _build is not None:
         return _build
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    target = BUILD_DIR / f"libpaged_decode-{_digest()}.so"
+    target = BUILD_DIR / f"libkernels-{_digest()}.so"
     if target.is_file():
         _build = BuildInfo(target, 0.0, True, "")
         return _build
+    nvcc = _nvcc()
+    tag = f"{target.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{src.stem}-{tag}.o" for src in SOURCES]
     tmp = target.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                               str(src)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(SOURCES, objs)]
+    logs = [p.communicate()[0] for p in procs]
+    log = "".join(logs)
+    failed = [(src.name, p.returncode) for src, p in zip(SOURCES, procs)
+              if p.returncode != 0]
+    if not failed:
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                               *map(str, objs)], capture_output=True,
+                              text=True)
+        log += link.stdout + link.stderr
+        if link.returncode != 0:
+            failed.append(("link", link.returncode))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+        raise RuntimeError(f"nvcc failed {failed}:\n{log}")
     os.replace(tmp, target)
     (BUILD_DIR / f"{target.stem}.log").write_text(log)
     _build = BuildInfo(target, seconds, False, log)
@@ -102,6 +122,16 @@ def library() -> ctypes.CDLL:
     lib.paged_attention_decode.restype = I
     lib.paged_decode_smem_bytes.argtypes = [I, I, I, I]
     lib.paged_decode_smem_bytes.restype = ctypes.c_longlong
+    lib.flash_inhibitor_prefill.argtypes = [
+        I, P, P, P, P, P, I, I, I, I, I, I, I, F, F, I, I, I, I, P]
+    lib.flash_inhibitor_prefill.restype = I
+    lib.flash_attention_prefill.argtypes = [
+        I, P, P, P, P, P, I, I, I, I, I, I, I, F, I, I, P]
+    lib.flash_attention_prefill.restype = I
+    lib.flash_prefill_smem_bytes.argtypes = [I, I, I]
+    lib.flash_prefill_smem_bytes.restype = ctypes.c_longlong
+    lib.flash_prefill_max_outputs.argtypes = []
+    lib.flash_prefill_max_outputs.restype = I
     lib.paged_decode_error_string.argtypes = [I]
     lib.paged_decode_error_string.restype = ctypes.c_char_p
     _lib = lib

@@ -1,0 +1,192 @@
+"""Flash-Inhibitor: the blockwise inhibitor forward (eq. 5 + eq. 9/10).
+
+:func:`flash_inhibitor_fwd` launches the hand-written CUDA kernel of
+``csrc/flash_prefill.cu``, which replaces the TPU kernel
+``repro/kernels/inhibitor.py:99`` ``_flash_inhibitor_kernel``: one block
+per (row, kv head, query tile) loops over 32-key tiles, the group's query
+heads sharing each staged K/V tile, with causal / window / cursor masks
+computed from indices and applied by predicate.  It is bound by the
+CUDA-core float32 operations of the score and inhibition sums (no tensor
+core computes a sum of absolute differences); the source's header note
+gives the count and the design.
+
+:func:`flash_inhibitor_plain` is its plain version: the chunked streaming
+form of :mod:`repro_torch.core.inhibitor` under the same mask (exact; its
+cubes are bounded by the key chunk, so it runs at the training shapes).
+The wrapper takes it only for tensors on the CPU; for CUDA tensors it
+launches the kernel or raises, never falls back.  ``<wrapper>.launches``
+counts kernel launches and ``<plain>.calls`` plain calls
+(:func:`reset_counts` zeroes both, with :mod:`repro_torch.kernels.flash`'s).
+
+``q_offset`` / ``kv_valid_len`` (the decode-cache form): queries of row r
+sit at positions ``q_offset[r] + i`` and only its first ``kv_valid_len[r]``
+keys are live (:func:`pack_cursors`).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import ref as kref
+
+DEFAULT_BLOCK_Q = 16
+BLOCK_K = 32                  # keys per staged tile: one per lane
+PLAIN_KV_CHUNK = 128
+
+#: Platforms (tensor device types) these kernels run natively on.
+LOWERS_ON = ("cuda",)
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_HEAD_DIMS = (16, 32, 64, 128)
+_MAX_SMEM = 227 * 1024
+
+
+def pack_cursors(batch: int, q_offset, kv_valid_len, n_k: int,
+                 device) -> torch.Tensor:
+    """Per-row decode cursors as one (2, batch) int32 tensor: row 0 the
+    query offsets, row 1 the KV valid lengths.  Scalars broadcast;
+    ``None`` means offset 0 / all ``n_k`` keys."""
+    def one(x, default):
+        t = torch.as_tensor(default if x is None else x, dtype=torch.int32,
+                            device=device)
+        return t.reshape(-1).expand(batch)
+
+    return torch.stack([one(q_offset, 0), one(kv_valid_len, n_k)])
+
+
+def _layout(q, k, v):
+    """Shape checks shared by both prefill kernels; returns (batch, n_q,
+    n_k, heads, kv_heads, d)."""
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"q {tuple(q.shape)} must be (batch, n_q, heads, d) "
+                         f"and k {tuple(k.shape)} / v {tuple(v.shape)} equal "
+                         f"(batch, n_k, kv_heads, d)")
+    batch, n_q, heads, d = q.shape
+    _, n_k, kv_heads, dk = k.shape
+    if k.shape[0] != batch or dk != d or heads % kv_heads:
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} do not "
+                         f"factor into (batch, heads / kv_heads, d)")
+    return batch, n_q, n_k, heads, kv_heads, d
+
+
+def launch_prefill(entry: str, q, k, v, cursors, *, block_q: int,
+                   scale: float, extra: tuple, causal: bool, window):
+    """Validate and launch one prefill kernel on the current stream of q's
+    device; returns the output tensor.  Shared by the flash inhibitor and
+    flash attention wrappers (the two kernels take the same layout)."""
+    from repro_torch.kernels import cuda_lib
+
+    batch, n_q, n_k, heads, kv_heads, d = _layout(q, k, v)
+    tensors = (q, k, v) + (() if cursors is None else (cursors,))
+    if q.device.type != "cuda" or any(t.device != q.device for t in tensors):
+        raise ValueError("prefill kernel: all operands must be on one CUDA "
+                         f"device, got {[str(t.device) for t in tensors]}")
+    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"prefill kernel: q/k/v must share one of "
+                        f"{list(_DTYPE_CODE)}, got {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}")
+    if cursors is not None and (cursors.dtype != torch.int32
+                                or tuple(cursors.shape) != (2, batch)):
+        raise TypeError("prefill kernel: cursors must be (2, batch) int32")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("prefill kernel: operands must be contiguous")
+    if d not in _HEAD_DIMS:
+        raise ValueError(f"prefill kernel: head_dim {d} not in {_HEAD_DIMS}")
+    lib = cuda_lib.library()
+    group = heads // kv_heads
+    bq = max(1, int(block_q))
+    # a block holds group * block_q * d outputs in registers: halve the
+    # query tile until they (and the staged tiles) fit
+    while bq > 1 and (group * bq * d > lib.flash_prefill_max_outputs()
+                      or lib.flash_prefill_smem_bytes(group, bq, d)
+                      > _MAX_SMEM):
+        bq //= 2
+    if (group * bq * d > lib.flash_prefill_max_outputs()
+            or lib.flash_prefill_smem_bytes(group, bq, d) > _MAX_SMEM):
+        raise ValueError(f"prefill kernel: group {group} x head_dim {d} "
+                         f"does not fit one block")
+    out = torch.empty_like(q)
+    if batch == 0 or n_q == 0:
+        return out
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        err = getattr(lib, entry)(
+            _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if cursors is None else cursors.data_ptr(), out.data_ptr(),
+            batch, n_q, n_k, heads, kv_heads, d, bq, float(scale), *extra,
+            int(bool(causal)), -1 if window is None else int(window), stream)
+    if err:
+        raise RuntimeError(f"{entry} launch failed: "
+                           f"{lib.paged_decode_error_string(err).decode()}")
+    return out
+
+
+def _cursors_or_none(q, k, q_offset, kv_valid_len):
+    if q_offset is None and kv_valid_len is None:
+        return None
+    return pack_cursors(q.shape[0], q_offset, kv_valid_len, k.shape[1],
+                        q.device)
+
+
+def flash_inhibitor_plain(q, k, v, *, score_scale=None, score_shift=0.5,
+                          signed=True, normalize=True, causal=True,
+                          window=None, q_offset=None, kv_valid_len=None):
+    """Plain version of the flash inhibitor kernel: the chunked form under
+    the kernel's mask."""
+    flash_inhibitor_plain.calls += 1
+    from repro_torch.core.inhibitor import inhibitor_attention_chunked
+
+    mask = kref.prefill_mask(
+        q.shape[1], k.shape[1], causal=causal, window=window,
+        cursors=_cursors_or_none(q, k, q_offset, kv_valid_len),
+        device=q.device)
+    return inhibitor_attention_chunked(
+        q, k, v, mask=mask, score_scale=score_scale, score_shift=score_shift,
+        signed=signed, normalize=normalize, kv_chunk=PLAIN_KV_CHUNK)
+
+
+flash_inhibitor_plain.calls = 0
+
+
+def flash_inhibitor_fwd(
+    q: torch.Tensor,            # (batch, n_q, heads, d)
+    k: torch.Tensor,            # (batch, n_k, kv_heads, d)
+    v: torch.Tensor,            # (batch, n_k, kv_heads, d)
+    *,
+    score_scale: Optional[float] = None,
+    score_shift: float = 0.5,
+    signed: bool = True,
+    normalize: bool = True,
+    causal: bool = True,
+    window: Optional[int] = None,
+    block_q: int = DEFAULT_BLOCK_Q,
+    q_offset=None,
+    kv_valid_len=None,
+) -> torch.Tensor:
+    """Flash-inhibitor forward -> (batch, n_q, heads, d) in q.dtype.
+
+    The ragged edge (n_q, n_k not multiples of the tiles) is masked inside
+    the kernel: no padding copy.  ``q_offset`` / ``kv_valid_len`` (int,
+    0-d or (batch,) tensors) select the decode-cache form."""
+    _layout(q, k, v)
+    kw = dict(score_scale=score_scale, score_shift=score_shift,
+              signed=signed, normalize=normalize, causal=causal,
+              window=window)
+    if q.device.type == "cpu":
+        return flash_inhibitor_plain(q, k, v, q_offset=q_offset,
+                                     kv_valid_len=kv_valid_len, **kw)
+    scale = score_scale if score_scale is not None else math.sqrt(q.shape[-1])
+    out = launch_prefill(
+        "flash_inhibitor_prefill", q, k, v,
+        _cursors_or_none(q, k, q_offset, kv_valid_len), block_q=block_q,
+        scale=scale, extra=(float(score_shift), int(bool(signed)),
+                            int(bool(normalize))), causal=causal,
+        window=window)
+    flash_inhibitor_fwd.launches += 1
+    return out
+
+
+flash_inhibitor_fwd.launches = 0

@@ -1,13 +1,19 @@
 """Kernel registry: the kernel families' native platforms, per-shape launch
-choices with decision provenance, and the public paged-decode wrappers.
+choices with decision provenance, and the public kernel wrappers.
 
-Port of the registry half of :mod:`repro.kernels.ops`:
+Port of :mod:`repro.kernels.ops`:
 
   * :data:`NATIVE_PLATFORMS` — per family, the platforms (tensor device
     types) its kernel runs natively on, from each kernel module's
-    ``LOWERS_ON``.  Only ``paged`` has a kernel in this port so far
-    (``("cuda",)``); the planner (``core.mechanism.kernel_native``) keys
-    kernel preference on this table.
+    ``LOWERS_ON``: ``inhibitor``, ``flash`` and ``paged`` have CUDA
+    kernels (``("cuda",)``); the planner (``core.mechanism.
+    kernel_native``) keys kernel preference on this table.
+  * :func:`flash_inhibitor` / :func:`flash_attention` — the training
+    kernels under ``torch.autograd.Function``: the forward is the kernel,
+    the backward recomputes through the reference (as the reference's
+    ``_fi_bwd`` / ``_fa_bwd``): the analytic, key-chunked inhibitor
+    backward and the lean Softmax backward of :mod:`repro_torch.core`.
+    ``*_cached`` carry per-row decode cursors and are inference only.
   * :class:`KernelChoice` / :data:`CANDIDATES` / :class:`KernelRegistry`
     — the launch configuration per (family, shape), an explicit override
     winning, else the family's default, cached per shape and recorded in
@@ -21,11 +27,16 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, Optional, Tuple
 
+import torch
+
+from repro_torch.kernels import flash as kflash
+from repro_torch.kernels import inhibitor as kinhibitor
 from repro_torch.kernels import paged as kpaged
+from repro_torch.kernels import ref as kref
 
 NATIVE_PLATFORMS: Dict[str, Tuple[str, ...]] = {
-    "inhibitor": (),          # blockwise flash inhibitor: not ported yet
-    "flash": (),              # blockwise flash attention: not ported yet
+    "inhibitor": tuple(kinhibitor.LOWERS_ON),
+    "flash": tuple(kflash.LOWERS_ON),
     "paged": tuple(kpaged.LOWERS_ON),
     "wkv6": (),               # RWKV-6 WKV scan: not ported yet
 }
@@ -34,8 +45,10 @@ NATIVE_PLATFORMS: Dict[str, Tuple[str, ...]] = {
 @dataclasses.dataclass(frozen=True)
 class KernelChoice:
     """Launch configuration for one kernel call; ``None`` fields fall back
-    to the registry's choice.  The paged kernels read ``pages_per_step``
-    (pages staged in shared memory per round)."""
+    to the registry's choice.  The prefill kernels read ``block_q`` (the
+    query tile; their key tile is fixed at ``BLOCK_K`` = 32, one key per
+    lane), the paged kernels ``pages_per_step`` (pages staged in shared
+    memory per round)."""
     block_q: Optional[int] = None
     block_k: Optional[int] = None
     sub_k: Optional[int] = None
@@ -56,6 +69,16 @@ class KernelChoice:
 
 #: Candidate launch configurations per family — the first is the default.
 CANDIDATES: Dict[str, Tuple[KernelChoice, ...]] = {
+    "inhibitor": (
+        KernelChoice(kinhibitor.DEFAULT_BLOCK_Q, kinhibitor.BLOCK_K),
+        KernelChoice(8, kinhibitor.BLOCK_K),
+        KernelChoice(32, kinhibitor.BLOCK_K),
+    ),
+    "flash": (
+        KernelChoice(kflash.DEFAULT_BLOCK_Q, kinhibitor.BLOCK_K),
+        KernelChoice(8, kinhibitor.BLOCK_K),
+        KernelChoice(32, kinhibitor.BLOCK_K),
+    ),
     "paged": (
         KernelChoice(pages_per_step=kpaged.DEFAULT_PAGES_PER_STEP),
         KernelChoice(pages_per_step=1), KernelChoice(pages_per_step=2),
@@ -122,3 +145,139 @@ def paged_flash_attention(q, k_pool, v_pool, block_tables, lengths, *,
     return kpaged.paged_flash_attention_fwd(
         q, k_pool, v_pool, block_tables, lengths, score_scale=score_scale,
         window=window, pages_per_step=c.pages_per_step)
+
+
+# ---------------------------------------------------------------------------
+# blockwise prefill / training kernels
+# ---------------------------------------------------------------------------
+
+#: profiler range around the training kernels' backward recompute (read
+#: by ``launch.profile --train``)
+BACKWARD_RANGE = "repro_torch.flash_backward"
+
+
+def _prefill_choice(family: str, q, k, causal, window, cached: bool,
+                    override: Optional[KernelChoice]) -> KernelChoice:
+    shape_key = (q.shape[1], k.shape[1], q.shape[2], k.shape[2], q.shape[3],
+                 causal, window, cached)
+    c = registry.choose(family, shape_key, q.device.type, override)
+    if c.block_k not in (None, kinhibitor.BLOCK_K):
+        raise ValueError(f"the {family} kernel stages {kinhibitor.BLOCK_K} "
+                         f"keys per tile (one per lane); block_k="
+                         f"{c.block_k} is not a launch option")
+    return c
+
+
+class _FlashInhibitor(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, score_scale, score_shift, signed, normalize,
+                causal, window, choice):
+        c = _prefill_choice("inhibitor", q, k, causal, window, False, choice)
+        ctx.save_for_backward(q, k, v)
+        ctx.kw = dict(score_scale=score_scale, score_shift=score_shift,
+                      signed=signed, normalize=normalize)
+        ctx.mask = (causal, window)
+        return kinhibitor.flash_inhibitor_fwd(
+            q, k, v, causal=causal, window=window, block_q=c.block_q,
+            **ctx.kw)
+
+    @staticmethod
+    def backward(ctx, g):
+        from repro_torch.core.inhibitor import inhibitor_attention_vjp
+
+        q, k, v = ctx.saved_tensors
+        with torch.profiler.record_function(BACKWARD_RANGE):
+            mask = kref._mask_for(q.shape[1], k.shape[1], *ctx.mask,
+                                  q.device)
+            grads = inhibitor_attention_vjp(q, k, v, g, mask=mask, **ctx.kw)
+        return grads + (None,) * 7
+
+
+def flash_inhibitor(q, k, v, score_scale=None, score_shift=0.5, signed=True,
+                    normalize=True, causal=True, window=None, choice=None):
+    """Flash-inhibitor attention with a recompute-based backward: the
+    forward runs the kernel (its plain version on the CPU), the backward
+    the reference's analytic VJP (no score matrix is saved).  ``choice``
+    (a :class:`KernelChoice`) overrides the registry's launch choice."""
+    return _FlashInhibitor.apply(q, k, v, score_scale, score_shift, signed,
+                                 normalize, causal, window, choice)
+
+
+def flash_inhibitor_cached(q, k, v, q_offset, kv_valid_len, *,
+                           score_scale=None, score_shift=0.5, signed=True,
+                           normalize=True, causal=True, window=None,
+                           choice=None):
+    """Decode-cache flash inhibitor: per-row ``q_offset`` /
+    ``kv_valid_len`` cursors (ints, 0-d or (b,) tensors).  Inference only:
+    no backward is defined for the cursor-carrying form."""
+    c = _prefill_choice("inhibitor", q, k, causal, window, True, choice)
+    return kinhibitor.flash_inhibitor_fwd(
+        q, k, v, score_scale=score_scale, score_shift=score_shift,
+        signed=signed, normalize=normalize, causal=causal, window=window,
+        block_q=c.block_q, q_offset=q_offset, kv_valid_len=kv_valid_len)
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, score_scale, causal, window, choice):
+        c = _prefill_choice("flash", q, k, causal, window, False, choice)
+        ctx.save_for_backward(q, k, v)
+        ctx.cfg = (score_scale, causal, window)
+        return kflash.flash_attention_fwd(
+            q, k, v, score_scale=score_scale, causal=causal, window=window,
+            block_q=c.block_q)
+
+    @staticmethod
+    def backward(ctx, g):
+        from repro_torch.core.dotprod import dot_product_attention_vjp
+
+        q, k, v = ctx.saved_tensors
+        score_scale, causal, window = ctx.cfg
+        with torch.profiler.record_function(BACKWARD_RANGE):
+            mask = kref._mask_for(q.shape[1], k.shape[1], causal, window,
+                                  q.device)
+            grads = dot_product_attention_vjp(q, k, v, g, mask=mask,
+                                              score_scale=score_scale)
+        return tuple(grads) + (None,) * 4
+
+
+def flash_attention(q, k, v, score_scale=None, causal=True, window=None,
+                    choice=None):
+    """Flash (Softmax) attention with a recompute-based backward (see
+    :func:`flash_inhibitor`)."""
+    return _FlashAttention.apply(q, k, v, score_scale, causal, window,
+                                 choice)
+
+
+def flash_attention_cached(q, k, v, q_offset, kv_valid_len, *,
+                           score_scale=None, causal=True, window=None,
+                           choice=None):
+    """Decode-cache flash attention (see :func:`flash_inhibitor_cached`)."""
+    c = _prefill_choice("flash", q, k, causal, window, True, choice)
+    return kflash.flash_attention_fwd(
+        q, k, v, score_scale=score_scale, causal=causal, window=window,
+        block_q=c.block_q, q_offset=q_offset, kv_valid_len=kv_valid_len)
+
+
+# ---------------------------------------------------------------------------
+# launch / plain-call counts of every kernel
+# ---------------------------------------------------------------------------
+
+def reset_counts() -> None:
+    """Zero every kernel's launch count and every plain version's call
+    count."""
+    kpaged.reset_counts()
+    kinhibitor.flash_inhibitor_fwd.launches = 0
+    kflash.flash_attention_fwd.launches = 0
+    kinhibitor.flash_inhibitor_plain.calls = 0
+    kflash.flash_attention_plain.calls = 0
+
+
+def counts() -> dict:
+    return {
+        **kpaged.counts(),
+        "flash_inhibitor": kinhibitor.flash_inhibitor_fwd.launches,
+        "flash_attention": kflash.flash_attention_fwd.launches,
+        "flash_inhibitor_plain": kinhibitor.flash_inhibitor_plain.calls,
+        "flash_attention_plain": kflash.flash_attention_plain.calls,
+    }

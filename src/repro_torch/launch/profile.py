@@ -1,7 +1,19 @@
-"""Profile one full-width paged decode step on the card.
+"""Profile one full-width paged decode step, or one train step, on the
+card.
 
     python -m repro_torch.launch.profile --arch smollm-135m@inhibitor \\
         --out profile_inhibitor.json
+    python -m repro_torch.launch.profile --train --arch smollm-135m@inhibitor
+
+``--train`` profiles ``make_train_step`` at full width and depth (batch 8
+x seq 1024 of the seeded LM stream by default): step wall (host clock to
+a synchronize), device busy time and idle share from the same
+``torch.profiler`` CUDA trace, and the device time split between the
+flash forward kernel (its launches, remat recompute included), the
+backward recompute through the reference (the ``kernels.ops.
+BACKWARD_RANGE`` profiler range) and the rest, with the top kernels.
+
+Without ``--train``:
 
 Builds the model from a seeded generator, a paged decode state whose rows
 hold ragged contexts of random K/V (the serve phase's batch of 8), and
@@ -61,6 +73,105 @@ def build_state(cfg, lengths, *, page_size: int, max_len: int, gen,
     return st
 
 
+def _kernel_events(prof, ranges=()):
+    """Device-side kernel events only: CPU ops also carry the device time
+    of the kernels they launched, and summing both counts it twice; the
+    device-side copies of profiler ``ranges`` span kernels and are left
+    out for the same reason."""
+    events = prof.key_averages()
+    kernels = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.key not in ranges]
+    if not kernels:
+        raise SystemExit("profile: the trace holds no CUDA kernel events")
+    return events, kernels
+
+
+def _card() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def profile_train(args, device) -> dict:
+    """One full-width train step: wall vs device time, and where the
+    device time goes."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import PipelineConfig, lm_batch_at
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models.registry import get_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train.step import init_train_state, make_train_step
+
+    cfg = get_config(args.arch)
+    api = get_model(cfg)
+    opt_cfg = AdamWConfig(lr=3e-4)
+    params, opt_state = init_train_state(
+        api, opt_cfg, torch.Generator().manual_seed(0), device=device)
+    step_fn = make_train_step(api, opt_cfg)
+    pipe = PipelineConfig(global_batch=args.batch, seq_len=args.seq,
+                          vocab_size=cfg.vocab_size)
+    batch = {k: torch.from_numpy(v).to(device)
+             for k, v in lm_batch_at(pipe, 0).items()}
+
+    def step():
+        nonlocal params, opt_state
+        params, opt_state, m = step_fn(params, opt_state, batch)
+        return m["loss"]
+
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    wall = []
+    for _ in range(args.steps or 3):
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+
+    kops.reset_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        prof_wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = {k: v for k, v in kops.counts().items() if v}
+    events, kernels = _kernel_events(prof, (kops.BACKWARD_RANGE,))
+    device_ms = sum(_device_us(e) for e in kernels) / 1e3
+    fwd_ms = sum(_device_us(e) for e in kernels
+                 if "flash_inhibitor_kernel" in e.key
+                 or "flash_attention_kernel" in e.key) / 1e3
+    # the range's CPU event: its device time sums the kernels of the ops
+    # under it (the trace also holds a device-side copy of the range)
+    ranges = [e for e in prof.events() if e.name == kops.BACKWARD_RANGE
+              and e.device_type == torch.autograd.DeviceType.CPU]
+    bwd_ms = sum(e.device_time_total for e in ranges) / 1e3
+    top = sorted(kernels, key=_device_us, reverse=True)[:15]
+    p50 = statistics.median(wall)
+    return {
+        "mode": "train", "arch": args.arch, "card": _card(),
+        "batch": args.batch, "seq": args.seq, "torch": torch.__version__,
+        "step_wall_ms_p50": p50, "step_wall_ms": wall,
+        "profiled_step_wall_ms": prof_wall_ms,
+        "step_device_ms": device_ms,
+        "device_idle_share": 1.0 - device_ms / p50,
+        "device_kernels_per_step": sum(e.count for e in kernels),
+        "tokens_per_s": args.batch * args.seq / (p50 / 1e3),
+        "launches": launches,
+        "backward_ranges": len(ranges),
+        "device_ms_split": {"flash_forward_kernel": fwd_ms,
+                            "backward_recompute": bwd_ms,
+                            "rest": device_ms - fwd_ms - bwd_ms},
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(device),
+        "top_kernels": [{"name": e.key[:80], "count": e.count,
+                         "device_ms": _device_us(e) / 1e3} for e in top],
+    }
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="smollm-135m@inhibitor")
@@ -68,7 +179,12 @@ def main(argv=None) -> int:
                     help="per-row context before the step (comma list)")
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--max-len", type=int, default=512)
-    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--steps", type=int, default=None,
+                    help="timed steps (default: 20 decode, 3 train)")
+    ap.add_argument("--train", action="store_true",
+                    help="profile one train step instead of a decode step")
+    ap.add_argument("--batch", type=int, default=8, help="train batch")
+    ap.add_argument("--seq", type=int, default=1024, help="train seq len")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
@@ -83,6 +199,8 @@ def main(argv=None) -> int:
         raise SystemExit("profile: needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.train:
+        return _report(profile_train(args, device), args.out)
     cfg = get_config(args.arch)
     lengths = [int(x) for x in args.lengths.split(",")]
     gen = torch.Generator(device=device).manual_seed(0)
@@ -101,7 +219,7 @@ def main(argv=None) -> int:
         step()
     torch.cuda.synchronize()
     wall = []
-    for _ in range(args.steps):
+    for _ in range(args.steps or 20):
         t0 = time.perf_counter()
         step()
         torch.cuda.synchronize()
@@ -119,13 +237,7 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         prof_wall_ms = (time.perf_counter() - t0) * 1e3 / n_prof
     launches = kpaged.counts()
-    events = prof.key_averages()
-    # device-side kernel events only: CPU ops also carry the device time
-    # of the kernels they launched, and summing both counts it twice
-    kernels = [e for e in events
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not kernels:
-        raise SystemExit("profile: the trace holds no CUDA kernel events")
+    events, kernels = _kernel_events(prof)
     device_ms = sum(_device_us(e) for e in kernels) / 1e3 / n_prof
     n_launch = sum(e.count for e in kernels) / n_prof
     runtime_launches = sum(e.count for e in events
@@ -157,12 +269,8 @@ def main(argv=None) -> int:
     ev1.synchronize()
     call_ms = ev0.elapsed_time(ev1) / n_calls
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
     out = {
-        "arch": args.arch, "card": smi, "batch": len(lengths),
+        "arch": args.arch, "card": _card(), "batch": len(lengths),
         "lengths": lengths, "torch": torch.__version__,
         "step_wall_ms_p50": statistics.median(wall),
         "step_wall_ms_min": min(wall),
@@ -179,11 +287,15 @@ def main(argv=None) -> int:
                          "device_us_per_step": _device_us(e) / n_prof}
                         for e in top],
     }
+    return _report(out, args.out)
+
+
+def _report(out: dict, path) -> int:
     text = json.dumps(out, indent=1)
     print(text, flush=True)
-    if args.out:
-        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
-        Path(args.out).write_text(text + "\n")
+    if path:
+        Path(path).parent.mkdir(parents=True, exist_ok=True)
+        Path(path).write_text(text + "\n")
     return 0
 
 

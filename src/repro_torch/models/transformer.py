@@ -10,6 +10,12 @@ Block (pre-norm)::
     x = x + attention(norm1(x))
     x = x + ffn(norm2(x))
 
+In training (a forward under grad mode with no cache) ``cfg.remat ==
+"full"`` wraps each block in ``torch.utils.checkpoint`` (non-reentrant),
+as the reference wraps its scan body in ``jax.checkpoint``: only the
+block inputs are kept, and each block's forward runs again in the
+backward.
+
 Decode state (:func:`init_states`) owns real per-layer storage, allocated
 with ``torch.zeros`` — never a broadcast view — because attention writes
 each layer's new keys/values into its own slice in place.  Block tables
@@ -23,6 +29,7 @@ import dataclasses
 from typing import NamedTuple, Optional, Union
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.attention import (
@@ -119,9 +126,30 @@ def _layer_cache(kv, layer: int):
     return kv._replace(k=kv.k[layer], v=kv.v[layer])
 
 
+def _remat_blocks(cfg: ModelConfig, kv) -> bool:
+    """Checkpoint each block?  Only in training: grad mode, no cache."""
+    if kv is not None or not torch.is_grad_enabled() or cfg.remat == "none":
+        return False
+    if cfg.remat == "full":
+        return True
+    raise NotImplementedError(
+        f"remat={cfg.remat!r} is not ported to PyTorch yet (ROADMAP queue "
+        f"1, left out of slice 2: remat \"dots\" / \"offload\")")
+
+
+def _checkpointed_block(lp, cfg: ModelConfig, x, positions):
+    return apply_block(lp, cfg, x, positions=positions)[0]
+
+
 def _run_blocks(params, cfg: ModelConfig, x, positions, kv=None):
     """Apply every block in order; ``kv`` is the layer-stacked cache whose
     per-layer slices the blocks update in place.  Returns (x, kv')."""
+    if _remat_blocks(cfg, kv):
+        for lp in params["blocks"]:
+            x = torch.utils.checkpoint.checkpoint(
+                _checkpointed_block, lp, cfg, x, positions,
+                use_reentrant=False)
+        return x, None
     new_length = None
     for layer, lp in enumerate(params["blocks"]):
         x, c = apply_block(lp, cfg, x, positions=positions,

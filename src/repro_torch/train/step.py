@@ -1,0 +1,156 @@
+"""Train and eval step builders.
+
+Port of :mod:`repro.train.step` (the dense branch; the serving steps stay
+with ``serve/engine.py``).  ``make_train_step(api, opt_cfg)`` returns
+``(params, opt_state, batch) -> (params', opt_state', metrics)``; the
+optimizer updates ``params`` and ``opt_state`` in place
+(:func:`repro_torch.optim.adamw.adamw_update`), so the returned trees are
+the ones passed in.  Parameters are leaf tensors with ``requires_grad``
+set (:func:`init_train_state`); gradients come from
+``torch.autograd.grad`` and never accumulate in ``.grad``.
+
+Cross-entropy: logits stay in the compute dtype; :class:`_TokenNLL` saves
+only them and the float32 log-sum-exp, and its backward forms
+``exp(x − lse) − onehot`` without a float32 logits-sized residual.
+Label positions < 0 are masked out of the loss.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Tuple
+
+import torch
+
+from repro_torch.models.registry import ModelApi
+from repro_torch.optim.adamw import AdamWConfig, adamw_update, init_adamw
+from repro_torch.tree import tree_leaves, tree_unflatten
+
+
+class _TokenNLL(torch.autograd.Function):
+    """Per-token negative log likelihood, memory-lean (reference
+    ``_token_nll``): saves the compute-dtype logits and the (b, s) float32
+    lse."""
+
+    @staticmethod
+    def forward(ctx, logits, labels):
+        lf = logits.float()
+        lse = torch.logsumexp(lf, dim=-1)
+        gold = torch.gather(lf, -1, labels[..., None].long())[..., 0]
+        ctx.save_for_backward(logits, labels, lse)
+        return lse - gold
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, labels, lse = ctx.saved_tensors
+        # softmax·g, cast to the logits' dtype; the −onehot·g term is a
+        # scatter-add at the gold indices (no (b, s, V) one-hot)
+        grad = (torch.exp(logits.float() - lse[..., None])
+                * g[..., None]).to(logits.dtype)
+        grad.scatter_add_(-1, labels[..., None].long(),
+                          -g[..., None].to(grad.dtype))
+        return grad, None
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean masked cross-entropy. logits (b, s, V); labels (b, s) int,
+    negative = ignore."""
+    mask = labels >= 0
+    safe = torch.clamp(labels, min=0)
+    nll = _TokenNLL.apply(logits, safe) * mask.float()
+    denom = torch.clamp(mask.sum(), min=1)
+    return nll.sum() / denom
+
+
+def _align_labels(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Pad/crop labels on the sequence axis to the logits length (VLM
+    prepends image positions: those get ignore-labels)."""
+    s_logits, s_labels = logits.shape[1], labels.shape[1]
+    if s_labels == s_logits:
+        return labels
+    if s_labels < s_logits:
+        pad = torch.full((labels.shape[0], s_logits - s_labels), -1,
+                         dtype=labels.dtype, device=labels.device)
+        return torch.cat([pad, labels], dim=1)
+    return labels[:, -s_logits:]
+
+
+def make_loss_fn(api: ModelApi) -> Callable:
+    """``loss_fn(params, batch) -> (loss, metrics)`` (dense: no MoE
+    auxiliary terms)."""
+
+    def loss_fn(params, batch) -> tuple:
+        logits = api.forward(params, batch)
+        loss = softmax_xent(logits, _align_labels(logits, batch["labels"]))
+        return loss, {"xent": loss, "loss": loss}
+
+    return loss_fn
+
+
+def make_grad_fn(api: ModelApi, microbatches: int = 1) -> Callable:
+    """``grad_fn(params, batch) -> (grads, metrics)``: the gradient half
+    of :func:`make_train_step`.  ``microbatches`` > 1 splits the batch
+    into N sequential micro-steps with float32 gradient accumulation; the
+    gradient is their mean, and each metric the mean of its values."""
+    loss_fn = make_loss_fn(api)
+
+    def grad_fn(params, batch) -> Tuple[dict, dict]:
+        leaves = tree_leaves(params)
+        if microbatches == 1:
+            loss, metrics = loss_fn(params, batch)
+            grads = torch.autograd.grad(loss, leaves)
+            return tree_unflatten(params, grads), _detached(metrics)
+        acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+               for p in leaves]
+        ms = []
+        splits = {k: v.chunk(microbatches, dim=0) for k, v in batch.items()}
+        for i in range(microbatches):
+            loss, m = loss_fn(params, {k: v[i] for k, v in splits.items()})
+            for a, g in zip(acc, torch.autograd.grad(loss, leaves)):
+                a.add_(g.float())
+            ms.append(_detached(m))
+        grads = [a / microbatches for a in acc]
+        metrics = {k: torch.stack([m[k] for m in ms]).mean() for k in ms[0]}
+        return tree_unflatten(params, grads), metrics
+
+    return grad_fn
+
+
+def _detached(metrics: dict) -> dict:
+    return {k: v.detach() for k, v in metrics.items()}
+
+
+def make_train_step(api: ModelApi, opt_cfg: AdamWConfig,
+                    microbatches: int = 1) -> Callable:
+    """Build the train step: gradients (:func:`make_grad_fn`), then one
+    AdamW update, in place."""
+    grad_fn = make_grad_fn(api, microbatches)
+
+    def train_step(params, opt_state, batch):
+        grads, metrics = grad_fn(params, batch)
+        new_params, new_opt, opt_metrics = adamw_update(
+            grads, opt_state, params, opt_cfg)
+        return new_params, new_opt, {**metrics, **opt_metrics}
+
+    return train_step
+
+
+def make_eval_step(api: ModelApi) -> Callable:
+    loss_fn = make_loss_fn(api)
+
+    @torch.no_grad()
+    def eval_step(params, batch):
+        return loss_fn(params, batch)[1]
+
+    return eval_step
+
+
+def init_train_state(api: ModelApi, opt_cfg: AdamWConfig,
+                     gen: torch.Generator, *, device=None):
+    """Initialize (params, opt_state): parameters from ``gen`` (a CPU
+    generator) on ``device`` (default ``cuda``), as leaf tensors that
+    require grad.  The reference also returns the logical sharding axes;
+    the single-device port has none."""
+    params = api.init(gen, device=device)
+    for p in tree_leaves(params):
+        p.requires_grad_(True)
+    return params, init_adamw(params, opt_cfg)

@@ -207,6 +207,10 @@ def test_plan_attention_matches_reference(mech, case):
 
 
 def test_cuda_decode_plans_the_kernel_and_unported_backends_raise():
+    """On CUDA the planner picks the paged decode kernel for a paged
+    single-query decode and the blockwise flash kernels (``pallas``) for a
+    training forward at n_q * n_k >= 2^20, for both families; ``blocked``,
+    ``int`` and ``fhe_sim`` still raise, naming their ROADMAP items."""
     cfg = tatt.AttentionConfig(mechanism="inhibitor", num_heads=9,
                                num_kv_heads=3, head_dim=64)
     decode = tmech.AttnShapes(batch=8, n_q=1, n_k=512, num_heads=9,
@@ -216,9 +220,24 @@ def test_cuda_decode_plans_the_kernel_and_unported_backends_raise():
     assert tmech.plan_attention(cfg, decode).backend == "paged_pallas"
     assert tmech.plan_attention(
         cfg, decode._replace(n_q=32)).backend == "paged"
+    train = tmech.AttnShapes(batch=8, n_q=1024, n_k=1024, num_heads=9,
+                             num_kv_heads=3, head_dim=64, platform="cuda")
+    for mech in ("inhibitor", "inhibitor_unsigned", "dotprod"):
+        mcfg = tatt.AttentionConfig(mechanism=mech, num_heads=9,
+                                    num_kv_heads=3, head_dim=64)
+        assert tmech.plan_attention(mcfg, train).backend == "pallas"
+        assert tmech.plan_attention(
+            mcfg, train._replace(n_q=1023)).backend != "pallas"
+        assert tmech.plan_attention(
+            mcfg, train._replace(platform="cpu")).backend != "pallas"
     q = torch.zeros(1, 4, 9, 64)
     params = tmech.get_mechanism("inhibitor").make_params()
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 3"):
-        tmech.execute_plan(tmech.ExecutionPlan("inhibitor", "blocked", "t"),
-                           q, q[:, :, :3], q[:, :, :3], params=params,
-                           structural=tmech.Structural())
+    for backend, item in (("blocked", "ROADMAP queue 1 item 3"),
+                          ("int", "ROADMAP queue 1 item 9"),
+                          ("fhe_sim", "ROADMAP queue 1 item 9")):
+        with pytest.raises(NotImplementedError, match=item):
+            tmech.execute_plan(
+                tmech.ExecutionPlan("inhibitor", backend, "t"), q,
+                q[:, :, :3], q[:, :, :3], params=params,
+                structural=(tmech.Structural() if backend == "blocked"
+                            else None))

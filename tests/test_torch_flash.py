@@ -1,0 +1,221 @@
+"""The port's blockwise flash kernels' plain versions and training ops
+against the JAX package on the same numpy inputs.
+
+(a) ``flash_inhibitor_plain`` / ``flash_attention_plain`` (what the CUDA
+    kernels are held against on the card, and what the wrappers run on
+    the CPU) and the oracles ``kernels.ref.flash_*_ref`` against the JAX
+    kernels ``flash_inhibitor_fwd`` / ``flash_attention_fwd`` run as
+    ``tests/test_kernels.py`` runs them (``interpret=True``): signed /
+    unsigned, shift, window, causal or not, GQA, ragged n, and the per-row
+    cursor form.
+(c) ``kernels.ops.flash_inhibitor`` / ``flash_attention`` gradients (the
+    kernel's forward, the reference's backward) against ``jax.grad`` of
+    the JAX ops.
+
+Inputs are live: q and k of stddev 1/sqrt(d) for the inhibitor, so the
+score Z = sum_d |q - k| / sqrt(d) - 0.5 is about 0.6 and the inhibition
+is materially nonzero (at unit scale every output would be 0).
+
+Tolerances: (a) float32, summation order only: atol 1e-5, rtol 1e-5; the
+unnormalized inhibitor sums (up to n terms of size |V| + Z, cancelled in
+the eq. 9/10 forms of both sides) atol 1e-4.  (c) rtol 1e-4, atol 1e-5,
+as ``tests/test_kernels.py::test_ops_grads_match_ref``.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels.flash import flash_attention_fwd as jax_flash_attention
+from repro.kernels.inhibitor import flash_inhibitor_fwd as jax_flash_inhibitor
+from repro_torch.core import mechanism as tmech
+from repro_torch.core.attention import AttentionConfig
+from repro_torch.kernels import flash as kflash
+from repro_torch.kernels import inhibitor as kinh
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels import ref as kref
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+GRAD_TOL = dict(rtol=1e-4, atol=1e-5)
+BLOCKS = dict(block_q=16, block_k=16)
+
+
+def _operands(seed, b, n_q, n_k, h, hk, d, qk_std):
+    rng = np.random.default_rng(seed)
+    q = (rng.normal(size=(b, n_q, h, d)) * qk_std).astype(np.float32)
+    k = (rng.normal(size=(b, n_k, hk, d)) * qk_std).astype(np.float32)
+    v = rng.normal(size=(b, n_k, hk, d)).astype(np.float32)
+    return q, k, v
+
+
+def _both(*arrays):
+    return ([jnp.asarray(a) for a in arrays],
+            [torch.from_numpy(a) for a in arrays])
+
+
+# (kwargs, heads, kv_heads, n): signed / unsigned, shift, window, causal,
+# GQA, ragged n (37: neither block divides it)
+INHIBITOR_CASES = {
+    "signed_causal_gqa": (dict(signed=True), 6, 2, 37),
+    "unsigned_causal_gqa": (dict(signed=False), 6, 2, 37),
+    "no_shift": (dict(score_shift=0.0), 4, 4, 37),
+    "big_shift_unsigned": (dict(score_shift=2.0, signed=False), 4, 2, 24),
+    "window": (dict(window=8), 6, 2, 37),
+    "window_not_causal": (dict(window=8, causal=False), 4, 2, 37),
+    "not_causal": (dict(causal=False), 6, 3, 33),
+    "unnormalized": (dict(normalize=False), 6, 2, 37),
+    "unnormalized_unsigned": (dict(normalize=False, signed=False), 4, 2, 37),
+}
+
+
+@pytest.mark.parametrize("case", sorted(INHIBITOR_CASES))
+def test_flash_inhibitor_plain_matches_jax_kernel(case):
+    kw, h, hk, n = INHIBITOR_CASES[case]
+    (jq, jk, jv), (tq, tk, tv) = _both(*_operands(0, 2, n, n, h, hk, 16,
+                                                  16 ** -0.5))
+    ref = np.asarray(jax_flash_inhibitor(jq, jk, jv, sub_k=8, interpret=True,
+                                         **BLOCKS, **kw))
+    kinh.flash_inhibitor_plain.calls = 0
+    out = kinh.flash_inhibitor_fwd(tq, tk, tv, **kw).numpy()
+    assert kinh.flash_inhibitor_plain.calls == 1   # the CPU's plain version
+    assert np.abs(ref).max() > 0.05                # live, not all zero
+    tol = TOL if kw.get("normalize", True) else dict(rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(out, ref, **tol)
+    np.testing.assert_allclose(
+        kref.flash_inhibitor_ref(tq, tk, tv, **kw).numpy(), ref, **tol)
+
+
+ATTENTION_CASES = {
+    "causal_gqa": (dict(), 6, 2, 37),
+    "window": (dict(window=8), 6, 2, 37),
+    "not_causal": (dict(causal=False), 4, 4, 33),
+    "scaled": (dict(score_scale=2.0), 6, 3, 24),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ATTENTION_CASES))
+def test_flash_attention_plain_matches_jax_kernel(case):
+    kw, h, hk, n = ATTENTION_CASES[case]
+    (jq, jk, jv), (tq, tk, tv) = _both(*_operands(1, 2, n, n, h, hk, 16, 1.0))
+    ref = np.asarray(jax_flash_attention(jq, jk, jv, interpret=True,
+                                         **BLOCKS, **kw))
+    out = kflash.flash_attention_fwd(tq, tk, tv, **kw).numpy()
+    np.testing.assert_allclose(out, ref, **TOL)
+    np.testing.assert_allclose(
+        kref.flash_attention_ref(tq, tk, tv, **kw).numpy(), ref, **TOL)
+
+
+@pytest.mark.parametrize("window", [None, 6])
+@pytest.mark.parametrize("mech", ["inhibitor", "attention"])
+def test_cursor_form_matches_jax_kernel(mech, window):
+    """Per-row q_offset / kv_valid_len, including a row with no live key
+    (both kernels output 0 there)."""
+    q, k, v = _operands(2, 4, 5, 40, 6, 2, 16,
+                        16 ** -0.5 if mech == "inhibitor" else 1.0)
+    offs = np.asarray([0, 13, 30, 2], np.int32)
+    valid = np.asarray([5, 18, 40, 0], np.int32)
+    (jq, jk, jv, joff, jval), (tq, tk, tv, toff, tval) = _both(
+        q, k, v, offs, valid)
+    if mech == "inhibitor":
+        ref = jax_flash_inhibitor(jq, jk, jv, q_offset=joff,
+                                  kv_valid_len=jval, window=window, sub_k=8,
+                                  interpret=True, **BLOCKS)
+        out = kinh.flash_inhibitor_fwd(tq, tk, tv, q_offset=toff,
+                                       kv_valid_len=tval, window=window)
+    else:
+        ref = jax_flash_attention(jq, jk, jv, q_offset=joff,
+                                  kv_valid_len=jval, window=window,
+                                  interpret=True, **BLOCKS)
+        out = kflash.flash_attention_fwd(tq, tk, tv, q_offset=toff,
+                                         kv_valid_len=tval, window=window)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+    assert not out[3].any() and np.abs(np.asarray(ref)).max() > 0.05
+
+
+def test_pack_cursors_broadcasts_scalars():
+    cur = kinh.pack_cursors(3, 4, None, 10, "cpu")
+    assert cur.dtype == torch.int32
+    assert cur.tolist() == [[4, 4, 4], [10, 10, 10]]
+    cur = kinh.pack_cursors(2, torch.tensor([1, 2]), torch.tensor(7), 10,
+                            "cpu")
+    assert cur.tolist() == [[1, 2], [7, 7]]
+
+
+# (op, kwargs, heads, kv_heads)
+GRAD_CASES = {
+    "inhibitor_signed": ("inhibitor", dict(), 4, 2),
+    "inhibitor_unsigned_window": ("inhibitor",
+                                  dict(signed=False, window=6), 4, 2),
+    "inhibitor_unnormalized": ("inhibitor", dict(normalize=False), 4, 4),
+    "attention": ("attention", dict(), 4, 2),
+    "attention_window": ("attention", dict(window=6), 6, 3),
+}
+
+
+@pytest.mark.parametrize("case", sorted(GRAD_CASES))
+def test_ops_gradients_match_jax(case):
+    op, kw, h, hk = GRAD_CASES[case]
+    std = 16 ** -0.5 if op == "inhibitor" else 1.0
+    q, k, v = _operands(3, 2, 24, 24, h, hk, 16, std)
+    g = np.random.default_rng(4).normal(size=q.shape).astype(np.float32)
+    jfn = jops.flash_inhibitor if op == "inhibitor" else jops.flash_attention
+    tfn = kops.flash_inhibitor if op == "inhibitor" else kops.flash_attention
+    jkw = dict(kw)
+    if op == "inhibitor":
+        args = (None, 0.5, jkw.pop("signed", True),
+                jkw.pop("normalize", True), True, jkw.pop("window", None))
+    else:
+        args = (None, True, jkw.pop("window", None))
+    _, vjp = jax.vjp(lambda *x: jfn(*x, *args), *map(jnp.asarray, (q, k, v)))
+    ref = vjp(jnp.asarray(g))
+    leaves = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    got = torch.autograd.grad(tfn(*leaves, *args), leaves,
+                              torch.from_numpy(g))
+    for a, r in zip(got, ref):
+        assert np.abs(np.asarray(r)).max() > 1e-2
+        np.testing.assert_allclose(a.numpy(), np.asarray(r), **GRAD_TOL)
+
+
+def test_registry_records_decisions_and_rejects_other_key_tiles():
+    kops.registry.reset()
+    q, k, v = (torch.zeros(1, 8, 4, 16), torch.zeros(1, 8, 2, 16),
+               torch.zeros(1, 8, 2, 16))
+    kops.flash_inhibitor(q, k, v)
+    kops.flash_attention_cached(q, k, v, 0, 8,
+                                choice=kops.KernelChoice(block_q=8))
+    sources = {key[0]: d["source"] for key, d in
+               kops.registry.decisions.items()}
+    assert sources == {"inhibitor": "default", "flash": "override"}
+    assert all(not d["native"] and d["platform"] == "cpu"
+               for d in kops.registry.decisions.values())
+    with pytest.raises(ValueError, match="block_k=128"):
+        kops.flash_inhibitor(q, k, v, choice=kops.KernelChoice(block_k=128))
+
+
+@pytest.mark.parametrize("mech", ["inhibitor", "dotprod"])
+def test_pallas_backend_runs_the_kernel_wrappers(mech):
+    """The planner's ``pallas`` backend on the CPU: the training form
+    (no cursors) goes through ``ops.flash_*``, the cursor form through
+    ``*_cached``; both reach the plain version, and no ``pallas`` backend
+    raises any longer."""
+    cfg = AttentionConfig(mechanism=mech, backend="pallas", num_heads=4,
+                          num_kv_heads=2, head_dim=16)
+    shapes = tmech.AttnShapes(batch=1, n_q=8, n_k=8, num_heads=4,
+                              num_kv_heads=2, head_dim=16, platform="cpu")
+    plan = tmech.plan_attention(cfg, shapes)
+    params = tmech.get_mechanism(mech).make_params()
+    q, k, v = _both(*_operands(5, 1, 8, 8, 4, 2, 16, 0.25))[1]
+    kops.reset_counts()
+    plain_out = tmech.execute_plan(plan, q, k, v, params=params,
+                                   structural=tmech.Structural())
+    cached_out = tmech.execute_plan(
+        plan, q, k, v, params=params,
+        structural=tmech.Structural(q_offset=torch.tensor([0]),
+                                    kv_valid_len=torch.tensor([8])))
+    name = "flash_inhibitor" if mech == "inhibitor" else "flash_attention"
+    assert kops.counts()[name + "_plain"] == 2
+    assert kops.counts()[name] == 0
+    torch.testing.assert_close(plain_out, cached_out, rtol=1e-6, atol=1e-6)

@@ -1,13 +1,16 @@
-"""The CUDA paged decode kernels (csrc/paged_decode.cu) against their
-plain versions, on the card.  Every test here needs a CUDA card and skips
-without one; the file imports no JAX, so it runs where only PyTorch is
-installed:
+"""The CUDA kernels (csrc/paged_decode.cu, csrc/flash_prefill.cu) against
+their plain versions, on the card.  Every test here needs a CUDA card and
+skips without one; the file imports no JAX, so it runs where only PyTorch
+is installed:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 
 Tolerances: float32 — rtol = atol = 1e-5 (summation order only); bf16 —
 the kernel and the plain version round the same float32 value, so two
-ulps (2^-7) of the output's largest magnitude.  Unnormalized inhibitor
+ulps (2^-7) of the output's largest magnitude for the paged kernels, and
+one ulp of each element (2^-7 relative, plus 1e-5) for the prefill
+kernels, whose normalized outputs average up to 1000 keys and so lie far
+below their largest magnitude.  Unnormalized inhibitor
 sums are not swept: their plain version cancels n_k-term sums (see
 chip_smoke.py for that case).
 
@@ -17,12 +20,16 @@ is then about 0.6 at every head_dim, so relu(v - Z) and min(v + Z, 0) are
 nonzero for a quarter to a half of unit-normal values.  At unit q and k,
 Z would be about 8.5 at d = 64 and every output exactly 0.  Each check
 also asserts that a share of the reference lies above the tolerance, and
-that the reference computed on V pages shifted by one disagrees.
+that the reference computed on V pages shifted by one (for the prefill
+kernels: V rolled by one key) disagrees.
 """
 
 import pytest
 import torch
 
+from repro_torch.kernels import flash as kflash
+from repro_torch.kernels import inhibitor as kinh
+from repro_torch.kernels import ops as kops
 from repro_torch.kernels import paged as kpaged
 
 # full float32 matmuls and convolutions on a card (TF32 keeps ~3 digits)
@@ -75,23 +82,25 @@ def _case(seed, *, batch, heads, kv_heads, d, ps, width, lengths, dtype,
     return q, kp, vp, clean, tables.cuda(), lens
 
 
-def _err_tol(out, ref, dtype):
+def _err_tol(out, ref, dtype, elementwise=False):
     if ULP[dtype] is None:
         tol = 1e-5 + 1e-5 * ref.float().abs()
+    elif elementwise:
+        tol = 1e-5 + ULP[dtype] * ref.float().abs()
     else:
         tol = 2 * ULP[dtype] * max(1.0, ref.float().abs().max().item())
     return (out.float() - ref.float()).abs(), tol
 
 
-def _check(out, ref, dtype, control):
+def _check(out, ref, dtype, control, elementwise=False):
     """out within tolerance of ref; ref materially nonzero; ``control``
     (the reference on wrong V pages) outside it."""
     assert torch.isfinite(out).all()
-    err, tol = _err_tol(out, ref, dtype)
+    err, tol = _err_tol(out, ref, dtype, elementwise)
     assert bool((err <= tol).all()), f"max_abs_err {err.max().item()}"
     share = (ref.float().abs() > tol).float().mean().item()
     assert share >= MIN_NONZERO_SHARE, f"reference is ~0 ({share=})"
-    bad, _ = _err_tol(control, ref, dtype)
+    bad, _ = _err_tol(control, ref, dtype, elementwise)
     assert not bool((bad <= tol).all()), "control within tolerance"
 
 
@@ -174,3 +183,147 @@ def test_wrapper_counts_launches_and_rejects_bad_operands():
     with pytest.raises(ValueError, match="one CUDA device"):
         kpaged.paged_flash_inhibitor_fwd(q, kp, vp, tables.cpu(), lens)
     assert kpaged.counts()["paged_inhibitor"] == 1
+
+
+# ---------------------------------------------------------------------------
+# blockwise prefill kernels (flash inhibitor, flash attention)
+# ---------------------------------------------------------------------------
+
+PREFILL_SHAPES = [  # (heads, kv_heads, d)
+    (9, 3, 64),          # smollm-135m
+    (4, 4, 32),          # paper-tiny widths, no GQA
+    (8, 2, 128),         # wide heads
+    (4, 2, 16),          # reduced test widths
+]
+
+
+def _prefill_operands(seed, *, batch, n, heads, kv_heads, d, dtype,
+                      qk_std):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def mk(*shape, std=1.0):
+        return (torch.randn(shape, generator=g, device="cuda")
+                * std).to(dtype)
+
+    return (mk(batch, n, heads, d, std=qk_std),
+            mk(batch, n, kv_heads, d, std=qk_std), mk(batch, n, kv_heads, d))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", PREFILL_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [1000, 64])
+def test_prefill_kernels_match_plain_versions(shape, dtype, n):
+    """Causal, windowed and non-causal cases at a ragged n (1000: neither
+    tile divides it) and a short one, signed and unsigned, with shift."""
+    _needs_card()
+    heads, kv_heads, d = shape
+    kw = dict(batch=2, n=n, heads=heads, kv_heads=kv_heads, d=d, dtype=dtype)
+    inh = _prefill_operands(0, qk_std=d ** -0.5, **kw)
+    att = _prefill_operands(1, qk_std=1.0, **kw)
+    for causal, window in ((True, None), (True, 64), (False, None)):
+        q, k, v = inh
+        for signed in (True, False):
+            m = dict(causal=causal, window=window, signed=signed)
+            out = kinh.flash_inhibitor_fwd(q, k, v, **m)
+            ref, control = (kinh.flash_inhibitor_plain(q, k, vv, **m)
+                            for vv in (v, v.roll(1, dims=1)))
+            _check(out, ref, dtype, control, elementwise=True)
+        q, k, v = att
+        m = dict(causal=causal, window=window)
+        out = kflash.flash_attention_fwd(q, k, v, **m)
+        ref, control = (kflash.flash_attention_plain(q, k, vv, **m)
+                        for vv in (v, v.roll(1, dims=1)))
+        _check(out, ref, dtype, control, elementwise=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_prefill_cursors_never_read_past_the_cursor(dtype):
+    """Ragged per-row q_offset / kv_valid_len; every key past a row's
+    cursor holds nan, and a row with kv_valid_len 0 outputs 0."""
+    _needs_card()
+    b, n_q, n_k, heads, kv_heads, d = 4, 37, 300, 9, 3, 64
+    offs = torch.tensor([0, 100, 250, 5], dtype=torch.int32, device="cuda")
+    valid = torch.tensor([37, 137, 300, 0], dtype=torch.int32,
+                         device="cuda")
+    for name, std in (("inhibitor", d ** -0.5), ("attention", 1.0)):
+        q, _, _ = _prefill_operands(2, batch=b, n=n_q, heads=heads,
+                                    kv_heads=kv_heads, d=d, dtype=dtype,
+                                    qk_std=std)
+        _, k, v = _prefill_operands(3, batch=b, n=n_k, heads=heads,
+                                    kv_heads=kv_heads, d=d, dtype=dtype,
+                                    qk_std=std)
+        kn, vn = k.clone(), v.clone()
+        for row, ln in enumerate(valid.tolist()):
+            kn[row, ln:], vn[row, ln:] = float("nan"), float("nan")
+        for window in (None, 16):
+            if name == "inhibitor":
+                fwd, plain = kinh.flash_inhibitor_fwd, kinh.flash_inhibitor_plain
+            else:
+                fwd, plain = (kflash.flash_attention_fwd,
+                              kflash.flash_attention_plain)
+            cur = dict(q_offset=offs, kv_valid_len=valid, window=window)
+            out = fwd(q, kn, vn, **cur)
+            assert torch.equal(out, fwd(q, k, v, **cur))
+            ref, control = (plain(q, k, vv, **cur)
+                            for vv in (v, v.roll(1, dims=1)))
+            _check(out, ref, dtype, control, elementwise=True)
+            assert not out[3].any()            # the kv_valid_len 0 row
+
+
+@pytest.mark.cuda
+def test_prefill_wrappers_count_launches_and_reject_bad_operands():
+    _needs_card()
+    q, k, v = _prefill_operands(4, batch=1, n=40, heads=4, kv_heads=2, d=16,
+                                dtype=torch.float32, qk_std=0.25)
+    kops.reset_counts()
+    kinh.flash_inhibitor_fwd(q, k, v)
+    kflash.flash_attention_fwd(q, k, v)
+    c = kops.counts()
+    assert (c["flash_inhibitor"], c["flash_attention"],
+            c["flash_inhibitor_plain"], c["flash_attention_plain"]) == (
+        1, 1, 0, 0)
+    with pytest.raises(TypeError, match="share"):
+        kinh.flash_inhibitor_fwd(q.bfloat16(), k, v)
+    with pytest.raises(ValueError, match="contiguous"):
+        kinh.flash_inhibitor_fwd(q.transpose(1, 2).contiguous()
+                                 .transpose(1, 2), k, v)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        kflash.flash_attention_fwd(q, k.cpu(), v)
+    with pytest.raises(ValueError, match="head_dim"):
+        kinh.flash_inhibitor_fwd(q[..., :8].contiguous(),
+                                 k[..., :8].contiguous(),
+                                 v[..., :8].contiguous())
+    assert kops.counts()["flash_inhibitor"] == 1
+
+
+@pytest.mark.cuda
+def test_flash_ops_gradients_on_the_card():
+    """ops.flash_* under autograd on the card: the kernel forward and the
+    reference backward against autograd through the plain chunked /
+    dense forms (float32).  Compared by norm (1e-4 relative): the two
+    inhibitor backward passes sum the score Z in other orders, so a pair
+    whose raw score sits within rounding of the shift α may take the
+    gate 1[raw > α] on one side only, which moves one row of dq
+    discretely."""
+    _needs_card()
+    from repro_torch.core.dotprod import dot_product_attention
+    from repro_torch.core.inhibitor import inhibitor_attention_chunked
+
+    q, k, v = _prefill_operands(5, batch=2, n=200, heads=9, kv_heads=3,
+                                d=64, dtype=torch.float32, qk_std=0.125)
+    g = torch.randn(q.shape, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(6))
+    mask = torch.ones(200, 200, dtype=torch.bool, device="cuda").tril()
+    for op, plain in ((kops.flash_inhibitor,
+                       lambda *t: inhibitor_attention_chunked(
+                           *t, mask=mask, kv_chunk=64)),
+                      (kops.flash_attention,
+                       lambda *t: dot_product_attention(*t, mask=mask))):
+        got = torch.autograd.grad(
+            op(*(x.requires_grad_() for x in (q, k, v))), (q, k, v), g)
+        want = torch.autograd.grad(plain(q, k, v), (q, k, v), g)
+        for a, b in zip(got, want):
+            assert b.abs().max() > 1e-2
+            assert ((a - b).norm() / b.norm()).item() <= 1e-4

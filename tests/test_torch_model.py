@@ -84,9 +84,9 @@ def test_config_fields_match_reference(arch):
     assert str(port.cdtype).replace("torch.", "") == str(ref.cdtype)
     red_ref, red_port = ref.reduced(**SMALL), port.reduced(**SMALL)
     assert (red_port.num_layers, red_port.d_model, red_port.compute_dtype,
-            red_port.attention.num_heads) == (
+            red_port.attention.num_heads, red_port.remat) == (
         red_ref.num_layers, red_ref.d_model, red_ref.compute_dtype,
-        red_ref.attention.num_heads)
+        red_ref.attention.num_heads, red_ref.remat)
 
 
 def test_conversion_splits_layers_and_init_matches_shapes():

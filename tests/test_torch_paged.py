@@ -137,9 +137,9 @@ def test_cpu_wrappers_run_the_plain_version_and_count(rng):
 
 
 def test_registry_default_override_and_native_platforms(rng):
-    assert kops.NATIVE_PLATFORMS["paged"] == ("cuda",)
-    assert all(not v for k, v in kops.NATIVE_PLATFORMS.items()
-               if k != "paged")
+    assert kops.NATIVE_PLATFORMS == {
+        "inhibitor": ("cuda",), "flash": ("cuda",), "paged": ("cuda",),
+        "wkv6": ()}
     r = kops.KernelRegistry()
     key = ("inhibitor", 4, 8, 4, 2, 16)
     assert r.choose("paged", key, "cpu") == kops.CANDIDATES["paged"][0]
