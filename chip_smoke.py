@@ -7,8 +7,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
 
   1. device  — require CUDA; print the card's name and power limit.
   2. build   — compile the CUDA kernels (csrc/paged_decode.cu,
-               csrc/flash_prefill.cu) from the checkout, one nvcc per
-               source, started together.
+               csrc/flash_prefill.cu, csrc/wkv6.cu) from the checkout, one
+               nvcc per source, started together.
   3. parity  — each paged decode kernel against its plain PyTorch version
                on the card, at smollm-135m's decode shapes (h=9, h_kv=3,
                d=64, page 16, batch 8, table width 32, ragged lengths 1..512,
@@ -44,6 +44,31 @@ Phases, each printing one JSON line; any failure exits non-zero:
                to chunked / fused): loss and every gradient must agree
                within XCHECK_TOL, and the plain path with V negated must
                not.
+  9. wkv_parity — the RWKV-6 WKV kernel against its plain version on the
+               card: the reference's sweep, t below one chunk, t = 1 and
+               t = 0, decays mixed / zero / near one, float32 and bf16
+               r/k/v, and the train shape (b 8 x t 1024, 64 heads of 64,
+               bf16); then kernel, plain and bound times there.
+ 10. rwkv_train — rwkv6-7b at full width and depth 4 (AdamW on all 32
+               layers would need 122 GB) through the same training loop
+               and checks as phase 7: the WKV plan ``pallas``, steps x 4 x
+               2 kernel launches, 0 plain calls, peak memory under
+               RWKV_PEAK_LIMIT.
+ 11. rwkv_train_xcheck — one full-width train step at depth 2, b 1 x n
+               1024, through the kernel and through the exact scan: loss
+               and every gradient within XCHECK_TOL, and the scan with
+               every time-mix V negated not.
+ 12. rwkv_forward — the eval / prefill forward at full width and full
+               depth (32 layers), b 2 x n 1024, under no_grad: 32 kernel
+               launches, finite logits; at the same parameters, in bf16
+               and float32 compute, every block through the kernel
+               against the same block through the exact scan from the
+               scan's input: float32 blocks within RWKV_BLOCK_REL, the
+               last layer's logits within 5% of the scan's largest, a
+               V-negated control outside; free running in float32, the
+               kernel path no further from the scan than RWKV_FREE_RATIO
+               times the plain chunked version's path.  The float32
+               checks at two seeds.
 
 Then the ``kernels`` summary line, the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``.  TF32 is off for matmuls and cuDNN.
@@ -51,6 +76,7 @@ Then the ``kernels`` summary line, the ``nvidia-smi`` line and, last,
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import statistics
@@ -660,10 +686,6 @@ def phase_train(torch, kops, arch: str):
     fitted in a few steps, and only by correct gradients."""
     from repro_torch.configs import get_config
     from repro_torch.core.mechanism import AttnShapes, plan_attention
-    from repro_torch.data.pipeline import PipelineConfig, lm_batch_at
-    from repro_torch.models.registry import get_model
-    from repro_torch.optim import AdamWConfig, warmup_cosine
-    from repro_torch.train.loop import TrainConfig, train
 
     cfg = get_config(arch)
     a = cfg.attention
@@ -673,8 +695,23 @@ def phase_train(torch, kops, arch: str):
         platform="cuda"))
     check(plan.backend == "pallas" and a.backend is None,
           f"{arch}: training plan is {plan}")
+    return train_fixed_batch(torch, kops, cfg, train_kernel(cfg), arch,
+                             plan.backend)
+
+
+def train_fixed_batch(torch, kops, cfg, kernel: str, arch: str, plan: str):
+    """TRAIN_STEPS steps of ``repro_torch.train.loop.train`` (the loop the
+    training launcher runs, with its optimizer) on one batch TRAIN_B x
+    TRAIN_N of the seeded LM stream, remat "full".  ``kernel`` must
+    launch steps x layers x 2 times (forward and remat recompute), every
+    other kernel and every plain version never; every loss finite and the
+    last below the first by TRAIN_MIN_FALL."""
+    from repro_torch.data.pipeline import PipelineConfig, lm_batch_at
+    from repro_torch.models.registry import get_model
+    from repro_torch.optim import AdamWConfig, warmup_cosine
+    from repro_torch.train.loop import TrainConfig, train
+
     check(cfg.remat == "full", f"{arch}: remat is {cfg.remat!r}")
-    kernel = train_kernel(cfg)
     batch = lm_batch_at(PipelineConfig(TRAIN_B, TRAIN_N, cfg.vocab_size,
                                        seed=0), 0)
     # the launcher's optimizer: AdamW, warmup_cosine(lr, 10, steps)
@@ -703,10 +740,11 @@ def phase_train(torch, kops, arch: str):
     check(losses[-1] < losses[0] - TRAIN_MIN_FALL,
           f"{arch}: loss fell {losses[0] - losses[-1]} < {TRAIN_MIN_FALL}")
     p50 = statistics.median(walls)
-    out = {"phase": "train", "arch": arch, "plan": plan.backend,
-           "steps": TRAIN_STEPS, "batch": TRAIN_B, "seq": TRAIN_N,
-           "lr": TRAIN_LR, "seconds": seconds, "launches": counts,
-           "losses": losses, "step_wall_s": [h["seconds"] for h in hist],
+    out = {"phase": "train", "arch": arch, "layers": cfg.num_layers,
+           "plan": plan, "steps": TRAIN_STEPS, "batch": TRAIN_B,
+           "seq": TRAIN_N, "lr": TRAIN_LR, "seconds": seconds,
+           "launches": counts, "losses": losses,
+           "step_wall_s": [h["seconds"] for h in hist],
            "step_wall_ms_p50": p50 * 1e3,
            "tokens_per_s": TRAIN_B * TRAIN_N / p50,
            "peak_memory_bytes": torch.cuda.max_memory_allocated()}
@@ -785,6 +823,409 @@ def phase_train_xcheck(torch, kops):
     emit(out)
 
 
+# ---------------------------------------------------------------------------
+# RWKV-6: the WKV kernel, training at depth 4, the full-depth forward
+# ---------------------------------------------------------------------------
+
+RWKV = "rwkv6-7b"
+# AdamW in float32 keeps 16 bytes per parameter (value, gradient, two
+# moments): rwkv6-7b's 7.6 B parameters need 122 GB, beyond the card's
+# 80; its first 4 layers with the embedding and head (1.42 B) need 23 GB
+RWKV_TRAIN_LAYERS = 4
+RWKV_XCHECK_LAYERS = 2
+RWKV_FORWARD_B = 2
+RWKV_FORWARD_SEEDS = (0, 1)
+RWKV_PEAK_LIMIT = 70e9
+# rwkv_forward: one block through the kernel against the same block
+# through the exact scan from the same float32 input, relative L2 (the
+# WKV outputs alone differ by ~7e-7: float32 summation order)
+RWKV_BLOCK_REL = 1e-4
+# rwkv_forward, free running: how many times as far from the exact scan
+# as the plain chunked version's path the kernel path may end up
+RWKV_FREE_RATIO = 2.0
+# (batch, t, heads, head_dim, chunk): the reference's sweep
+# (tests/test_kernels.py), t below one chunk, t = 1, t = 0, and
+# rwkv6-7b's heads at a ragged t
+WKV_CASES = [(2, 50, 3, 16, 16), (2, 32, 2, 8, 8), (2, 17, 1, 16, 32),
+             (2, 20, 64, 64, 32), (2, 1, 64, 64, 32), (2, 0, 64, 64, 32),
+             (2, 300, 8, 64, 32)]
+WKV_H, WKV_N, WKV_CHUNK = 64, 64, 32
+# kernel vs plain version, float32 arithmetic in both: the plain version
+# sums each exponent over its own segment where the kernel differences
+# the chunk's cumulative sum, and sums in another order
+WKV_REL = 5e-5
+WKV_TOL = "5e-5 max(1, max|ref|), outputs and final state apart"
+
+
+def wkv_operands(torch, gen, b, t, h, n, dtype, decay):
+    """r, k, v (unit normal, in ``dtype``), the float32 decay w — "mixed":
+    exp(-exp(2 N(0, 1))), from ~1 down to 0 in float32; "zero"; "near_one":
+    exp(-exp(N(0, 1) - 6)), as at rwkv6-7b's init — and u unit normal."""
+    def mk(*shape):
+        return torch.randn(shape, generator=gen, device=gen.device)
+
+    r, k, v = (mk(b, t, h, n).to(dtype) for _ in range(3))
+    if decay == "zero":
+        w = torch.zeros((b, t, h, n), device=gen.device)
+    elif decay == "near_one":
+        w = torch.exp(-torch.exp(mk(b, t, h, n) - 6.0))
+    else:
+        w = torch.exp(-torch.exp(2.0 * mk(b, t, h, n)))
+    return r, k, v, w, mk(h, n)
+
+
+def wkv_case(torch, results, label, ops, chunk):
+    """The kernel against its plain version on ``ops``, outputs and final
+    state; non-vacuous: a share of each reference above the tolerance, and
+    the reference with V one step late (at t = 1: V of the other batch
+    row) or u zeroed outside it."""
+    from repro_torch.kernels import rwkv6 as krwkv6
+
+    r, k, v, w, u = ops
+    out, state = krwkv6.wkv6_chunked(*ops, chunk=chunk)
+    ref_o, ref_s = krwkv6.wkv6_chunked_plain(*ops, chunk=chunk)
+    check(out.dtype == state.dtype == torch.float32, f"wkv6 {label}: dtype")
+    check(bool(torch.isfinite(out).all() and torch.isfinite(state).all()),
+          f"wkv6 {label}: non-finite")
+    check(out.shape == ref_o.shape and state.shape == ref_s.shape,
+          f"wkv6 {label}: shapes")
+    if r.shape[1] == 0:
+        check(not state.any(), f"wkv6 {label}: t = 0 state not zero")
+        results["cases"] += 1
+        return
+    late = v.roll(1, dims=1 if r.shape[1] > 1 else 0)
+    controls = [krwkv6.wkv6_chunked_plain(r, k, late, w, u, chunk=chunk)[0],
+                krwkv6.wkv6_chunked_plain(r, k, v, w, 0 * u, chunk=chunk)[0]]
+    for got, ref in ((out, ref_o), (state, ref_s)):
+        tol = WKV_REL * max(1.0, ref.abs().max().item())
+        err = (got - ref).abs().max().item()
+        share = (ref.abs() > tol).float().mean().item()
+        check(err <= tol, f"wkv6 {label}: max_abs_err {err} > tol {tol}")
+        check(share >= MIN_NONZERO_SHARE,
+              f"wkv6 {label}: only {share} of the reference exceeds tol")
+        results["max_abs_err"] = max(results["max_abs_err"], err)
+        results["min_nonzero_share"] = min(results["min_nonzero_share"],
+                                           share)
+    tol = WKV_REL * max(1.0, ref_o.abs().max().item())
+    ctl = min((c - ref_o).abs().max().item() / tol for c in controls)
+    check(ctl > 1.0, f"wkv6 {label}: a control within tol")
+    results["cases"] += 1
+    if (results["min_control_err_over_tol"] is None
+            or ctl < results["min_control_err_over_tol"]):
+        results["min_control_err_over_tol"] = ctl
+
+
+def wkv_chunk_ops(L: int, n: int) -> int:
+    """Float32 operations (an exp counted as one) of one chunk of L
+    positions of the chunked form: the decay's cumulative sum and
+    scalings 4 L n, the carry (r e^{cw_prev}) S 2 L n^2, the intra-chunk
+    matrix 4 L (L-1)/2 n (a subtraction, an exp, two products), the
+    bonus 3 L n, A v L (L+1) n, the state update 2 L n^2 + n^2.  At L = 1
+    it is the recurrence S = diag(w) S + k^T v, o = r (S + diag(u) k^T v):
+    5 n^2 + 9 n."""
+    if L == 0:
+        return 0
+    return (4 * L * n + 2 * L * n * n + 2 * L * (L - 1) * n + 3 * L * n
+            + L * (L + 1) * n + 2 * L * n * n + n * n)
+
+
+def wkv_bound(b: int, t: int, h: int, n: int, elem: int) -> dict:
+    """Least time for the WKV from a zero state: r, k, v (``elem`` bytes
+    each), w and u read once, out and the final state written once in
+    float32; and the least float32 operations that compute it on the
+    CUDA cores — the chunked form at the chunk length L that needs the
+    fewest (about sqrt(n / 3): 4.5 n^2 per position at n = 64, against
+    5 n^2 for the recurrence, L = 1, and 5.6 n^2 at the kernel's 32)."""
+    nbytes = b * t * h * n * (3 * elem + 4 + 4) + b * h * n * n * 4 + h * n * 4
+    L, per_row = min(((L, (t // L) * wkv_chunk_ops(L, n)
+                       + wkv_chunk_ops(t % L, n))
+                      for L in range(1, max(t, 1) + 1)),
+                     key=lambda c: c[1])
+    ops = b * h * per_row
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "ops": ops, "ops_chunk": L}
+
+
+def phase_wkv_parity(torch):
+    """The WKV kernel against its plain version over WKV_CASES, three
+    decays, float32 and bf16 r/k/v; then at the train shape (b 8, t 1024,
+    64 heads of 64, bf16 r/k/v) held the same way and timed."""
+    from repro_torch.kernels import rwkv6 as krwkv6
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    results = {"max_abs_err": 0.0, "cases": 0, "min_nonzero_share": 1.0,
+               "min_control_err_over_tol": None, "tol": WKV_TOL}
+    for dtype in (torch.bfloat16, torch.float32):
+        for b, t, h, n, chunk in WKV_CASES:
+            for decay in ("mixed", "zero", "near_one"):
+                wkv_case(torch, results, f"b={b} t={t} h={h} n={n} "
+                         f"chunk={chunk} {decay} {dtype}",
+                         wkv_operands(torch, gen, b, t, h, n, dtype, decay),
+                         chunk)
+    # two input sets at the train shape (670 MB, beyond the 50 MB L2)
+    sets = [wkv_operands(torch, gen, TRAIN_B, TRAIN_N, WKV_H, WKV_N,
+                         torch.bfloat16, "near_one"),
+            wkv_operands(torch, gen, TRAIN_B, TRAIN_N, WKV_H, WKV_N,
+                         torch.bfloat16, "mixed")]
+    for i, ops in enumerate(sets):
+        wkv_case(torch, results, f"train shape b={TRAIN_B} t={TRAIN_N} "
+                 f"set {i} bf16", ops, WKV_CHUNK)
+    t = {"ms": cuda_ms(lambda i: krwkv6.wkv6_chunked(*sets[i % 2]), 40),
+         "plain_ms": cuda_ms(lambda i: krwkv6.wkv6_chunked_plain(
+             *sets[i % 2]), 3, warm=1),
+         "library_ms": None}
+    t.update(wkv_bound(TRAIN_B, TRAIN_N, WKV_H, WKV_N, 2))
+    emit({"phase": "wkv_parity", "cases": WKV_CASES,
+          "decays": ["mixed", "zero", "near_one"],
+          "timing_shapes": {"batch": TRAIN_B, "t": TRAIN_N, "heads": WKV_H,
+                            "head_dim": WKV_N, "chunk": WKV_CHUNK,
+                            "dtype": "bfloat16"},
+          "results": results, "timings": t})
+    return results, t
+
+
+def phase_rwkv_train(torch, kops):
+    """rwkv6-7b at full width and depth RWKV_TRAIN_LAYERS through the
+    training loop, as the smollm arms; peak memory under RWKV_PEAK_LIMIT."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.mechanism import kernel_native
+    from repro_torch.models.rwkv import wkv_plan
+
+    cfg = get_config(RWKV).with_layers(RWKV_TRAIN_LAYERS)
+    # the registry's rule: the kernel where the tokens' device runs it
+    plan = wkv_plan(kernel_native("wkv6", "cuda"), carried_state=False)
+    check(plan.backend == "pallas", f"{RWKV}: WKV plan is {plan}")
+    _, n, out = train_fixed_batch(torch, kops, cfg, "wkv6", RWKV,
+                                  plan.backend)
+    check(out["peak_memory_bytes"] < RWKV_PEAK_LIMIT,
+          f"{RWKV}: peak memory {out['peak_memory_bytes']} bytes")
+    return n, out
+
+
+def phase_rwkv_xcheck(torch, kops):
+    """One train step's loss and gradients at full width, depth
+    RWKV_XCHECK_LAYERS, b 1 x n 1024: the kernel path against the plain
+    path (the exact scan), and the plain path with every time-mix V
+    negated outside the tolerance."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import PipelineConfig, lm_batch_at
+    from repro_torch.models import rwkv as rwkv_m
+    from repro_torch.models.registry import get_model
+    from repro_torch.train.step import make_grad_fn
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config(RWKV).with_layers(RWKV_XCHECK_LAYERS)
+    api = get_model(cfg)
+    scan_api = api._replace(forward=lambda p, b: rwkv_m.lm_forward(
+        p, cfg, b["tokens"], use_kernel=False))
+    params = api.init(torch.Generator(device="cuda").manual_seed(0),
+                      device="cuda")
+    for p in tree_leaves(params):
+        p.requires_grad_(True)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in lm_batch_at(
+        PipelineConfig(1, TRAIN_N, cfg.vocab_size, seed=0), 0).items()}
+    kops.reset_counts()
+    g_k, m_k = make_grad_fn(api)(params, batch)
+    launches = kops.counts()["wkv6"]
+    g_p, m_p = make_grad_fn(scan_api)(params, batch)
+    with torch.no_grad():
+        for blk in params["blocks"]:
+            blk["time_mix"]["value"]["kernel"].neg_()
+    g_c, _ = make_grad_fn(scan_api)(params, batch)
+    counts = kops.counts()
+    check(launches == 2 * cfg.num_layers and counts["wkv6"] == launches
+          and counts["wkv6_plain"] == 0, f"{RWKV}: xcheck launches {counts}")
+
+    def rel(a, b):
+        return max(((x.float() - y.float()).norm()
+                    / y.float().norm().clamp(min=1e-30)).item()
+                   for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+    err, ctl = rel(g_k, g_p), rel(g_c, g_p)
+    loss_k, loss_p = m_k["loss"].item(), m_p["loss"].item()
+    u = g_k["blocks"][0]["time_mix"]["u"].float().norm().item()
+    check(all(bool(torch.isfinite(x).all()) for x in tree_leaves(g_k)),
+          f"{RWKV}: non-finite kernel-path gradients")
+    check(abs(loss_k - loss_p) <= XCHECK_TOL * abs(loss_p),
+          f"{RWKV}: loss {loss_k} vs plain {loss_p}")
+    check(err <= XCHECK_TOL, f"{RWKV}: gradient rel err {err} > tol")
+    check(ctl > XCHECK_TOL, f"{RWKV}: V-negated control within tol ({ctl})")
+    check(u > 0.0, f"{RWKV}: u gradient is 0 (vacuous check)")
+    out = {"phase": "rwkv_train_xcheck", "tol": XCHECK_TOL,
+           "layers": cfg.num_layers, "plain_path": "exact scan",
+           "loss_kernel": loss_k, "loss_plain": loss_p,
+           "max_grad_rel_err": err, "control_max_grad_rel_err": ctl,
+           "u_grad_norm": u, "launches": launches}
+    emit(out)
+    del params, g_k, g_p, g_c
+    torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def plain_wkv():
+    """Route the time-mix's WKV call (``kernels.ops.wkv6``) through the
+    kernel's plain chunked version, on the card, while the block runs."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import rwkv6 as krwkv6
+
+    kernel = kops.wkv6
+    kops.wkv6 = lambda r, k, v, w, u, state=None: (
+        krwkv6.wkv6_chunked_plain(r, k, v, w, u))
+    try:
+        yield
+    finally:
+        kops.wkv6 = kernel
+
+
+def rwkv_paths(torch, params, cfg, tokens, free: bool):
+    """The forward through the exact scan (the reference trajectory), with
+    at every layer the same block through the kernel from the scan's
+    input (teacher-forced).  With ``free``, two free-running paths beside
+    it: through the kernel, and through the kernel's plain chunked
+    version.  Returns the logits (teacher-forced kernel from the last
+    layer's scan input, and the scan's), and per layer the relative
+    difference ||y - y_scan|| / ||y_scan|| of the teacher-forced block
+    outputs and of the free-running hidden states, all float32."""
+    from repro_torch.models import rwkv as rwkv_m
+
+    def rel(a, b):
+        return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+    x_s = x_k = x_p = rwkv_m._embed(params, cfg, tokens)
+    div = {"teacher_forced_block_rel": []}
+    if free:
+        div.update(free_kernel_rel=[], free_plain_rel=[],
+                   free_kernel_vs_plain_rel=[])
+    for lp in params["blocks"]:
+        y_tf = rwkv_m.apply_block(lp, cfg, x_s, use_kernel=True)[0]
+        if free:
+            x_k = rwkv_m.apply_block(lp, cfg, x_k, use_kernel=True)[0]
+            with plain_wkv():
+                x_p = rwkv_m.apply_block(lp, cfg, x_p, use_kernel=True)[0]
+        x_s = rwkv_m.apply_block(lp, cfg, x_s, use_kernel=False)[0]
+        div["teacher_forced_block_rel"].append(rel(y_tf, x_s))
+        if free:
+            div["free_kernel_rel"].append(rel(x_k, x_s))
+            div["free_plain_rel"].append(rel(x_p, x_s))
+            div["free_kernel_vs_plain_rel"].append(rel(x_k, x_p))
+    lg = {"forced": rwkv_m._logits(params, cfg, y_tf).float(),
+          "scan": rwkv_m._logits(params, cfg, x_s).float()}
+    if free:
+        top = lg["scan"].argmax(-1)
+        for name, x in (("kernel", x_k), ("plain", x_p)):
+            lf = rwkv_m._logits(params, cfg, x).float()
+            div[f"free_{name}_max_abs_err"] = (
+                lf - lg["scan"]).abs().max().item()
+            div[f"free_{name}_argmax_agreement"] = (
+                lf.argmax(-1) == top).float().mean().item()
+            del lf
+    return lg, div
+
+
+def phase_rwkv_forward(torch, kops):
+    """The eval / prefill forward of rwkv6-7b at full width and full depth
+    (32 layers, float32 parameters drawn on the card), batch
+    RWKV_FORWARD_B x TRAIN_N, under no_grad, through the registry's
+    forward: 32 WKV launches, finite logits.  Then, at the same
+    parameters, in bf16 and in float32 compute, the kernel against the
+    exact scan layer by layer: from the scan's input at every layer (the
+    reference trajectory), the kernel block's output within
+    RWKV_BLOCK_REL of the scan block's in float32, and the logits of the
+    last layer through the kernel within 5% of the scan forward's largest
+    logit; the same with every time-mix V negated outside that.  Free
+    running in float32, float32 rounding differences of the WKV output
+    grow through the depth from rwkv6-7b's init until the chunked form
+    and the scan part at a few positions (see PERF.md): at every layer
+    the kernel path may part from the scan at most RWKV_FREE_RATIO times
+    as far as the plain chunked version does, plus RWKV_BLOCK_REL.  The
+    float32 checks run at each of RWKV_FORWARD_SEEDS (parameters, and
+    the token batch from the next seed)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import PipelineConfig, lm_batch_at
+    from repro_torch.models.registry import get_model
+
+    cfg = get_config(RWKV)
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    api = get_model(cfg)
+    out = {"phase": "rwkv_forward", "layers": cfg.num_layers,
+           "batch": RWKV_FORWARD_B, "seq": TRAIN_N,
+           "free_ratio": RWKV_FREE_RATIO}
+    checks = []
+    for seed in RWKV_FORWARD_SEEDS:
+        t0 = time.perf_counter()
+        params = api.init(torch.Generator(device="cuda").manual_seed(seed),
+                          device="cuda")
+        torch.cuda.synchronize()
+        run = {"init_s": time.perf_counter() - t0}
+        tokens = torch.from_numpy(lm_batch_at(PipelineConfig(
+            RWKV_FORWARD_B, TRAIN_N, cfg.vocab_size, seed=seed + 1),
+            0)["tokens"]).cuda()
+        with torch.no_grad():
+            if seed == RWKV_FORWARD_SEEDS[0]:
+                torch.cuda.reset_peak_memory_stats()
+                kops.reset_counts()
+                t0 = time.perf_counter()
+                logits = api.forward(params, {"tokens": tokens})
+                torch.cuda.synchronize()
+                out["wall_ms"] = (time.perf_counter() - t0) * 1e3
+                counts = kops.counts()
+                out.update(launches=counts, peak_memory_bytes=(
+                    torch.cuda.max_memory_allocated()))
+                finite = bool(torch.isfinite(logits).all())
+                del logits
+                dtypes = ("bfloat16", "float32")
+            else:
+                dtypes = ("float32",)
+            for dtype in dtypes:
+                lg, div = rwkv_paths(
+                    torch, params, dataclasses.replace(
+                        cfg, compute_dtype=dtype), tokens,
+                    free=dtype == "float32")
+                scale = lg["scan"].abs().max().item()
+                run[dtype] = {"max_abs_logit": scale, "tol": 0.05 * scale,
+                              "max_abs_err": (lg["forced"] - lg["scan"])
+                              .abs().max().item(), **div}
+                checks.append((f"seed {seed} {dtype}", dtype, run[dtype]))
+                scan32 = lg["scan"]
+                del lg
+            # control: every time-mix V negated, the kernel forward
+            # against the float32 scan logits of the true parameters
+            for blk in params["blocks"]:
+                blk["time_mix"]["value"]["kernel"].neg_()
+            ctl = get_model(cfg32).forward(params, {"tokens": tokens}).float()
+            run["float32"]["control_max_abs_err"] = (
+                ctl - scan32).abs().max().item()
+            del ctl, scan32
+        out[f"seed_{seed}"] = run
+        del params, tokens
+        torch.cuda.empty_cache()
+    emit(out)
+    check(counts["wkv6"] == cfg.num_layers
+          and all(n == 0 for name, n in counts.items() if name != "wkv6"),
+          f"{RWKV}: full-depth forward launches {counts}")
+    check(finite, f"{RWKV}: non-finite logits")
+    for label, dtype, r in checks:
+        check(r["max_abs_err"] <= r["tol"], f"{RWKV} {label}: kernel vs "
+              f"scan logits {r['max_abs_err']} > tol {r['tol']}")
+        if dtype != "float32":
+            continue
+        check(max(r["teacher_forced_block_rel"]) <= RWKV_BLOCK_REL,
+              f"{RWKV} {label}: a block through the kernel is off the "
+              "scan's")
+        check(all(k <= RWKV_FREE_RATIO * p + RWKV_BLOCK_REL for k, p in zip(
+            r["free_kernel_rel"], r["free_plain_rel"])),
+              f"{RWKV} {label}: the free-running kernel path parts from "
+              "the scan further than the plain chunked version does")
+        check(r["control_max_abs_err"] > r["tol"],
+              f"{RWKV} {label}: V-negated control within tol")
+    return counts["wkv6"], out
+
+
 def main() -> int:
     import torch
 
@@ -839,9 +1280,18 @@ def main() -> int:
         launches[kernel] = n
     phase_train_xcheck(torch, kops)
     t_phase["train"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    results["wkv6"], timings["wkv6"] = phase_wkv_parity(torch)
+    t_phase["wkv_parity"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    launches["wkv6"], _ = phase_rwkv_train(torch, kops)
+    phase_rwkv_xcheck(torch, kops)
+    forward_launches, _ = phase_rwkv_forward(torch, kops)
+    t_phase["rwkv"] = time.perf_counter() - t0
 
     sources = {"paged": "src/repro_torch/csrc/paged_decode.cu",
-               "flash": "src/repro_torch/csrc/flash_prefill.cu"}
+               "flash": "src/repro_torch/csrc/flash_prefill.cu",
+               "wkv6": "src/repro_torch/csrc/wkv6.cu"}
     replaces = {"paged_inhibitor":
                 "src/repro/kernels/paged.py:124 _paged_inhibitor_kernel",
                 "paged_attention":
@@ -849,7 +1299,8 @@ def main() -> int:
                 "flash_inhibitor":
                 "src/repro/kernels/inhibitor.py:99 _flash_inhibitor_kernel",
                 "flash_attention":
-                "src/repro/kernels/flash.py:35 _flash_attention_kernel"}
+                "src/repro/kernels/flash.py:35 _flash_attention_kernel",
+                "wkv6": "src/repro/kernels/rwkv6.py:43 _wkv6_kernel"}
     kernels = []
     for name in replaces:
         t = timings[name]
@@ -862,6 +1313,8 @@ def main() -> int:
             "kernel_ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"]})
+    # the WKV kernel's other main path: the full-depth eval forward
+    kernels[-1]["launches_full_depth_forward"] = forward_launches
     check(all(math.isfinite(k["ms"]) for k in kernels), "bad kernel timing")
     emit({"phase_seconds": t_phase})
     emit({"kernels": kernels})

@@ -1,16 +1,17 @@
 """Model configuration: architecture widths, dtypes and the attention block.
 
-Port of :mod:`repro.configs.base` for the dense slice.  Field names and
-defaults match the reference so that a config compares field by field;
-the families the port does not run yet (MoE, SSM, encoder-decoder,
-frontends) and the JAX-only ``unroll`` knob are left out.  ``remat``
-selects activation checkpointing per block in training
-(``models.transformer``).
+Port of :mod:`repro.configs.base` for the dense and the RWKV-6 (``ssm``)
+families.  Field names and defaults match the reference so that a config
+compares field by field; the families the port does not run yet (MoE,
+hybrid SSM, encoder-decoder, frontends) and the JAX-only ``unroll`` knob
+are left out.  ``remat`` selects activation checkpointing per block in
+training (``models.transformer``, ``models.rwkv``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -24,9 +25,21 @@ _DTYPES = {
 
 
 @dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    kind: str = "mamba"            # mamba | rwkv6 (only rwkv6 is ported)
+    state_dim: int = 16
+    inner_dim: Optional[int] = None
+    conv_dim: int = 4
+    dt_rank: Optional[int] = None
+    # rwkv6
+    lora_dim: int = 64
+    decay_lora_dim: int = 64
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                    # dense (the only family of this slice)
+    family: str                    # dense | ssm (the families ported)
     num_layers: int
     d_model: int
     d_ff: int
@@ -38,6 +51,7 @@ class ModelConfig:
     mlp_bias: bool = False
     tie_embeddings: bool = False
     rope_pct: float = 1.0
+    ssm: Optional[SSMConfig] = None
     max_seq_len: int = 131072
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
@@ -61,6 +75,11 @@ class ModelConfig:
             self, attention=dataclasses.replace(self.attention, kind=kind,
                                                 mechanism=kind))
 
+    def with_layers(self, n: int) -> "ModelConfig":
+        """Depth-n variant (the depth cut of runs that do not fit the card
+        at full depth)."""
+        return dataclasses.replace(self, num_layers=n)
+
     def reduced(self, *, num_layers=2, d_model=64, d_ff=128, vocab_size=256,
                 num_heads=4, num_kv_heads=2, head_dim=16,
                 max_seq_len=512) -> "ModelConfig":
@@ -69,7 +88,13 @@ class ModelConfig:
         attn = dataclasses.replace(
             self.attention, num_heads=num_heads, num_kv_heads=num_kv_heads,
             head_dim=head_dim)
-        return dataclasses.replace(
-            self, num_layers=num_layers, d_model=d_model, d_ff=d_ff,
-            vocab_size=vocab_size, attention=attn, max_seq_len=max_seq_len,
-            remat="none", compute_dtype="float32")
+        kw = dict(num_layers=num_layers, d_model=d_model, d_ff=d_ff,
+                  vocab_size=vocab_size, attention=attn,
+                  max_seq_len=max_seq_len, remat="none",
+                  compute_dtype="float32")
+        if self.ssm is not None:
+            kw["ssm"] = dataclasses.replace(
+                self.ssm, state_dim=8, inner_dim=d_model * 2
+                if self.ssm.inner_dim else None, lora_dim=8,
+                decay_lora_dim=8)
+        return dataclasses.replace(self, **kw)

@@ -391,6 +391,20 @@ def plan_attention(cfg, shapes: AttnShapes) -> ExecutionPlan:
     return plan
 
 
+def choose_plan(mechanism: str, candidates) -> ExecutionPlan:
+    """First-eligible-wins chooser for token mixers that take no (q, k, v)
+    (the RWKV WKV scan).  ``candidates`` is an ordered iterable of
+    ``(backend, eligible, reason)``; the chosen plan is trace-logged like
+    :func:`plan_attention`'s."""
+    for backend, ok, reason in candidates:
+        if ok:
+            plan = ExecutionPlan(mechanism, backend, reason)
+            _trace(plan)
+            return plan
+    raise ValueError(f"no eligible backend among candidates for "
+                     f"{mechanism!r}")
+
+
 def execute_plan(plan: ExecutionPlan, q, k, v, *,
                  params: MechanismParams,
                  mask=None,

@@ -1,13 +1,14 @@
 """Build and load the port's CUDA kernels.
 
-The sources under ``repro_torch/csrc/`` are compiled with ``nvcc`` for
-``sm_90a`` into one shared library with a plain C interface, loaded with
-``ctypes`` (no PyTorch headers, so a build takes seconds).  Each source
-compiles to an object in its own ``nvcc`` process, all started together,
-and one more links them.  The library is built at first use into
-``build/kernels/`` at the repository root, keyed by a hash of the sources
-and flags, and reused while they are unchanged.  Nothing here runs at
-import time.
+The sources under ``repro_torch/csrc/`` (the paged decode kernels, the
+blockwise flash forward kernels and the RWKV-6 WKV scan) are compiled
+with ``nvcc`` for ``sm_90a`` into one shared library with a plain C
+interface, loaded with ``ctypes`` (no PyTorch headers, so a build takes
+seconds).  Each source compiles to an object in its own ``nvcc``
+process, all started together, and one more links them.  The library
+is built at first use into ``build/kernels/`` at the repository root,
+keyed by a hash of the sources and flags, and reused while they are
+unchanged.  Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -24,7 +25,8 @@ from typing import Optional
 
 _PKG = Path(__file__).resolve().parents[1]
 SOURCES = (_PKG / "csrc" / "paged_decode.cu",
-           _PKG / "csrc" / "flash_prefill.cu")
+           _PKG / "csrc" / "flash_prefill.cu",
+           _PKG / "csrc" / "wkv6.cu")
 BUILD_DIR = _PKG.parents[1] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -132,6 +134,8 @@ def library() -> ctypes.CDLL:
     lib.flash_prefill_smem_bytes.restype = ctypes.c_longlong
     lib.flash_prefill_max_outputs.argtypes = []
     lib.flash_prefill_max_outputs.restype = I
+    lib.wkv6_chunked_fwd.argtypes = [I, P, P, P, P, P, P, P, I, I, I, I, I, P]
+    lib.wkv6_chunked_fwd.restype = I
     lib.paged_decode_error_string.argtypes = [I]
     lib.paged_decode_error_string.restype = ctypes.c_char_p
     _lib = lib

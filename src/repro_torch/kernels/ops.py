@@ -5,15 +5,20 @@ Port of :mod:`repro.kernels.ops`:
 
   * :data:`NATIVE_PLATFORMS` — per family, the platforms (tensor device
     types) its kernel runs natively on, from each kernel module's
-    ``LOWERS_ON``: ``inhibitor``, ``flash`` and ``paged`` have CUDA
-    kernels (``("cuda",)``); the planner (``core.mechanism.
-    kernel_native``) keys kernel preference on this table.
+    ``LOWERS_ON``: ``inhibitor``, ``flash``, ``paged`` and ``wkv6`` have
+    CUDA kernels (``("cuda",)``); the planner (``core.mechanism.
+    kernel_native``) and the RWKV model registry key kernel preference on
+    this table.
   * :func:`flash_inhibitor` / :func:`flash_attention` — the training
     kernels under ``torch.autograd.Function``: the forward is the kernel,
     the backward recomputes through the reference (as the reference's
     ``_fi_bwd`` / ``_fa_bwd``): the analytic, key-chunked inhibitor
     backward and the lean Softmax backward of :mod:`repro_torch.core`.
     ``*_cached`` carry per-row decode cursors and are inference only.
+  * :func:`wkv6` — the RWKV-6 WKV scan: from a zero state the kernel
+    under ``torch.autograd.Function``, its backward the chunk-by-chunk
+    autograd of :func:`repro_torch.nn.ssm.wkv6_chunked_vjp`; with a
+    carried state the exact scan.
   * :class:`KernelChoice` / :data:`CANDIDATES` / :class:`KernelRegistry`
     — the launch configuration per (family, shape), an explicit override
     winning, else the family's default, cached per shape and recorded in
@@ -33,12 +38,13 @@ from repro_torch.kernels import flash as kflash
 from repro_torch.kernels import inhibitor as kinhibitor
 from repro_torch.kernels import paged as kpaged
 from repro_torch.kernels import ref as kref
+from repro_torch.kernels import rwkv6 as kwkv6
 
 NATIVE_PLATFORMS: Dict[str, Tuple[str, ...]] = {
     "inhibitor": tuple(kinhibitor.LOWERS_ON),
     "flash": tuple(kflash.LOWERS_ON),
     "paged": tuple(kpaged.LOWERS_ON),
-    "wkv6": (),               # RWKV-6 WKV scan: not ported yet
+    "wkv6": tuple(kwkv6.LOWERS_ON),
 }
 
 
@@ -260,6 +266,46 @@ def flash_attention_cached(q, k, v, q_offset, kv_valid_len, *,
 
 
 # ---------------------------------------------------------------------------
+# RWKV-6 WKV
+# ---------------------------------------------------------------------------
+
+#: profiler range around the WKV kernel's backward (read by
+#: ``launch.profile --train``)
+WKV6_BACKWARD_RANGE = "repro_torch.wkv6_backward"
+
+
+class _Wkv6(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, chunk):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(r, k, v, w, u)
+        ctx.chunk = chunk
+        return kwkv6.wkv6_chunked(r, k, v, w, u, chunk=chunk)
+
+    @staticmethod
+    def backward(ctx, g_out, g_state):
+        from repro_torch.nn.ssm import wkv6_chunked_vjp
+
+        r, k, v, w, u = ctx.saved_tensors
+        with torch.profiler.record_function(WKV6_BACKWARD_RANGE):
+            grads = wkv6_chunked_vjp(r, k, v, w, u, g_out, g_state,
+                                     chunk=ctx.chunk)
+        return grads + (None,)
+
+
+def wkv6(r, k, v, w, u, state=None, *, chunk: int = kwkv6.DEFAULT_CHUNK):
+    """Chunked WKV6 (the kernel; its plain version on the CPU) from a zero
+    state, differentiable through the chunked form's backward; the exact
+    scan when a carried state is given.  The kernel-vs-scan plan is made
+    (and trace-logged) at the model level — ``models.rwkv.wkv_plan`` — so
+    this wrapper only enforces the state-carry constraint.  Returns (out (b, t, h, n), final state (b, h, n, n)),
+    float32."""
+    if state is not None:
+        return kref.wkv6_ref(r, k, v, w, u, state)
+    return _Wkv6.apply(r, k, v, w, u, chunk)
+
+
+# ---------------------------------------------------------------------------
 # launch / plain-call counts of every kernel
 # ---------------------------------------------------------------------------
 
@@ -271,6 +317,8 @@ def reset_counts() -> None:
     kflash.flash_attention_fwd.launches = 0
     kinhibitor.flash_inhibitor_plain.calls = 0
     kflash.flash_attention_plain.calls = 0
+    kwkv6.wkv6_chunked.launches = 0
+    kwkv6.wkv6_chunked_plain.calls = 0
 
 
 def counts() -> dict:
@@ -280,4 +328,6 @@ def counts() -> dict:
         "flash_attention": kflash.flash_attention_fwd.launches,
         "flash_inhibitor_plain": kinhibitor.flash_inhibitor_plain.calls,
         "flash_attention_plain": kflash.flash_attention_plain.calls,
+        "wkv6": kwkv6.wkv6_chunked.launches,
+        "wkv6_plain": kwkv6.wkv6_chunked_plain.calls,
     }

@@ -10,7 +10,9 @@ one source of truth.
     adds the per-row decode cursors of the kernels' cached form;
   * :func:`paged_flash_inhibitor_ref` / :func:`paged_flash_attention_ref`
     — gather each row's pages into a contiguous view, then the dense
-    masked forms (the gather the paged kernels replace).
+    masked forms (the gather the paged kernels replace);
+  * :func:`wkv6_ref` — the exact RWKV-6 recurrence, the WKV kernel's
+    oracle.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import torch
 from repro_torch.core.attention import structural_mask_predicate
 from repro_torch.core.dotprod import dot_product_attention
 from repro_torch.core.inhibitor import inhibitor_attention
+from repro_torch.nn.ssm import wkv6_scan_ref
 
 
 def _mask_for(n_q: int, n_k: int, causal: bool, window: Optional[int],
@@ -68,6 +71,11 @@ def flash_attention_ref(q, k, v, *, score_scale=None, causal=True,
     """Oracle for kernels.flash.flash_attention_fwd."""
     mask = _mask_for(q.shape[1], k.shape[1], causal, window, q.device)
     return dot_product_attention(q, k, v, mask=mask, score_scale=score_scale)
+
+
+def wkv6_ref(r, k, v, w, u, state=None):
+    """Oracle for kernels.rwkv6.wkv6_chunked (the exact recurrence)."""
+    return wkv6_scan_ref(r, k, v, w, u, state)
 
 
 def _gather_paged(k_pool, v_pool, block_tables):

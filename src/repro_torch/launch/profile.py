@@ -4,14 +4,18 @@ card.
     python -m repro_torch.launch.profile --arch smollm-135m@inhibitor \\
         --out profile_inhibitor.json
     python -m repro_torch.launch.profile --train --arch smollm-135m@inhibitor
+    python -m repro_torch.launch.profile --train --arch rwkv6-7b --layers 4
 
-``--train`` profiles ``make_train_step`` at full width and depth (batch 8
-x seq 1024 of the seeded LM stream by default): step wall (host clock to
-a synchronize), device busy time and idle share from the same
-``torch.profiler`` CUDA trace, and the device time split between the
-flash forward kernel (its launches, remat recompute included), the
-backward recompute through the reference (the ``kernels.ops.
-BACKWARD_RANGE`` profiler range) and the rest, with the top kernels.
+``--train`` profiles ``make_train_step`` at full width (batch 8 x seq
+1024 of the seeded LM stream by default) and full depth, or the first
+``--layers`` layers (rwkv6-7b's 32 do not fit AdamW on one 80 GB card):
+step wall (host clock to a synchronize), device busy time and idle share
+from the same ``torch.profiler`` CUDA trace, and the device time split
+between the flash forward kernels and the WKV kernel (their launches,
+remat recompute included), the attention backward recompute through the
+reference (the ``kernels.ops.BACKWARD_RANGE`` profiler range), the WKV
+backward (``kernels.ops.WKV6_BACKWARD_RANGE``) and the rest, with the
+top kernels.
 
 Without ``--train``:
 
@@ -107,10 +111,13 @@ def profile_train(args, device) -> dict:
     from repro_torch.train.step import init_train_state, make_train_step
 
     cfg = get_config(args.arch)
+    if args.layers:
+        cfg = cfg.with_layers(args.layers)
     api = get_model(cfg)
     opt_cfg = AdamWConfig(lr=3e-4)
     params, opt_state = init_train_state(
-        api, opt_cfg, torch.Generator().manual_seed(0), device=device)
+        api, opt_cfg, torch.Generator(device=device).manual_seed(0),
+        device=device)
     step_fn = make_train_step(api, opt_cfg)
     pipe = PipelineConfig(global_batch=args.batch, seq_len=args.seq,
                           vocab_size=cfg.vocab_size)
@@ -140,21 +147,33 @@ def profile_train(args, device) -> dict:
         torch.cuda.synchronize()
         prof_wall_ms = (time.perf_counter() - t0) * 1e3
     launches = {k: v for k, v in kops.counts().items() if v}
-    events, kernels = _kernel_events(prof, (kops.BACKWARD_RANGE,))
+    range_names = (kops.BACKWARD_RANGE, kops.WKV6_BACKWARD_RANGE)
+    events, kernels = _kernel_events(prof, range_names)
     device_ms = sum(_device_us(e) for e in kernels) / 1e3
-    fwd_ms = sum(_device_us(e) for e in kernels
-                 if "flash_inhibitor_kernel" in e.key
-                 or "flash_attention_kernel" in e.key) / 1e3
-    # the range's CPU event: its device time sums the kernels of the ops
-    # under it (the trace also holds a device-side copy of the range)
-    ranges = [e for e in prof.events() if e.name == kops.BACKWARD_RANGE
-              and e.device_type == torch.autograd.DeviceType.CPU]
+
+    def kernel_ms(*names):
+        return sum(_device_us(e) for e in kernels
+                   if any(n in e.key for n in names)) / 1e3
+
+    fwd_ms = kernel_ms("flash_inhibitor_kernel", "flash_attention_kernel")
+    wkv_ms = kernel_ms("wkv6_kernel")
+
+    # a range's CPU events: their device time sums the kernels of the ops
+    # under them (the trace also holds a device-side copy of each range)
+    def range_events(name):
+        return [e for e in prof.events() if e.name == name
+                and e.device_type == torch.autograd.DeviceType.CPU]
+
+    ranges = range_events(kops.BACKWARD_RANGE)
+    wkv_ranges = range_events(kops.WKV6_BACKWARD_RANGE)
     bwd_ms = sum(e.device_time_total for e in ranges) / 1e3
+    wkv_bwd_ms = sum(e.device_time_total for e in wkv_ranges) / 1e3
     top = sorted(kernels, key=_device_us, reverse=True)[:15]
     p50 = statistics.median(wall)
     return {
-        "mode": "train", "arch": args.arch, "card": _card(),
-        "batch": args.batch, "seq": args.seq, "torch": torch.__version__,
+        "mode": "train", "arch": args.arch, "layers": cfg.num_layers,
+        "card": _card(), "batch": args.batch, "seq": args.seq,
+        "torch": torch.__version__,
         "step_wall_ms_p50": p50, "step_wall_ms": wall,
         "profiled_step_wall_ms": prof_wall_ms,
         "step_device_ms": device_ms,
@@ -163,9 +182,13 @@ def profile_train(args, device) -> dict:
         "tokens_per_s": args.batch * args.seq / (p50 / 1e3),
         "launches": launches,
         "backward_ranges": len(ranges),
+        "wkv6_backward_ranges": len(wkv_ranges),
         "device_ms_split": {"flash_forward_kernel": fwd_ms,
                             "backward_recompute": bwd_ms,
-                            "rest": device_ms - fwd_ms - bwd_ms},
+                            "wkv6_forward_kernel": wkv_ms,
+                            "wkv6_backward": wkv_bwd_ms,
+                            "rest": (device_ms - fwd_ms - bwd_ms - wkv_ms
+                                     - wkv_bwd_ms)},
         "peak_memory_bytes": torch.cuda.max_memory_allocated(device),
         "top_kernels": [{"name": e.key[:80], "count": e.count,
                          "device_ms": _device_us(e) / 1e3} for e in top],
@@ -185,6 +208,8 @@ def main(argv=None) -> int:
                     help="profile one train step instead of a decode step")
     ap.add_argument("--batch", type=int, default=8, help="train batch")
     ap.add_argument("--seq", type=int, default=1024, help="train seq len")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="train: the first N layers (default: all)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)

@@ -2,12 +2,18 @@
 
     python -m repro_torch.launch.train --arch smollm-135m@inhibitor --full \\
         --steps 20 --batch 8 --seq 1024
+    python -m repro_torch.launch.train --arch rwkv6-7b --full --layers 4 \\
+        --steps 20 --batch 8 --seq 1024
 
 Trains a randomly initialised model (seeded) on the deterministic LM
 stream of :mod:`repro_torch.data.pipeline` under restart supervision, on
 ``--device`` (default ``cuda``; without a card it fails unless ``--device
 cpu`` is given).  Without ``--full`` the config is the reduced per-family
-one (CPU scale).  Flags and defaults are the reference launcher's; one
+one (CPU scale); ``--layers N`` keeps its first N layers.  ``--arch``
+names a dense config (``smollm-135m``, ``paper-tiny``) or the RWKV-6
+``rwkv6-7b``; at full size the latter's 7.6 B float32 parameters with
+AdamW take 122 GB, beyond one 80 GB card, and its first 4 layers 23 GB.
+Flags and defaults are the reference launcher's; one
 device only: ``--data-parallel`` / ``--model-parallel`` other than 1 and
 ``--ckpt-dir`` are not ported yet and raise.
 
@@ -37,6 +43,8 @@ def run(argv=None) -> dict:
     ap.add_argument("--reduced", action="store_true", default=True,
                     help="use the reduced per-family config (CPU scale)")
     ap.add_argument("--full", dest="reduced", action="store_false")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="the first N layers (default: all)")
     ap.add_argument("--data-parallel", type=int, default=1)
     ap.add_argument("--model-parallel", type=int, default=1)
     ap.add_argument("--ckpt-dir", default=None)
@@ -74,6 +82,8 @@ def run(argv=None) -> dict:
     cfg = get_config(name)
     if args.reduced:
         cfg = cfg.reduced()
+    if args.layers:
+        cfg = cfg.with_layers(args.layers)
     api = get_model(cfg)
     pipe = PipelineConfig(global_batch=args.batch, seq_len=args.seq,
                           vocab_size=cfg.vocab_size, seed=args.seed)
@@ -98,7 +108,8 @@ def run(argv=None) -> dict:
     walls = [h["seconds"] for h in hist[1:]] or [h["seconds"] for h in hist]
     p50 = statistics.median(walls) if walls else float("nan")
     summary = {
-        "arch": name, "full": not args.reduced, "device": str(device),
+        "arch": name, "full": not args.reduced, "layers": cfg.num_layers,
+        "device": str(device),
         "steps": args.steps, "batch": args.batch, "seq": args.seq,
         "microbatches": args.microbatches, "restarts": restarts,
         "losses": [h["loss"] for h in hist],

@@ -8,7 +8,8 @@ the config:
   * ``init_states(batch, max_len, **kw)``  -> decode state
   * ``step(params, tokens, states, batch)`` -> (logits, states')  [decode]
 
-This slice ports the dense branch.
+The port has the dense branch and the ``ssm`` branch (RWKV-6); the
+other families raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from __future__ import annotations
 from typing import Callable, NamedTuple
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import rwkv as rwkv_m
 from repro_torch.models import transformer as tfm
 
 
@@ -28,6 +30,8 @@ class ModelApi(NamedTuple):
 
 
 def get_model(cfg: ModelConfig) -> ModelApi:
+    if cfg.family == "ssm":
+        return _ssm_model(cfg)
     if cfg.family != "dense":
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported to PyTorch yet (ROADMAP "
@@ -44,5 +48,29 @@ def get_model(cfg: ModelConfig) -> ModelApi:
         init=lambda gen, device=None: tfm.init_lm(gen, cfg, device=device),
         forward=forward,
         init_states=lambda b, s, **kw: tfm.init_states(cfg, b, s, **kw),
+        step=step,
+    )
+
+
+def _ssm_model(cfg: ModelConfig) -> ModelApi:
+    from repro_torch.core.mechanism import kernel_native
+
+    def forward(params, batch):
+        # the WKV kernel where the tokens live on a platform it runs
+        # natively on (a CUDA card); the exact scan elsewhere (the CPU),
+        # as the reference takes its kernel on the TPU only
+        tokens = batch["tokens"]
+        return rwkv_m.lm_forward(
+            params, cfg, tokens,
+            use_kernel=kernel_native("wkv6", tokens.device.type))
+
+    def step(params, tokens, states, batch=None):
+        return rwkv_m.lm_step(params, cfg, tokens, states)
+
+    return ModelApi(
+        cfg=cfg,
+        init=lambda gen, device=None: rwkv_m.init_lm(gen, cfg, device=device),
+        forward=forward,
+        init_states=lambda b, s, **kw: rwkv_m.init_states(cfg, b, s, **kw),
         step=step,
     )

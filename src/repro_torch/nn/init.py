@@ -1,4 +1,6 @@
-"""Parameter initializers: draws from a CPU ``torch.Generator``."""
+"""Parameter initializers: draws from a ``torch.Generator``, on the
+generator's own device (a CPU generator gives the same values whatever
+device the result goes to; a CUDA generator draws on the card)."""
 
 from __future__ import annotations
 
@@ -13,12 +15,13 @@ _TRUNC_STD = 0.87962566103423978
 
 def truncated_normal(gen: torch.Generator, shape: Sequence[int], std: float,
                      *, dtype=torch.float32, device=None) -> torch.Tensor:
-    x = torch.empty(tuple(shape), dtype=torch.float32)
+    x = torch.empty(tuple(shape), dtype=torch.float32, device=gen.device)
     torch.nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=gen)
     return (x * (std / _TRUNC_STD)).to(device=device, dtype=dtype)
 
 
 def normal(gen: torch.Generator, shape: Sequence[int], std: float, *,
            dtype=torch.float32, device=None) -> torch.Tensor:
-    x = torch.randn(tuple(shape), generator=gen, dtype=torch.float32)
+    x = torch.randn(tuple(shape), generator=gen, dtype=torch.float32,
+                    device=gen.device)
     return (x * std).to(device=device, dtype=dtype)

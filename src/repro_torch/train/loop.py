@@ -39,13 +39,15 @@ class TrainConfig:
 def train(api: ModelApi, opt_cfg: AdamWConfig, train_cfg: TrainConfig,
           batch_fn: Callable[[int], Dict[str, np.ndarray]], *,
           device=None, hooks: Optional[list] = None) -> dict:
-    """Run the loop on ``device`` (default ``cuda``); returns {params,
-    opt_state, history}.  Each history entry holds the step's loss and
+    """Run the loop on ``device`` (default ``cuda``), from parameters drawn
+    there from ``train_cfg.seed``; returns {params, opt_state, history}.  Each history entry holds the step's loss and
     its wall seconds (ending in the loss read, which waits for the
     device)."""
     dev = resolve_device(device)
+    # parameters drawn on the training device: a CPU generator's one
+    # sequential stream takes minutes for billions of parameters
     params, opt_state = init_train_state(
-        api, opt_cfg, torch.Generator().manual_seed(train_cfg.seed),
+        api, opt_cfg, torch.Generator(device=dev).manual_seed(train_cfg.seed),
         device=dev)
     step_fn = make_train_step(api, opt_cfg, train_cfg.microbatches)
     watchdog = StepWatchdog()

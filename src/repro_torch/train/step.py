@@ -1,7 +1,7 @@
 """Train and eval step builders.
 
-Port of :mod:`repro.train.step` (the dense branch; the serving steps stay
-with ``serve/engine.py``).  ``make_train_step(api, opt_cfg)`` returns
+Port of :mod:`repro.train.step` for the families the port runs (dense and
+RWKV-6 ``ssm``; the serving steps stay with ``serve/engine.py``).  ``make_train_step(api, opt_cfg)`` returns
 ``(params, opt_state, batch) -> (params', opt_state', metrics)``; the
 optimizer updates ``params`` and ``opt_state`` in place
 (:func:`repro_torch.optim.adamw.adamw_update`), so the returned trees are
@@ -75,8 +75,8 @@ def _align_labels(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 
 def make_loss_fn(api: ModelApi) -> Callable:
-    """``loss_fn(params, batch) -> (loss, metrics)`` (dense: no MoE
-    auxiliary terms)."""
+    """``loss_fn(params, batch) -> (loss, metrics)`` (the ported families
+    have no MoE auxiliary terms)."""
 
     def loss_fn(params, batch) -> tuple:
         logits = api.forward(params, batch)
@@ -146,9 +146,9 @@ def make_eval_step(api: ModelApi) -> Callable:
 
 def init_train_state(api: ModelApi, opt_cfg: AdamWConfig,
                      gen: torch.Generator, *, device=None):
-    """Initialize (params, opt_state): parameters from ``gen`` (a CPU
-    generator) on ``device`` (default ``cuda``), as leaf tensors that
-    require grad.  The reference also returns the logical sharding axes;
+    """Initialize (params, opt_state): parameters from ``gen`` (a
+    generator on the CPU or on ``device``) on ``device`` (default
+    ``cuda``), as leaf tensors that require grad.  The reference also returns the logical sharding axes;
     the single-device port has none."""
     params = api.init(gen, device=device)
     for p in tree_leaves(params):

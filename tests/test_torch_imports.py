@@ -35,3 +35,16 @@ def test_importing_the_serve_path_loads_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_importing_the_rwkv_train_path_loads_no_jax():
+    code = ("import sys; sys.path.insert(0, 'src'); "
+            "import repro_torch.models.rwkv, repro_torch.kernels.rwkv6, "
+            "repro_torch.launch.train, repro_torch.launch.profile, "
+            "repro_torch.models.registry; "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')); print(bad); "
+            "sys.exit(1 if bad else 0)")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr

@@ -1,5 +1,5 @@
-"""The CUDA kernels (csrc/paged_decode.cu, csrc/flash_prefill.cu) against
-their plain versions, on the card.  Every test here needs a CUDA card and
+"""The CUDA kernels (csrc/paged_decode.cu, csrc/flash_prefill.cu,
+csrc/wkv6.cu) against their plain versions, on the card.  Every test here needs a CUDA card and
 skips without one; the file imports no JAX, so it runs where only PyTorch
 is installed:
 
@@ -31,6 +31,7 @@ from repro_torch.kernels import flash as kflash
 from repro_torch.kernels import inhibitor as kinh
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import paged as kpaged
+from repro_torch.kernels import rwkv6 as krwkv6
 
 # full float32 matmuls and convolutions on a card (TF32 keeps ~3 digits)
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -327,3 +328,109 @@ def test_flash_ops_gradients_on_the_card():
         for a, b in zip(got, want):
             assert b.abs().max() > 1e-2
             assert ((a - b).norm() / b.norm()).item() <= 1e-4
+
+
+# (t, heads, head_dim, chunk): the reference's sweep (tests/test_kernels.py),
+# t below one chunk, t = 1 and t = 0, and rwkv6-7b's heads at a ragged t
+WKV_SHAPES = [(50, 3, 16, 16), (32, 2, 8, 8), (17, 1, 16, 32), (5, 2, 64, 32),
+              (1, 2, 64, 32), (0, 2, 64, 32), (300, 4, 64, 32),
+              (70, 2, 32, 64)]
+# float32 throughout the kernel: the plain version forms the same
+# exponents by segment sums rather than differences of cumulative sums
+# and sums in another order, so 5e-5 of the largest magnitude
+WKV_REL = 5e-5
+
+
+def _wkv_operands(seed, b, t, h, n, dtype, decay="mixed"):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def mk(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+
+    r, k, v = (mk(b, t, h, n).to(dtype) for _ in range(3))
+    if decay == "zero":
+        w = torch.zeros((b, t, h, n), device="cuda")
+    elif decay == "near_one":
+        w = torch.exp(-torch.exp(mk(b, t, h, n) - 6.0))
+    else:
+        w = torch.exp(-torch.exp(mk(b, t, h, n) * 2.0))
+    return r, k, v, w, mk(h, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", WKV_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("decay", ["mixed", "zero", "near_one"])
+def test_wkv6_kernel_matches_plain_version(shape, dtype, decay):
+    """Outputs and final state; non-vacuous: a share of the reference above
+    the tolerance, and the reference with V one step late (at t = 1: V of
+    the other batch row) or u zeroed outside it."""
+    _needs_card()
+    t, h, n, chunk = shape
+    r, k, v, w, u = _wkv_operands(7, 2, t, h, n, dtype, decay)
+    out, state = krwkv6.wkv6_chunked(r, k, v, w, u, chunk=chunk)
+    ref_o, ref_s = krwkv6.wkv6_chunked_plain(r, k, v, w, u, chunk=chunk)
+    assert out.dtype == state.dtype == torch.float32
+    assert torch.isfinite(out).all() and torch.isfinite(state).all()
+    for got, ref in ((out, ref_o), (state, ref_s)):
+        assert got.shape == ref.shape
+        if ref.numel():
+            tol = WKV_REL * max(1.0, ref.abs().max().item())
+            assert (got - ref).abs().max().item() <= tol
+    if t == 0:
+        assert not state.any()
+        return
+    tol = WKV_REL * max(1.0, ref_o.abs().max().item())
+    assert (ref_o.abs() > tol).float().mean().item() >= MIN_NONZERO_SHARE
+    late = v.roll(1, dims=1 if t > 1 else 0)
+    for ctl in (krwkv6.wkv6_chunked_plain(r, k, late, w, u, chunk=chunk)[0],
+                krwkv6.wkv6_chunked_plain(r, k, v, w, 0 * u,
+                                          chunk=chunk)[0]):
+        assert (ctl - ref_o).abs().max().item() > tol
+
+
+@pytest.mark.cuda
+def test_wkv6_wrapper_counts_launches_and_rejects_bad_operands():
+    _needs_card()
+    r, k, v, w, u = _wkv_operands(8, 1, 40, 2, 64, torch.bfloat16)
+    kops.reset_counts()
+    krwkv6.wkv6_chunked(r, k, v, w, u)
+    assert (kops.counts()["wkv6"], kops.counts()["wkv6_plain"]) == (1, 0)
+    with pytest.raises(TypeError, match="share"):
+        krwkv6.wkv6_chunked(r.float(), k, v, w, u)
+    with pytest.raises(TypeError, match="float32"):
+        krwkv6.wkv6_chunked(r, k, v, w.bfloat16(), u)
+    with pytest.raises(ValueError, match="contiguous"):
+        krwkv6.wkv6_chunked(r.transpose(1, 2).contiguous().transpose(1, 2),
+                            k, v, w, u)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        krwkv6.wkv6_chunked(r, k.cpu(), v, w, u)
+    with pytest.raises(ValueError, match="head_dim"):
+        krwkv6.wkv6_chunked(*(x[..., :48].contiguous()
+                              for x in (r, k, v, w, u)))
+    assert kops.counts()["wkv6"] == 1
+
+
+@pytest.mark.cuda
+def test_wkv6_ops_gradients_on_the_card():
+    """ops.wkv6 under autograd on the card (the kernel forward, the
+    chunk-by-chunk backward) against autograd through the exact scan,
+    float32, by norm (1e-4 relative); the decay exp(-exp(N(0, 1))) stays
+    above the kernel's 1e-30 floor."""
+    _needs_card()
+    from repro_torch.nn.ssm import wkv6_scan_ref
+
+    r, k, v, _, u = _wkv_operands(9, 2, 100, 3, 64, torch.float32)
+    w = torch.exp(-torch.exp(torch.randn(
+        r.shape, device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(10))))
+    g = torch.randn(r.shape, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(11))
+    leaves = [x.requires_grad_() for x in (r, k, v, w, u)]
+    kops.reset_counts()
+    got = torch.autograd.grad(kops.wkv6(*leaves)[0], leaves, g)
+    assert kops.counts()["wkv6"] == 1 and kops.counts()["wkv6_plain"] == 0
+    want = torch.autograd.grad(wkv6_scan_ref(*leaves)[0], leaves, g)
+    for a, b in zip(got, want):
+        assert b.abs().max() > 1e-3
+        assert ((a - b).norm() / b.norm()).item() <= 1e-4

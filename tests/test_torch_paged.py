@@ -139,7 +139,7 @@ def test_cpu_wrappers_run_the_plain_version_and_count(rng):
 def test_registry_default_override_and_native_platforms(rng):
     assert kops.NATIVE_PLATFORMS == {
         "inhibitor": ("cuda",), "flash": ("cuda",), "paged": ("cuda",),
-        "wkv6": ()}
+        "wkv6": ("cuda",)}
     r = kops.KernelRegistry()
     key = ("inhibitor", 4, 8, 4, 2, 16)
     assert r.choose("paged", key, "cpu") == kops.CANDIDATES["paged"][0]
