@@ -13,7 +13,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
                on the card, at smollm-135m's decode shapes (h=9, h_kv=3,
                d=64, page 16, batch 8, table width 32, ragged lengths 1..512,
                two rows sharing pages, a poisoned trash page, a window
-               case), with kernel, plain, library and bound times.
+               case), with kernel, plain, library and bound times, the
+               kernel's and the library's device time per call (CUDA
+               kernels in a torch.profiler trace, no host time) and the
+               Softmax kernel's launch grid (splits and blocks) read from
+               that trace.
   4. serve   — smollm-135m@inhibitor, then smollm-135m (dot-product), at
                full width (bf16 compute, seeded random init) through the
                paged engine: 8 requests, 128-token prompts, 32 new tokens.
@@ -29,7 +33,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
                unnormalized case, ragged per-row cursors with nan past
                every cursor, and the train phase's shapes (b 8 x n 1024
                causal, bf16); then kernel, plain, library and bound times
-               at those shapes.
+               and device times per call at those shapes.
   7. train   — smollm-135m@inhibitor, then smollm-135m, at full width and
                depth (float32 parameters, bf16 compute, remat "full"),
                through ``repro_torch.train.loop.train`` (the loop the
@@ -79,9 +83,11 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -133,6 +139,49 @@ def cuda_ms(fn, n: int, warm: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / n
+
+
+def device_us(fn, n: int, grids: bool = False) -> dict:
+    """Device time per call of fn(i) without the host: the CUDA kernels'
+    device microseconds in a torch.profiler trace of n calls, summed and
+    divided by n, with the kernels launched per call.  With ``grids``,
+    also each kernel's launch grids as the trace recorded them."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for i in range(3):
+        fn(i)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(n):
+            fn(i)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    check(bool(kernels), "the profiler trace holds no CUDA kernel")
+
+    def us(e):
+        for field in ("self_device_time_total", "self_cuda_time_total"):
+            if hasattr(e, field):
+                return float(getattr(e, field))
+        fail("profiler event has no device time field")
+
+    out = {"us": sum(us(e) for e in kernels) / n,
+           "kernels_per_call": sum(e.count for e in kernels) / n}
+    if grids:
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "trace.json")
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                events = json.load(f)["traceEvents"]
+        out["grids"] = {}
+        for e in events:
+            if e.get("cat") == "kernel" and "grid" in e.get("args", {}):
+                seen = out["grids"].setdefault(e["name"], [])
+                if e["args"]["grid"] not in seen:
+                    seen.append(e["args"]["grid"])
+    return out
 
 
 def make_pools(gen, dtype, layers: int = 1, poison: bool = True,
@@ -293,11 +342,30 @@ def phase_parity(torch, kpaged):
         fwd, plain = kernel_fns(kpaged, name)
         q, kp, vp, tables, lengths = make_pools(
             gen, torch.bfloat16, LAYERS, poison=False, qk_std=QK_STD[name])
-        t = {"ms": cuda_ms(lambda i: fwd(q, kp[i % LAYERS], vp[i % LAYERS],
-                                         tables, lengths), n),
+
+        def kernel(i):
+            return fwd(q, kp[i % LAYERS], vp[i % LAYERS], tables, lengths)
+
+        t = {"ms": cuda_ms(kernel, n),
              "plain_ms": cuda_ms(lambda i: plain(
                  q, kp[i % LAYERS], vp[i % LAYERS], tables, lengths), 30)}
+        dev = device_us(kernel, 100, grids=name == "paged_attention")
+        t["device_us"], t["kernels_per_call"] = (dev["us"],
+                                                 dev["kernels_per_call"])
         if name == "paged_attention":
+            # the split kernel's grid as launched: (row x kv head, split)
+            grid = [g for k, gs in dev["grids"].items()
+                    if "paged_attention_split_kernel" in k for g in gs]
+            check(len(grid) == 1, f"paged_attention: split kernel grids "
+                  f"{dev['grids']} in the trace, expected one")
+            t["splits"] = grid[0][1]
+            t["blocks"] = math.prod(grid[0])
+            sms = torch.cuda.get_device_properties(0).multi_processor_count
+            check(t["splits"] == kpaged.attention_splits(
+                WIDTH, kpaged.DEFAULT_PAGES_PER_STEP)
+                and t["blocks"] > sms, f"paged_attention: launched grid "
+                f"{grid[0]}, expected (batch x kv heads, ceil(width / "
+                f"pages per split)) over more blocks than the {sms} SMs")
             group = H // H_KV
             mask = (torch.arange(WIDTH * PS, device="cuda")[None]
                     < lengths.long()[:, None])[:, None, None, :]
@@ -312,6 +380,9 @@ def phase_parity(torch, kpaged):
                     q.transpose(1, 2), k, v, attn_mask=mask)
 
             t["library_ms"] = cuda_ms(library, 100)
+            dev = device_us(library, 100)
+            t["library_device_us"] = dev["us"]
+            t["library_kernels_per_call"] = dev["kernels_per_call"]
             lib_err = (library(0).transpose(1, 2).float() - fwd(
                 q, kp[0], vp[0], tables, lengths).float()).abs().max().item()
             t["library_max_abs_err"] = lib_err
@@ -633,6 +704,8 @@ def flash_bound(name: str, b: int, n: int, elem: int) -> dict:
 def phase_flash_parity(torch):
     import torch.nn.functional as F
 
+    from repro_torch.kernels import flash as kflash
+
     results = flash_parity_checks(torch)
     gen = torch.Generator(device="cuda").manual_seed(3)
     timings = {}
@@ -643,6 +716,9 @@ def phase_flash_parity(torch):
                                TRAIN_N) for _ in range(4)]
         t = {"ms": cuda_ms(lambda i: fwd(*sets[i % 4]), 40),
              "plain_ms": cuda_ms(lambda i: plain(*sets[i % 4]), 3, warm=1)}
+        dev = device_us(lambda i: fwd(*sets[i % 4]), 20)
+        t["device_us"], t["kernels_per_call"] = (dev["us"],
+                                                 dev["kernels_per_call"])
         # the train phase's exact shapes and dtype, held like the cases above
         q, k, v = sets[0]
         ref = plain(q, k, v)
@@ -657,6 +733,9 @@ def phase_flash_parity(torch):
                     q, k, v, is_causal=True, enable_gqa=True)
 
             t["library_ms"] = cuda_ms(library, 40)
+            dev = device_us(library, 20)
+            t["library_device_us"] = dev["us"]
+            t["library_kernels_per_call"] = dev["kernels_per_call"]
             t["library_max_abs_err"] = (
                 library(0).transpose(1, 2).float()
                 - fwd(*sets[0]).float()).abs().max().item()
@@ -668,7 +747,8 @@ def phase_flash_parity(torch):
           "head_dim": D, "cursors": {"q_offset": CURSOR_OFFS,
                                      "kv_valid_len": CURSOR_VALID},
           "timing_shapes": {"batch": TRAIN_B, "n": TRAIN_N,
-                            "causal": True, "dtype": "bfloat16"},
+                            "causal": True, "dtype": "bfloat16",
+                            "flash_attention_block_q": kflash.DEFAULT_BLOCK_Q},
           "results": results, "timings": timings})
     return results, timings
 
@@ -1255,8 +1335,10 @@ def main() -> int:
     from repro_torch.kernels import paged as kpaged
 
     info = cuda_lib.build()
+    # each kernel's entry line, then its spills and registers
     ptxas = [ln.strip() for ln in info.log.splitlines()
-             if "registers" in ln or "spill" in ln]
+             if "entry function" in ln or "registers" in ln
+             or "spill" in ln]
     emit({"phase": "build", "seconds": info.seconds, "cached": info.cached,
           "library": info.path.name, "ptxas": ptxas})
 

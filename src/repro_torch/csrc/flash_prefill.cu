@@ -3,27 +3,28 @@
 // contiguous (batch, n, heads, head_dim) operands.
 //
 // Replaces the TPU kernels
-//   flash_inhibitor_kernel <- _flash_inhibitor_kernel
-//                             (src/repro/kernels/inhibitor.py:99)
-//   flash_attention_kernel <- _flash_attention_kernel
-//                             (src/repro/kernels/flash.py:35)
+//   flash_inhibitor_kernel    <- _flash_inhibitor_kernel
+//                                (src/repro/kernels/inhibitor.py:99)
+//   flash_attention_tc_kernel <- _flash_attention_kernel
+//   (bf16; float32: flash_attention_kernel) (src/repro/kernels/flash.py:35)
 //
 // Layouts (row-major, contiguous):
 //   q, out  (batch, n_q, heads, head_dim)      T
 //   k, v    (batch, n_k, kv_heads, head_dim)   T
 //   cursors (2, batch) int32 or null: row 0 query offsets, row 1 KV valid
 //           lengths (the decode-cache form; null = offset 0, all n_k keys)
-// T is float or __nv_bfloat16; all arithmetic is float32.
+// T is float or __nv_bfloat16; all sums are float32.
 //
 // Masking.  Query i of row r sits at position q_off[r] + i.  Key j is
 // attended iff j < min(kv_valid[r], n_k), and, when causal (a window
 // implies causality), j <= pos, and, with a window, j > pos - window.
-// Masked pairs are left out by predicate, never multiplied by 0: nan or
-// inf past a cursor cannot reach a sum, and keys past the last key any
-// query of the tile attends are never read.  The key count of each query
-// is the closed form of the same predicate.
+// Keys past the last key any query of the block attends are never read.
+// The key count of each query is the closed form of the same predicate.
+// A row with no attended key writes 0 (flash.py:92-95); a Softmax row
+// writes acc / max(l, 1e-20).
 //
-// Design.  One block per (row, kv head, tile of block_q queries): the
+// The CUDA-core kernels (the inhibitor in both types, the Softmax in
+// float32).  One block per (row, kv head, tile of block_q queries): the
 // TPU's sequential kv grid axis becomes a loop inside the block over
 // 32-key tiles, from the tile holding the first key any query of the
 // block attends to the last (tiles wholly above the causal diagonal,
@@ -38,32 +39,78 @@
 //   3. accumulate: each thread owns one head_dim column e and up to 16
 //      query rows, its outputs in float32 registers; it reads V[j][e] once
 //      per key and the rows' scores as warp broadcasts.
-// The inhibitor evaluates the direct form relu(v - z) (unsigned) or
-// relu(v+ - z) + min(v- + z, 0) = (v > 0 ? relu(v - z) : min(v + z, 0))
-// (signed), identical to the fused eq. 9 / 10 for z >= 0 (the relu shift
-// guarantees it), cheaper per element and rounding less; out / max(count,
-// 1) when normalizing.  Its sums are plain: no rescaling between tiles.
-// The Softmax kernel keeps a running max (from -1e30), a running sum and
-// a rescaled accumulator per row: the score warp also does the row's
-// online-softmax bookkeeping with shuffles.  A row with no attended key
-// writes 0 (flash.py:92-95); out = acc / max(l, 1e-20).
+// Masked pairs are left out by predicate, never multiplied by 0: nan or
+// inf past a cursor cannot reach a sum.  The inhibitor evaluates the
+// direct form relu(v - z) (unsigned) or relu(v+ - z) + min(v- + z, 0) =
+// (v > 0 ? relu(v - z) : min(v + z, 0)) (signed), identical to the fused
+// eq. 9 / 10 for z >= 0 (the relu shift guarantees it), cheaper per
+// element and rounding less; out / max(count, 1) when normalizing.  Its
+// sums are plain: no rescaling between tiles.  The float32 Softmax keeps
+// a running max (from -1e30), a running sum and a rescaled accumulator per
+// row: the score warp also does the row's bookkeeping with shuffles.  It
+// stays on the CUDA cores because TF32 products (10-bit mantissas) would
+// not meet the float32 tolerance; the training path never launches it
+// (it computes in bf16), the float32 parity cases do.
+//
+// The bf16 Softmax on the tensor cores (flash_attention_tc_kernel), in
+// the shape of FlashAttention-2.  One block per (row, query head, tile of
+// block_q = 64 or 128 queries): 4 or 8 warps, each owning 16 query rows.
+// A launch per query head rather than per kv head: the block is then 4
+// warps whatever the group, the registers of a warp hold only its own
+// rows, and the group's 3 blocks read the same K/V tiles from the 50 MB L2
+// (at the training shape all K and V is 6.3 MB); sharing a tile across the
+// group would take 12-warp blocks and a third as many of them.  Query
+// tiles run heaviest first (the last causal tile is launched first).
+// Per 64-key tile, double-buffered in shared memory by cp.async (16 B a
+// thread; rows padded by 16 B so the 8 rows of each ldmatrix hit 8
+// distinct bank groups):
+//   1. S = Q K^T by mma.sync.m16n8k16 (bf16 in, float32 accumulate), Q
+//      fragments held in registers from the first tile, K fragments by
+//      ldmatrix; a bf16 x bf16 product is exact in float32, as the
+//      reference's float32 einsum of bf16 values is;
+//   2. masks from indices, only on tiles that cross the diagonal, the
+//      window edge, the cursor or n_k for some row of the warp; interior
+//      tiles run unmasked, and a tile no row of the warp attends is
+//      skipped by that warp;
+//   3. online softmax in registers: the running max (from -1e30), the
+//      running sum and the rescale of O per row, with shuffles across the
+//      4 lanes that share a row of the m16n8 fragment; p = 2^(s c - m c),
+//      c = log2(e) / scale, by ex2.approx (a masked score, -inf, gives 0);
+//   4. O += P V by mma.sync, V fragments by ldmatrix.trans.  The reference
+//      multiplies P in float32 (flash.py:97); P rounded to bf16 alone errs
+//      by up to 2^-9 of each term, beyond the bf16 tolerance on outputs
+//      near 0.  So P = p_hi + p_lo with p_hi = bf16(p), p_lo = bf16(p -
+//      p_hi), and both are multiplied by V: the error falls to about
+//      2^-17 of sum p |v| / l, inside the float32 term of the tolerance,
+//      for one more product per tile (1.5x the tensor work).
+// Keys at or past min(kv_valid, n_k) enter shared memory as zeros by
+// cp.async's zero-fill (source size 0): they are never loaded, so nan
+// past a cursor cannot meet a product (a masked score does not stop
+// 0 x nan = nan in P V).  Queries past n_q are zero-filled the same way
+// and never written.
 //
 // Bound on this card.  At the training shapes (b 8, n 1024 causal, 9 / 3
 // heads, d 64, bf16) the inhibitor does ~7 float32 operations per (query
 // head, attended key, d): 2.4e9 such elements, 17 GFLOP, about 0.25 ms at
 // the 67 TFLOP/s of the CUDA cores, against 25 MB of operands (7.5 us at
 // 3.35 TB/s): bound by operations, which no tensor core can take (a sum of
-// absolute differences is no product).  The Softmax kernel's 9.7 GFLOP
-// would take 10 us on the bf16 tensor cores; this first version runs
-// them on the CUDA cores in float32.  Both are limited in practice by the
-// shared-memory loads of steps 2 and 3 (about one per operation); a
-// register-tiled score phase, mma.sync / wgmma for the Softmax products
-// and cp.async / TMA staging are later work.
+// absolute differences is no product).  The inhibitor is limited in
+// practice by the shared-memory loads of steps 2 and 3 (about one per
+// operation); a register-tiled score phase is later work.  The Softmax's
+// 9.7 GFLOP take 10 us on the bf16 tensor cores (989 TFLOP/s): bound by
+// operations too.  Between the tensor-core kernel and that bound stand
+// mma.sync itself (the synchronous warp-level product, slower than the
+// asynchronous warpgroup wgmma), the hi/lo split's third product,
+// the exponentials on the CUDA cores (one per attended pair), and the
+// diagonal tiles' masked half; wgmma on TMA-staged tiles with mbarriers,
+// warp specialisation (a producer warp and consumer warpgroups) and a
+// persistent causal schedule are the next steps.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
+#include <stdint.h>
 
 namespace {
 
@@ -388,13 +435,308 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(bool inhibitor, const PrefillArgs& a,
-                   cudaStream_t stream) {
+// ---------------------------------------------------------------------------
+// bf16 Softmax on the tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int kTcBlockK = 64;   // keys per staged tile
+constexpr int kTcPad = 8;       // bf16 of padding per shared-memory row
+
+// bytes of shared memory: Q (block_q rows) and two stages of K and V
+__host__ __device__ inline size_t tc_smem_bytes(int block_q, int d) {
+  return sizeof(__nv_bfloat16) * (size_t)(d + kTcPad) *
+         ((size_t)block_q + 4 * kTcBlockK);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; with valid false nothing is read and the
+// destination is zero-filled (source size 0)
+__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src,
+                                            bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_1() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// c (16x8 float32) += a (16x16 bf16, row) * b (16x8 bf16, col)
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 2^x by the SFU (relative error about 2^-22; results below 2^-126 flush
+// to 0, against a running sum l >= 1)
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// (x0, x1) -> bf16 pair, x0 in the low half; and the pair of remainders
+// x - bf16(x), rounded to bf16
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+template <int D>
+__global__ void __launch_bounds__(256)
+    flash_attention_tc_kernel(PrefillArgs a) {
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  constexpr int kStride = D + kTcPad;   // bf16 per shared-memory row
+  constexpr int kChunks = D / 8;        // 16-byte chunks per row
+  constexpr int kKSteps = D / 16;       // mma K steps over head_dim
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g8 = lane >> 2, t4 = lane & 3;
+  const int row = blockIdx.x / a.heads;
+  const int head = blockIdx.x - row * a.heads;
+  const int kvh = head / (a.heads / a.kv_heads);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * a.block_q;  // heaviest first
+  const int q_off = a.cursors ? a.cursors[row] : 0;
+  const int kv_lim = a.cursors ? min(a.n_k, a.cursors[a.batch + row]) : a.n_k;
+
+  // the block's key tiles: the first query's lo to the last one's hi
+  const int q_last = min(a.n_q, q0 + a.block_q) - 1;
+  const int k_first =
+      (key_range(a, q_off, kv_lim, q0).lo / kTcBlockK) * kTcBlockK;
+  const int k_end = key_range(a, q_off, kv_lim, q_last).hi;
+  const int n_tiles =
+      k_end > k_first ? (k_end - k_first + kTcBlockK - 1) / kTcBlockK : 0;
+
+  // this warp's 16 rows: wf, wl are the key ranges of its first and last
+  // valid row; both ends rise with the query, so the rows' union is
+  // [wf.lo, wl.hi) and their intersection [wl.lo, wf.hi)
+  const int wq0 = q0 + warp * 16;
+  const bool warp_live = wq0 < a.n_q;
+  const KeyRange wf = key_range(a, q_off, kv_lim, wq0);
+  const KeyRange wl =
+      key_range(a, q_off, kv_lim, min(a.n_q - 1, wq0 + 15));
+  // the two rows of this thread: g8 and g8 + 8
+  const KeyRange rr0 = key_range(a, q_off, kv_lim, wq0 + g8);
+  const KeyRange rr1 = key_range(a, q_off, kv_lim, wq0 + g8 + 8);
+
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(tc_smem);
+  __nv_bfloat16* ks = qs + (size_t)a.block_q * kStride;   // [2][64][kStride]
+  __nv_bfloat16* vs = ks + 2 * kTcBlockK * kStride;
+  const __nv_bfloat16* qg = static_cast<const __nv_bfloat16*>(a.q);
+  const __nv_bfloat16* kg = static_cast<const __nv_bfloat16*>(a.k);
+  const __nv_bfloat16* vg = static_cast<const __nv_bfloat16*>(a.v);
+
+  float o[D / 8][4];
+#pragma unroll
+  for (int nd = 0; nd < D / 8; ++nd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[nd][e] = 0.0f;
+  float m_run[2] = {kNegInf, kNegInf}, l_run[2] = {0.0f, 0.0f};
+
+  if (n_tiles > 0) {
+    for (int i = threadIdx.x; i < a.block_q * kChunks; i += blockDim.x) {
+      const int r = i / kChunks, ch = i - r * kChunks;
+      const bool ok = q0 + r < a.n_q;
+      const size_t src =
+          (((size_t)row * a.n_q + q0 + r) * a.heads + head) * D + ch * 8;
+      cp_async_16(smem_addr(qs + r * kStride + ch * 8), ok ? qg + src : qg,
+                  ok);
+    }
+  }
+  auto stage_kv = [&](int stage, int k0) {
+    for (int i = threadIdx.x; i < kTcBlockK * kChunks; i += blockDim.x) {
+      const int j = i / kChunks, ch = i - j * kChunks;
+      const bool ok = k0 + j < kv_lim;
+      const size_t src =
+          (((size_t)row * a.n_k + k0 + j) * a.kv_heads + kvh) * D + ch * 8;
+      const int dst = (stage * kTcBlockK + j) * kStride + ch * 8;
+      cp_async_16(smem_addr(ks + dst), ok ? kg + src : kg, ok);
+      cp_async_16(smem_addr(vs + dst), ok ? vg + src : vg, ok);
+    }
+  };
+  if (n_tiles > 0) stage_kv(0, k_first);
+  cp_async_commit();
+
+  uint32_t qf[kKSteps][4];
+  const float c = 1.4426950408889634f / a.scale;   // log2(e) / scale
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = k_first + t * kTcBlockK;
+    if (t + 1 < n_tiles) stage_kv((t + 1) & 1, k0 + kTcBlockK);
+    cp_async_commit();
+    cp_async_wait_1();   // tile t (and Q) have landed
+    __syncthreads();
+    if (t == 0) {
+#pragma unroll
+      for (int kk = 0; kk < kKSteps; ++kk)
+        ldmatrix_x4(qf[kk], smem_addr(qs + (warp * 16 + (lane & 15)) * kStride +
+                                      kk * 16 + (lane >> 4) * 8));
+    }
+    const bool skip = !warp_live || k0 >= wl.hi || k0 + kTcBlockK <= wf.lo;
+    if (!skip) {
+      const __nv_bfloat16* kt = ks + (size_t)(t & 1) * kTcBlockK * kStride;
+      const __nv_bfloat16* vt = vs + (size_t)(t & 1) * kTcBlockK * kStride;
+      // 1. S = Q K^T: 8 blocks of 8 keys
+      float s[8][4];
+#pragma unroll
+      for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nb][e] = 0.0f;
+#pragma unroll
+      for (int kk = 0; kk < kKSteps; ++kk) {
+#pragma unroll
+        for (int nb2 = 0; nb2 < 4; ++nb2) {
+          uint32_t b[4];
+          ldmatrix_x4(b, smem_addr(kt +
+                                   (nb2 * 16 + (lane & 7) + (lane >> 4) * 8) *
+                                       kStride +
+                                   kk * 16 + ((lane >> 3) & 1) * 8));
+          mma_bf16(s[2 * nb2], qf[kk], b[0], b[1]);
+          mma_bf16(s[2 * nb2 + 1], qf[kk], b[2], b[3]);
+        }
+      }
+      // 2. masks, only where some row of the warp needs one
+      const bool interior = k0 >= wl.lo && k0 + kTcBlockK <= wf.hi;
+      if (!interior) {
+#pragma unroll
+        for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int kj = k0 + nb * 8 + 2 * t4 + (e & 1);
+            const KeyRange& r = e < 2 ? rr0 : rr1;
+            if (kj < r.lo || kj >= r.hi) s[nb][e] = -INFINITY;
+          }
+      }
+      // 3. online softmax; rows g8 (e < 2) and g8 + 8 (e >= 2)
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int nb = 0; nb < 8; ++nb) {
+        mx[0] = fmaxf(mx[0], fmaxf(s[nb][0], s[nb][1]));
+        mx[1] = fmaxf(mx[1], fmaxf(s[nb][2], s[nb][3]));
+      }
+      float alpha[2], mc[2], rs[2] = {0.0f, 0.0f};
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+        const float m_new = fmaxf(m_run[i], mx[i]);   // finite: >= -1e30
+        alpha[i] = exp2_approx((m_run[i] - m_new) * c);
+        m_run[i] = m_new;
+        mc[i] = m_new * c;
+      }
+#pragma unroll
+      for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = exp2_approx(fmaf(s[nb][e], c, -mc[e >> 1]));
+          s[nb][e] = p;
+          rs[e >> 1] += p;
+        }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) l_run[i] = l_run[i] * alpha[i] + rs[i];
+#pragma unroll
+      for (int nd = 0; nd < D / 8; ++nd) {
+        o[nd][0] *= alpha[0];
+        o[nd][1] *= alpha[0];
+        o[nd][2] *= alpha[1];
+        o[nd][3] *= alpha[1];
+      }
+      // 4. O += (P_hi + P_lo) V, 16 keys per K step
+#pragma unroll
+      for (int kk = 0; kk < kTcBlockK / 16; ++kk) {
+        uint32_t ph[4], pl[4];
+        split_bf16(s[2 * kk][0], s[2 * kk][1], ph[0], pl[0]);
+        split_bf16(s[2 * kk][2], s[2 * kk][3], ph[1], pl[1]);
+        split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2], pl[2]);
+        split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3], pl[3]);
+        // all of the K step's V fragments first, then the hi products,
+        // then the lo ones: D / 8 independent products stand between two
+        // into the same accumulator
+        uint32_t b[D / 16][4];
+#pragma unroll
+        for (int nd2 = 0; nd2 < D / 16; ++nd2)
+          ldmatrix_x4_trans(
+              b[nd2], smem_addr(vt +
+                                (kk * 16 + (lane & 7) +
+                                 ((lane >> 3) & 1) * 8) * kStride +
+                                nd2 * 16 + (lane >> 4) * 8));
+#pragma unroll
+        for (int nd2 = 0; nd2 < D / 16; ++nd2) {
+          mma_bf16(o[2 * nd2], ph, b[nd2][0], b[nd2][1]);
+          mma_bf16(o[2 * nd2 + 1], ph, b[nd2][2], b[nd2][3]);
+        }
+#pragma unroll
+        for (int nd2 = 0; nd2 < D / 16; ++nd2) {
+          mma_bf16(o[2 * nd2], pl, b[nd2][0], b[nd2][1]);
+          mma_bf16(o[2 * nd2 + 1], pl, b[nd2][2], b[nd2][3]);
+        }
+      }
+    }
+    __syncthreads();   // the next stage_kv overwrites this tile's buffer
+  }
+
+  // the row sums over the quad, then out = acc / max(l, 1e-20)
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l_run[i] += __shfl_xor_sync(0xffffffffu, l_run[i], 1);
+    l_run[i] += __shfl_xor_sync(0xffffffffu, l_run[i], 2);
+    l_run[i] = fmaxf(l_run[i], 1e-20f);
+  }
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.out);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qi = wq0 + g8 + 8 * i;
+    if (qi >= a.n_q) continue;
+    __nv_bfloat16* dst =
+        out + (((size_t)row * a.n_q + qi) * a.heads + head) * D + 2 * t4;
+#pragma unroll
+    for (int nd = 0; nd < D / 8; ++nd)
+      *reinterpret_cast<__nv_bfloat162*>(dst + nd * 8) =
+          __floats2bfloat162_rn(o[nd][2 * i] / l_run[i],
+                                o[nd][2 * i + 1] / l_run[i]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// launchers
+// ---------------------------------------------------------------------------
+
+// the CUDA-core kernels: grid (row x kv head, query tile)
+template <int D>
+cudaError_t launch_cuda_core(void (*kern)(PrefillArgs), const PrefillArgs& a,
+                             cudaStream_t stream) {
   const int group = a.heads / a.kv_heads;
   const size_t smem = sizeof(float) * smem_floats(group, a.block_q, D);
-  void (*kern)(PrefillArgs) =
-      inhibitor ? flash_inhibitor_kernel<T, D> : flash_attention_kernel<T, D>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -405,31 +747,55 @@ cudaError_t launch(bool inhibitor, const PrefillArgs& a,
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_d(bool inhibitor, int head_dim, const PrefillArgs& a,
-                       cudaStream_t stream) {
-  switch (head_dim) {
-    case 16: return launch<T, 16>(inhibitor, a, stream);
-    case 32: return launch<T, 32>(inhibitor, a, stream);
-    case 64: return launch<T, 64>(inhibitor, a, stream);
-    case 128: return launch<T, 128>(inhibitor, a, stream);
-    default: return cudaErrorInvalidValue;
+// the tensor-core kernel: grid (row x query head, query tile), 16 query
+// rows per warp
+template <int D>
+cudaError_t launch_tc(const PrefillArgs& a, cudaStream_t stream) {
+  if (a.block_q != 64 && a.block_q != 128) return cudaErrorInvalidValue;
+  const size_t smem = tc_smem_bytes(a.block_q, D);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_attention_tc_kernel<D>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
   }
+  const dim3 grid(a.batch * a.heads, (a.n_q + a.block_q - 1) / a.block_q);
+  flash_attention_tc_kernel<D><<<grid, a.block_q * 2, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch(bool inhibitor, int dtype, const PrefillArgs& a,
+                   cudaStream_t stream) {
+  if (inhibitor)
+    return dtype == 0
+               ? launch_cuda_core<D>(flash_inhibitor_kernel<float, D>, a,
+                                     stream)
+               : launch_cuda_core<D>(flash_inhibitor_kernel<__nv_bfloat16, D>,
+                                     a, stream);
+  return dtype == 0 ? launch_cuda_core<D>(flash_attention_kernel<float, D>, a,
+                                          stream)
+                    : launch_tc<D>(a, stream);
 }
 
 cudaError_t dispatch(bool inhibitor, int dtype, int head_dim,
                      const PrefillArgs& a, cudaStream_t stream) {
-  switch (dtype) {
-    case 0: return dispatch_d<float>(inhibitor, head_dim, a, stream);
-    case 1: return dispatch_d<__nv_bfloat16>(inhibitor, head_dim, a, stream);
+  if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;
+  switch (head_dim) {
+    case 16: return launch<16>(inhibitor, dtype, a, stream);
+    case 32: return launch<32>(inhibitor, dtype, a, stream);
+    case 64: return launch<64>(inhibitor, dtype, a, stream);
+    case 128: return launch<128>(inhibitor, dtype, a, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16; head_dim 16, 32, 64 or 128.  Returns a
-// cudaError_t code (0 = launched); the launch is asynchronous on `stream`.
+// dtype: 0 float32, 1 bfloat16; head_dim 16, 32, 64 or 128; the bf16
+// Softmax (tensor cores) takes block_q 64 or 128, q / k / v 16-byte
+// aligned.  Returns a cudaError_t code (0 = launched); the launch is
+// asynchronous on `stream`.
 extern "C" int flash_inhibitor_prefill(
     int dtype, const void* q, const void* k, const void* v,
     const int* cursors, void* out, int batch, int n_q, int n_k, int heads,

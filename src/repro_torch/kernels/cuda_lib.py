@@ -109,6 +109,20 @@ def build() -> BuildInfo:
     return _build
 
 
+def call_on_stream(device_index: int, entry, *args) -> int:
+    """``entry(*args, stream)`` with the current stream of CUDA device
+    ``device_index``, made the current device for the call when it is not
+    already: the raw stream handle and the device test are cheaper on the
+    host than a ``torch.cuda.Stream`` and a device context, which would
+    outweigh the launch of a kernel of a few microseconds."""
+    import torch
+
+    if device_index == torch.cuda.current_device():
+        return entry(*args, torch._C._cuda_getCurrentRawStream(device_index))
+    with torch.cuda.device(device_index):
+        return entry(*args, torch._C._cuda_getCurrentRawStream(device_index))
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
     global _lib
@@ -120,7 +134,7 @@ def library() -> ctypes.CDLL:
         I, P, P, P, P, P, P, I, I, I, I, I, I, I, F, F, I, I, I, P]
     lib.paged_inhibitor_decode.restype = I
     lib.paged_attention_decode.argtypes = [
-        I, P, P, P, P, P, P, I, I, I, I, I, I, I, F, I, P]
+        I, P, P, P, P, P, P, I, I, I, I, I, I, I, F, I, P, P]
     lib.paged_attention_decode.restype = I
     lib.paged_decode_smem_bytes.argtypes = [I, I, I, I]
     lib.paged_decode_smem_bytes.restype = ctypes.c_longlong

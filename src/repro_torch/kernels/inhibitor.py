@@ -25,6 +25,7 @@ keys are live (:func:`pack_cursors`).
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -72,11 +73,42 @@ def _layout(q, k, v):
     return batch, n_q, n_k, heads, kv_heads, d
 
 
+@functools.lru_cache(maxsize=None)
+def _block_q(group: int, d: int, block_q: int, tiles) -> int:
+    """The query tile one launch takes: with ``tiles`` (a kernel of fixed
+    tiles) ``block_q`` itself, else raises; without, ``block_q`` halved
+    until the block's group * block_q * d outputs (held in registers) and
+    its staged tiles fit.  Memoized per shape: the training step asks 60
+    times at one shape."""
+    if tiles is not None:
+        if block_q not in tiles:
+            raise ValueError(f"prefill kernel: block_q {block_q} is not one "
+                             f"of this kernel's query tiles {tiles}")
+        return block_q
+    from repro_torch.kernels import cuda_lib
+
+    lib = cuda_lib.library()
+    bq = max(1, block_q)
+    while bq > 1 and (group * bq * d > lib.flash_prefill_max_outputs()
+                      or lib.flash_prefill_smem_bytes(group, bq, d)
+                      > _MAX_SMEM):
+        bq //= 2
+    if (group * bq * d > lib.flash_prefill_max_outputs()
+            or lib.flash_prefill_smem_bytes(group, bq, d) > _MAX_SMEM):
+        raise ValueError(f"prefill kernel: group {group} x head_dim {d} "
+                         f"does not fit one block")
+    return bq
+
+
 def launch_prefill(entry: str, q, k, v, cursors, *, block_q: int,
-                   scale: float, extra: tuple, causal: bool, window):
+                   scale: float, extra: tuple, causal: bool, window,
+                   tiles=None):
     """Validate and launch one prefill kernel on the current stream of q's
     device; returns the output tensor.  Shared by the flash inhibitor and
-    flash attention wrappers (the two kernels take the same layout)."""
+    flash attention wrappers (the two kernels take the same layout).
+    ``tiles``: the query tiles a kernel of fixed tiles takes (its operands
+    then must be 16-byte aligned, for its 16-byte copies); None for the
+    CUDA-core kernels, whose tile is halved to fit."""
     from repro_torch.kernels import cuda_lib
 
     batch, n_q, n_k, heads, kv_heads, d = _layout(q, k, v)
@@ -95,29 +127,19 @@ def launch_prefill(entry: str, q, k, v, cursors, *, block_q: int,
         raise ValueError("prefill kernel: operands must be contiguous")
     if d not in _HEAD_DIMS:
         raise ValueError(f"prefill kernel: head_dim {d} not in {_HEAD_DIMS}")
+    if tiles is not None and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("prefill kernel: q/k/v must be 16-byte aligned")
+    bq = _block_q(heads // kv_heads, d, int(block_q), tiles)
     lib = cuda_lib.library()
-    group = heads // kv_heads
-    bq = max(1, int(block_q))
-    # a block holds group * block_q * d outputs in registers: halve the
-    # query tile until they (and the staged tiles) fit
-    while bq > 1 and (group * bq * d > lib.flash_prefill_max_outputs()
-                      or lib.flash_prefill_smem_bytes(group, bq, d)
-                      > _MAX_SMEM):
-        bq //= 2
-    if (group * bq * d > lib.flash_prefill_max_outputs()
-            or lib.flash_prefill_smem_bytes(group, bq, d) > _MAX_SMEM):
-        raise ValueError(f"prefill kernel: group {group} x head_dim {d} "
-                         f"does not fit one block")
     out = torch.empty_like(q)
     if batch == 0 or n_q == 0:
         return out
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    with torch.cuda.device(q.device):
-        err = getattr(lib, entry)(
-            _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            None if cursors is None else cursors.data_ptr(), out.data_ptr(),
-            batch, n_q, n_k, heads, kv_heads, d, bq, float(scale), *extra,
-            int(bool(causal)), -1 if window is None else int(window), stream)
+    err = cuda_lib.call_on_stream(
+        q.get_device(), getattr(lib, entry), _DTYPE_CODE[q.dtype],
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if cursors is None else cursors.data_ptr(), out.data_ptr(),
+        batch, n_q, n_k, heads, kv_heads, d, bq, float(scale), *extra,
+        int(bool(causal)), -1 if window is None else int(window))
     if err:
         raise RuntimeError(f"{entry} launch failed: "
                            f"{lib.paged_decode_error_string(err).decode()}")

@@ -52,9 +52,13 @@ NATIVE_PLATFORMS: Dict[str, Tuple[str, ...]] = {
 class KernelChoice:
     """Launch configuration for one kernel call; ``None`` fields fall back
     to the registry's choice.  The prefill kernels read ``block_q`` (the
-    query tile; their key tile is fixed at ``BLOCK_K`` = 32, one key per
-    lane), the paged kernels ``pages_per_step`` (pages staged in shared
-    memory per round)."""
+    query tile) and fix their key tile: the inhibitor's
+    ``kinhibitor.BLOCK_K`` = 32 (one key per lane, as the float32 Softmax
+    variant), the bf16 Softmax's ``kflash.BLOCK_K`` = 64 on the tensor
+    cores, which takes ``block_q`` in ``kflash.BLOCK_QS`` only.  The paged
+    kernels read ``pages_per_step``: pages staged in shared memory per
+    round by the inhibitor, pages per split (one block each) by the
+    Softmax."""
     block_q: Optional[int] = None
     block_k: Optional[int] = None
     sub_k: Optional[int] = None
@@ -80,11 +84,8 @@ CANDIDATES: Dict[str, Tuple[KernelChoice, ...]] = {
         KernelChoice(8, kinhibitor.BLOCK_K),
         KernelChoice(32, kinhibitor.BLOCK_K),
     ),
-    "flash": (
-        KernelChoice(kflash.DEFAULT_BLOCK_Q, kinhibitor.BLOCK_K),
-        KernelChoice(8, kinhibitor.BLOCK_K),
-        KernelChoice(32, kinhibitor.BLOCK_K),
-    ),
+    "flash": tuple(KernelChoice(bq, kflash.BLOCK_K)
+                   for bq in kflash.BLOCK_QS),
     "paged": (
         KernelChoice(pages_per_step=kpaged.DEFAULT_PAGES_PER_STEP),
         KernelChoice(pages_per_step=1), KernelChoice(pages_per_step=2),
@@ -161,16 +162,18 @@ def paged_flash_attention(q, k_pool, v_pool, block_tables, lengths, *,
 #: by ``launch.profile --train``)
 BACKWARD_RANGE = "repro_torch.flash_backward"
 
+_KEY_TILE = {"inhibitor": kinhibitor.BLOCK_K, "flash": kflash.BLOCK_K}
+
 
 def _prefill_choice(family: str, q, k, causal, window, cached: bool,
                     override: Optional[KernelChoice]) -> KernelChoice:
     shape_key = (q.shape[1], k.shape[1], q.shape[2], k.shape[2], q.shape[3],
                  causal, window, cached)
     c = registry.choose(family, shape_key, q.device.type, override)
-    if c.block_k not in (None, kinhibitor.BLOCK_K):
-        raise ValueError(f"the {family} kernel stages {kinhibitor.BLOCK_K} "
-                         f"keys per tile (one per lane); block_k="
-                         f"{c.block_k} is not a launch option")
+    key_tile = _KEY_TILE[family]
+    if c.block_k not in (None, key_tile):
+        raise ValueError(f"the {family} kernel stages {key_tile} keys per "
+                         f"tile; block_k={c.block_k} is not a launch option")
     return c
 
 

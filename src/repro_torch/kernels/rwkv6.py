@@ -98,12 +98,10 @@ def wkv6_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if b * h == 0:
         return out, state
     lib = cuda_lib.library()
-    stream = torch.cuda.current_stream(r.device).cuda_stream
-    with torch.cuda.device(r.device):
-        err = lib.wkv6_chunked_fwd(
-            _DTYPE_CODE[r.dtype], r.data_ptr(), k.data_ptr(), v.data_ptr(),
-            w.data_ptr(), u.data_ptr(), out.data_ptr(), state.data_ptr(),
-            b, t, h, n, int(chunk), stream)
+    err = cuda_lib.call_on_stream(
+        r.get_device(), lib.wkv6_chunked_fwd, _DTYPE_CODE[r.dtype],
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
+        out.data_ptr(), state.data_ptr(), b, t, h, n, int(chunk))
     if err:
         raise RuntimeError(f"wkv6_chunked_fwd launch failed: "
                            f"{lib.paged_decode_error_string(err).decode()}")

@@ -29,8 +29,9 @@ bookkeeping — three ways:
     kernel time, launches per step and the top kernels by time, so the
     device's idle share (1 - device / wall) shows how far the host holds
     the card back;
-  * the paged decode kernel alone: its device time per launch from the
-    same trace, beside the wrapper's per-call time by CUDA events.
+  * the paged decode kernel alone: its device time per wrapper call from
+    the same trace (the split Softmax's two kernels together), beside
+    the wrapper's per-call time by CUDA events.
 
 Prints one JSON object (and writes it to ``--out`` when given).
 """
@@ -155,7 +156,8 @@ def profile_train(args, device) -> dict:
         return sum(_device_us(e) for e in kernels
                    if any(n in e.key for n in names)) / 1e3
 
-    fwd_ms = kernel_ms("flash_inhibitor_kernel", "flash_attention_kernel")
+    fwd_ms = kernel_ms("flash_inhibitor_kernel", "flash_attention_kernel",
+                       "flash_attention_tc_kernel")
     wkv_ms = kernel_ms("wkv6_kernel")
 
     # a range's CPU events: their device time sums the kernels of the ops
@@ -269,8 +271,10 @@ def main(argv=None) -> int:
                            if "LaunchKernel" in e.key) / n_prof
     top = sorted(kernels, key=_device_us, reverse=True)[:12]
     paged = [e for e in kernels if "paged_" in e.key]
+    # per wrapper call: the split Softmax launches a merge kernel too
     paged_us = (sum(_device_us(e) for e in paged)
-                / max(1, sum(e.count for e in paged)))
+                / max(1, launches["paged_inhibitor"]
+                      + launches["paged_attention"]))
 
     # the wrapper alone, by CUDA events (includes its host-side checks)
     q = torch.randn((len(lengths), 1, cfg.attention.num_heads,

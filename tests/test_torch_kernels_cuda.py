@@ -1,5 +1,7 @@
 """The CUDA kernels (csrc/paged_decode.cu, csrc/flash_prefill.cu,
-csrc/wkv6.cu) against their plain versions, on the card.  Every test here needs a CUDA card and
+csrc/wkv6.cu) against their plain versions, on the card; the redesigned
+Softmax kernels (the bf16 flash forward on the tensor cores, the paged
+decode split over pages) also at their tiles' and splits' edges.  Every test here needs a CUDA card and
 skips without one; the file imports no JAX, so it runs where only PyTorch
 is installed:
 
@@ -148,18 +150,52 @@ def test_kernels_match_plain_versions(shape, dtype, pages_per_step):
 
 @pytest.mark.cuda
 def test_pages_per_step_does_not_change_a_bit():
-    """The staging depth is a launch knob: float32 results are identical
-    up to summation order, and the nan poison is never read."""
+    """The staging depth (inhibitor) and the pages per split (Softmax) are
+    launch knobs: float32 results are identical up to summation order,
+    and the nan poison is never read."""
     _needs_card()
-    q, kp, vp, _, tables, lens = _case(
-        1, batch=4, heads=9, kv_heads=3, d=64, ps=16, width=32,
-        lengths=[512, 300, 17, 1], dtype=torch.float32, qk_std=0.125)
-    outs = [kpaged.paged_flash_inhibitor_fwd(q, kp, vp, tables, lens,
-                                             pages_per_step=pps)
-            for pps in (1, 2, 4, 8)]
-    assert (outs[0].abs() > 1e-3).float().mean().item() >= 0.5
-    for o in outs[1:]:
-        torch.testing.assert_close(o, outs[0], rtol=1e-6, atol=1e-6)
+    for fwd, qk_std in ((kpaged.paged_flash_inhibitor_fwd, 0.125),
+                        (kpaged.paged_flash_attention_fwd, 1.0)):
+        q, kp, vp, _, tables, lens = _case(
+            1, batch=4, heads=9, kv_heads=3, d=64, ps=16, width=32,
+            lengths=[512, 300, 17, 1], dtype=torch.float32, qk_std=qk_std)
+        outs = [fwd(q, kp, vp, tables, lens, pages_per_step=pps)
+                for pps in (1, 2, 4, 8)]
+        assert (outs[0].abs() > 1e-3).float().mean().item() >= 0.5
+        for o in outs[1:]:
+            torch.testing.assert_close(o, outs[0], rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pages_per_step", [1, 2, 4, 8])
+def test_paged_attention_splits_at_their_edges(dtype, pages_per_step):
+    """The Softmax split over pages: lengths at each of the first split
+    boundaries and one either side, a 512-token row beside 1-token rows,
+    two rows sharing pages across a split boundary, and windows that
+    start inside a split; nan in the trash page and past every cursor."""
+    _needs_card()
+    ps, width = 16, 32
+    span = ps * pages_per_step                 # keys per split
+    shared = 2 * span + 5                      # row 8 shares row 7's pages
+    lengths = [1, span - 1, span, span + 1, 2 * span - 1, 2 * span,
+               2 * span + 1, 512, shared, 1]
+    q, kp, vp, (kc, vc), tables, lens = _case(
+        9, batch=len(lengths), heads=9, kv_heads=3, d=64, ps=ps,
+        width=width, lengths=lengths, dtype=dtype)
+    used = -(-shared // ps)
+    tables[8, :used] = tables[7, :used]
+    for window in (None, 5, span + 3):
+        out = kpaged.paged_flash_attention_fwd(
+            q, kp, vp, tables, lens, window=window,
+            pages_per_step=pages_per_step)
+        assert torch.equal(out, kpaged.paged_flash_attention_fwd(
+            q, kc, vc, tables, lens, window=window,
+            pages_per_step=pages_per_step))
+        ref, control = (kpaged.paged_flash_attention_plain(
+            q, kc, v, tables, lens, window=window)
+            for v in (vc, vc.roll(1, dims=0)))
+        _check(out, ref, dtype, control)
 
 
 @pytest.mark.cuda
@@ -271,6 +307,93 @@ def test_prefill_cursors_never_read_past_the_cursor(dtype):
                             for vv in (v, v.roll(1, dims=1)))
             _check(out, ref, dtype, control, elementwise=True)
             assert not out[3].any()            # the kv_valid_len 0 row
+
+
+def _late(v):
+    """V one key late (at one key: the other batch row's V), the control
+    of the prefill checks."""
+    return v.roll(1, dims=1 if v.shape[1] > 1 else 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block_q", kflash.BLOCK_QS)
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("n", [1, 65, 1000])
+def test_flash_tensor_core_tiles_match_plain_version(block_q, d, n):
+    """The bf16 tensor-core kernel at every query tile of the registry,
+    every head_dim, one query, one past a 64-key tile and a ragged 1000:
+    causal, window 1 (each query its own key), window 64, non-causal."""
+    _needs_card()
+    q, k, v = _prefill_operands(7, batch=2, n=n, heads=6, kv_heads=2, d=d,
+                                dtype=torch.bfloat16, qk_std=1.0)
+    for causal, window in ((True, None), (True, 1), (True, 64),
+                           (False, None)):
+        m = dict(causal=causal, window=window)
+        out = kflash.flash_attention_fwd(q, k, v, block_q=block_q, **m)
+        ref, control = (kflash.flash_attention_plain(q, k, vv, **m)
+                        for vv in (v, _late(v)))
+        _check(out, ref, torch.bfloat16, control, elementwise=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block_q", kflash.BLOCK_QS)
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_flash_tensor_core_never_reads_past_the_cursor(block_q, d):
+    """n_q != n_k with ragged per-row cursors: a diagonal row, an offset
+    row ending at n_k, a kv_valid_len 0 row, a row whose cursor cuts
+    inside a key tile, a row whose cursor lies below all its queries;
+    every key past a cursor holds nan, which must enter shared memory as
+    zeros and change no bit."""
+    _needs_card()
+    b, n_q, n_k = 5, 65, 200
+    offs = torch.tensor([0, 135, 64, 3, 190], dtype=torch.int32,
+                        device="cuda")
+    valid = torch.tensor([65, 200, 0, 70, 129], dtype=torch.int32,
+                         device="cuda")
+    q, _, _ = _prefill_operands(8, batch=b, n=n_q, heads=6, kv_heads=2, d=d,
+                                dtype=torch.bfloat16, qk_std=1.0)
+    _, k, v = _prefill_operands(9, batch=b, n=n_k, heads=6, kv_heads=2, d=d,
+                                dtype=torch.bfloat16, qk_std=1.0)
+    kn, vn = k.clone(), v.clone()
+    for row, ln in enumerate(valid.tolist()):
+        kn[row, ln:], vn[row, ln:] = float("nan"), float("nan")
+    for window in (None, 1, 50):
+        cur = dict(q_offset=offs, kv_valid_len=valid, window=window)
+        out = kflash.flash_attention_fwd(q, kn, vn, block_q=block_q, **cur)
+        assert torch.equal(out, kflash.flash_attention_fwd(
+            q, k, v, block_q=block_q, **cur))
+        ref, control = (kflash.flash_attention_plain(q, k, vv, **cur)
+                        for vv in (v, _late(v)))
+        _check(out, ref, torch.bfloat16, control, elementwise=True)
+        assert not out[2].any()                # the kv_valid_len 0 row
+
+
+@pytest.mark.cuda
+def test_redesigned_kernels_reject_what_they_do_not_take():
+    """A bf16 query tile the tensor-core kernel does not take raises (the
+    float32 variant halves any tile to fit); operands that are not
+    16-byte aligned raise for both 16-byte-copy kernels; the split
+    Softmax takes at most 8 query heads per kv head."""
+    _needs_card()
+    q, k, v = _prefill_operands(10, batch=1, n=40, heads=4, kv_heads=2, d=16,
+                                dtype=torch.bfloat16, qk_std=1.0)
+    kops.reset_counts()
+    for bad in (16, 32, 256):
+        with pytest.raises(ValueError, match="query tiles"):
+            kflash.flash_attention_fwd(q, k, v, block_q=bad)
+    kflash.flash_attention_fwd(q.float(), k.float(), v.float(), block_q=16)
+    flat = torch.empty(q.numel() + 1, dtype=q.dtype, device="cuda")
+    shifted = flat[1:].view(q.shape).copy_(q)
+    with pytest.raises(ValueError, match="aligned"):
+        kflash.flash_attention_fwd(shifted, k, v)
+    assert kops.counts()["flash_attention"] == 1
+    qp, kp, vp, _, tables, lens = _case(
+        11, batch=2, heads=9, kv_heads=1, d=16, ps=8, width=2,
+        lengths=[9, 4], dtype=torch.float32)
+    with pytest.raises(ValueError, match="group"):
+        kpaged.paged_flash_attention_fwd(qp, kp, vp, tables, lens)
+    kpaged.paged_flash_inhibitor_fwd(qp, kp, vp, tables, lens)
+    assert kpaged.counts()["paged_attention"] == 0
 
 
 @pytest.mark.cuda
