@@ -13,7 +13,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
                on the card, at smollm-135m's decode shapes (h=9, h_kv=3,
                d=64, page 16, batch 8, table width 32, ragged lengths 1..512,
                two rows sharing pages, a poisoned trash page, a window
-               case), with kernel, plain, library and bound times, the
+               case), the split Softmax also at 5 and 8 query heads per kv
+               head, with kernel, plain, library and bound times, the
                kernel's and the library's device time per call (CUDA
                kernels in a torch.profiler trace, no host time) and the
                Softmax kernel's launch grid (splits and blocks) read from
@@ -29,11 +30,14 @@ Phases, each printing one JSON line; any failure exits non-zero:
   6. flash_parity — each blockwise flash kernel (training forward)
                against its plain version on the card at smollm-135m's
                heads (9 / 3, d 64), float32 and bf16: b 1 x n 1024 causal
-               (signed, unsigned), b 2 x n 1000 with window 64, an
-               unnormalized case, ragged per-row cursors with nan past
-               every cursor, and the train phase's shapes (b 8 x n 1024
-               causal, bf16); then kernel, plain, library and bound times
-               and device times per call at those shapes.
+               (signed, unsigned), b 2 x n 1000 with window 64, ragged
+               per-row cursors with nan past every cursor, and the train
+               phase's shapes (b 8 x n 1024 causal, bf16); the inhibitor
+               also unnormalized, without a mask, with a window edge
+               inside a key tile, at head_dim 32 and 128, and with cursors
+               unsigned and unnormalized and at head_dim 32 and 128; then
+               kernel, plain, library and bound times and device times per
+               call at the train shapes.
   7. train   — smollm-135m@inhibitor, then smollm-135m, at full width and
                depth (float32 parameters, bf16 compute, remat "full"),
                through ``repro_torch.train.loop.train`` (the loop the
@@ -94,15 +98,28 @@ from pathlib import Path
 SRC = Path(__file__).resolve().parent / "src"
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth, float32
-# outside the tensor cores, bf16 on the tensor cores (dense)
+# outside the tensor cores (an FMA counted as two operations), bf16 on the
+# tensor cores (dense)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 BF16_TENSOR_OPS_PER_S = 989e12
-# float32 operations per (query head, attendable key, head dim) element:
-# inhibitor |q-k| (sub, abs, add) + combine (select, add/sub, clamp,
-# accumulate); Softmax two FMAs (q.k and p.v)
+# float32 instructions that are not FMAs (add, max) issue at one per lane
+# and cycle: 132 SMs x 128 lanes x 1.98 GHz boost, half the FMA rate above
+FP32_INSTR_PER_S = 132 * 128 * 1.98e9
+# float32 operations per (query head, attendable key, head dim) element.
+# Paged inhibitor: |q-k| (sub, abs, add) + combine (select, add/sub,
+# clamp, accumulate), at FP32_OPS_PER_S; bound by bytes either way.
+# Softmax: two FMAs (q.k and p.v).  Flash inhibitor: instructions at
+# FP32_INSTR_PER_S, the least that compute it: t = q - k and s += |t|
+# (|t| an operand modifier of the add) for the score; m = min(|v|, z) and
+# acc = fma(-sgn v, m, acc) for the inhibition, since for z >= 0
+# (v > 0 ? relu(v - z) : min(v + z, 0)) = v - sgn(v) min(|v|, z) term by
+# term (v > 0: v - z or 0; v < 0: v + z or 0; v = 0: 0; z = +inf: 0), and
+# unsigned relu(v - z) = v - min(v, z).  The sum of v over the attended
+# keys is a prefix sum shared by every query: flash_bound adds one add per
+# (kv head, key, d) and one per (query head, query, d).
 OPS_PER_ELEMENT = {"paged_inhibitor": 7, "paged_attention": 4,
-                   "flash_inhibitor": 7, "flash_attention": 4}
+                   "flash_inhibitor": 4, "flash_attention": 4}
 
 H, H_KV, D, PS, BATCH, WIDTH = 9, 3, 64, 16, 8, 32
 LENGTHS = [1, 15, 16, 17, 100, 300, 511, 512]
@@ -185,12 +202,12 @@ def device_us(fn, n: int, grids: bool = False) -> dict:
 
 
 def make_pools(gen, dtype, layers: int = 1, poison: bool = True,
-               qk_std: float = 1.0, device: str = "cuda"):
+               qk_std: float = 1.0, device: str = "cuda", heads: int = H):
     """Ragged paged pools in the engine's layout: per-row non-contiguous
     pages, trash page 0 for unmapped entries, rows 5/6 sharing their first
-    pages; q and k of stddev ``qk_std``, v unit normal.  With ``poison``,
-    the trash page and every row's tail past its cursor hold ±1e9.
-    Returns q, k_pool, v_pool, tables, lengths."""
+    pages; q (``heads`` query heads) and k of stddev ``qk_std``, v unit
+    normal.  With ``poison``, the trash page and every row's tail past its
+    cursor hold ±1e9.  Returns q, k_pool, v_pool, tables, lengths."""
     import torch
 
     num_pages = BATCH * WIDTH + 1
@@ -214,7 +231,7 @@ def make_pools(gen, dtype, layers: int = 1, poison: bool = True,
         if tail and poison:
             page = int(tables[row, ln // PS])
             kp[:, page, tail:], vp[:, page, tail:] = 1e9, -1e9
-    q = (torch.randn((BATCH, 1, H, D), generator=gen, device=device)
+    q = (torch.randn((BATCH, 1, heads, D), generator=gen, device=device)
          * qk_std).to(dtype)
     lengths = torch.tensor(LENGTHS, dtype=torch.int32, device=device)
     return q, kp, vp, tables.to(device), lengths
@@ -248,6 +265,10 @@ def bound(name: str, q, tables, lengths, window, elem: int) -> dict:
 QK_STD = {"paged_inhibitor": D ** -0.5, "paged_attention": 1.0}
 # least share of reference elements above the tolerance in every case
 MIN_NONZERO_SHARE = 0.1
+# query heads per kv head at which phase 3 also checks the split Softmax
+# (smollm-135m's is 3): llama4-scout and hymba-1.5b have 5, the kernel's
+# largest is 8
+SPLIT_GROUPS = (5, 8)
 
 
 def kernel_fns(kpaged, name):
@@ -276,14 +297,21 @@ def parity_checks(torch, kpaged, device: str = "cuda") -> dict:
                  ("paged_inhibitor", dict(signed=True), WINDOW),
                  ("paged_attention", {}, None),
                  ("paged_attention", {}, WINDOW)]
-        for name, kw, window in cases:
+        # the split Softmax at groups its smollm shape does not reach
+        for group in SPLIT_GROUPS:
+            name = f"paged_attention group {group}"
+            pools[name] = make_pools(gen, dtype, heads=group * H_KV,
+                                     device=device)
+            cases += [(name, {}, None), (name, {}, WINDOW)]
+        for label_name, kw, window in cases:
+            name = label_name.split()[0]
             fwd, plain = kernel_fns(kpaged, name)
-            q, kp, vp, tables, lengths = pools[name]
+            q, kp, vp, tables, lengths = pools[label_name]
             out = fwd(q, kp[0], vp[0], tables, lengths, window=window, **kw)
             ref = plain(q, kp[0], vp[0], tables, lengths, window=window, **kw)
             control = plain(q, kp[0], vp[0].roll(1, dims=0), tables, lengths,
                             window=window, **kw)
-            label = f"{name} {kw} window={window} {dtype}"
+            label = f"{label_name} {kw} window={window} {dtype}"
             check(bool(torch.isfinite(out).all()), f"{label}: non-finite")
             err = (out.float() - ref.float()).abs().max().item()
             tol = rel * max(1.0, ref.float().abs().max().item())
@@ -310,9 +338,9 @@ def parity_checks(torch, kpaged, device: str = "cuda") -> dict:
                     or ratio < r["min_control_err_over_tol"]):
                 r["min_control_err_over_tol"] = ratio
         # nan in the trash page and past every cursor must not change a bit
-        for name in QK_STD:
-            fwd, _ = kernel_fns(kpaged, name)
-            q, kp, vp, tables, lengths = pools[name]
+        for label_name in pools:
+            fwd, _ = kernel_fns(kpaged, label_name.split()[0])
+            q, kp, vp, tables, lengths = pools[label_name]
             clean = fwd(q, kp[0], vp[0], tables, lengths)
             kn, vn = kp[0].clone(), vp[0].clone()
             for t in (kn, vn):
@@ -321,7 +349,8 @@ def parity_checks(torch, kpaged, device: str = "cuda") -> dict:
                     if ln % PS:
                         t[int(tables[row, ln // PS]), ln % PS:] = float("nan")
             check(torch.equal(fwd(q, kn, vn, tables, lengths), clean),
-                  f"{name} kernel read a masked position (nan poison)")
+                  f"{label_name} kernel read a masked position (nan poison)")
+    results["paged_attention"]["groups"] = [H // H_KV, *SPLIT_GROUPS]
     return results
 
 
@@ -572,8 +601,18 @@ XCHECK_TOL = 0.05
 FLASH_TOL = {"float32": "1e-5 + 1e-5|ref| (unnormalized: 1e-5 max(1, "
                         "max|ref|) n_k/8)",
              "bfloat16": "the float32 tolerance + 2^-7|ref|"}
-QK_STD_FLASH = {"flash_inhibitor": D ** -0.5, "flash_attention": 1.0}
 CURSOR_OFFS, CURSOR_VALID = [0, 100, 250, 5], [37, 137, 300, 0]
+# the inhibitor kernel's other branches, beside the cases both kernels
+# share (kwargs, batch, n, head_dim): unnormalized; no mask (interior
+# tiles but the ragged last); a window edge inside a 64-key tile,
+# unsigned; head_dim 32 and 128 (their own micro-tile shapes), causal
+FLASH_INHIBITOR_CASES = [
+    ("flash_inhibitor", dict(normalize=False), 2, 1000, D),
+    ("flash_inhibitor", dict(causal=False), 1, 1000, D),
+    ("flash_inhibitor", dict(window=100, signed=False), 2, 1000, D),
+    ("flash_inhibitor", dict(signed=True), 1, 1000, 32),
+    ("flash_inhibitor", dict(signed=False, window=64), 1, 1000, 128),
+]
 
 
 def flash_fns(name):
@@ -585,18 +624,19 @@ def flash_fns(name):
     return kflash.flash_attention_fwd, kflash.flash_attention_plain
 
 
-def flash_operands(torch, gen, name, dtype, b, n_q, n_k=None):
-    """q (b, n_q, 9, 64), k / v (b, n_k, 3, 64) on ``gen``'s device; q and
-    k of stddev QK_STD_FLASH[name] (see QK_STD), v unit normal."""
+def flash_operands(torch, gen, name, dtype, b, n_q, n_k=None, d=D):
+    """q (b, n_q, 9, d), k / v (b, n_k, 3, d) on ``gen``'s device; q and
+    k of stddev 1/sqrt(d) for the inhibitor (see QK_STD), 1 for the
+    Softmax; v unit normal."""
     n_k = n_k or n_q
-    std = QK_STD_FLASH[name]
+    std = d ** -0.5 if name == "flash_inhibitor" else 1.0
 
     def mk(shape, scale):
         return (torch.randn(shape, generator=gen, device=gen.device)
                 * scale).to(dtype)
 
-    return (mk((b, n_q, H, D), std), mk((b, n_k, H_KV, D), std),
-            mk((b, n_k, H_KV, D), 1.0))
+    return (mk((b, n_q, H, d), std), mk((b, n_k, H_KV, d), std),
+            mk((b, n_k, H_KV, d), 1.0))
 
 
 def flash_tol(torch, ref, dtype, n_k: int, normalize: bool = True):
@@ -616,48 +656,55 @@ def flash_parity_checks(torch, device: str = "cuda") -> dict:
     gen = torch.Generator(device=device).manual_seed(2)
     results = {}
     for dtype in (torch.bfloat16, torch.float32):
-        cases = []
+        cases = []      # (name, kwargs, batch, n, head_dim)
         for name in ("flash_inhibitor", "flash_attention"):
             inh = name == "flash_inhibitor"
             for kw in ([dict(signed=True), dict(signed=False)] if inh
                        else [{}]):
-                cases.append((name, kw, 1, 1024))
-            cases.append((name, dict(window=64), 2, 1000))
+                cases.append((name, kw, 1, 1024, D))
+            cases.append((name, dict(window=64), 2, 1000, D))
             if inh:
-                cases.append((name, dict(normalize=False), 2, 1000))
-        for name, kw, b, n in cases:
+                cases += FLASH_INHIBITOR_CASES
+        for name, kw, b, n, d in cases:
             fwd, plain = flash_fns(name)
-            q, k, v = flash_operands(torch, gen, name, dtype, b, n)
+            q, k, v = flash_operands(torch, gen, name, dtype, b, n, d=d)
             out = fwd(q, k, v, **kw)
             ref = plain(q, k, v, **kw)
             control = plain(q, k, v.roll(1, dims=1), **kw)
-            record(torch, results, name, f"{kw} b={b} n={n} {dtype}", out,
-                   ref, control, flash_tol(torch, ref, dtype, n,
-                                           kw.get("normalize", True)))
+            record(torch, results, name, f"{kw} b={b} n={n} d={d} {dtype}",
+                   out, ref, control, flash_tol(torch, ref, dtype, n,
+                                                kw.get("normalize", True)))
         # ragged cursors; nan past every cursor must not change a bit
         offs = torch.tensor(CURSOR_OFFS, dtype=torch.int32, device=device)
         valid = torch.tensor(CURSOR_VALID, dtype=torch.int32, device=device)
-        for name in ("flash_inhibitor", "flash_attention"):
+        for name, d, kw in (("flash_inhibitor", D, {}),
+                            ("flash_inhibitor", D, dict(signed=False,
+                                                        normalize=False)),
+                            ("flash_inhibitor", 32, {}),
+                            ("flash_inhibitor", 128, {}),
+                            ("flash_attention", D, {})):
             fwd, plain = flash_fns(name)
-            q, _, _ = flash_operands(torch, gen, name, dtype, 4, 37)
-            _, k, v = flash_operands(torch, gen, name, dtype, 4, 300)
+            q, _, _ = flash_operands(torch, gen, name, dtype, 4, 37, d=d)
+            _, k, v = flash_operands(torch, gen, name, dtype, 4, 300, d=d)
             kn, vn = k.clone(), v.clone()
             for row, ln in enumerate(CURSOR_VALID):
                 kn[row, ln:], vn[row, ln:] = float("nan"), float("nan")
             for window in (None, 64):
-                cur = dict(q_offset=offs, kv_valid_len=valid, window=window)
+                cur = dict(kw, q_offset=offs, kv_valid_len=valid,
+                           window=window)
                 out = fwd(q, k, v, **cur)
                 # (the plain version masks by multiplying: a CPU rehearsal
                 # runs it in place of the kernel and skips this check)
                 check(device == "cpu" or torch.equal(fwd(q, kn, vn, **cur),
                                                      out),
-                      f"{name} read past a cursor (nan poison)")
+                      f"{name} d={d} {kw} read past a cursor (nan poison)")
                 check(not out[3].any(), f"{name}: kv_valid_len 0 row not 0")
                 ref = plain(q, k, v, **cur)
                 record(torch, results, name,
-                       f"cursors window={window} {dtype}", out, ref,
-                       plain(q, k, v.roll(1, dims=1), **cur),
-                       flash_tol(torch, ref, dtype, 300))
+                       f"cursors d={d} {kw} window={window} {dtype}", out,
+                       ref, plain(q, k, v.roll(1, dims=1), **cur),
+                       flash_tol(torch, ref, dtype, 300,
+                                 kw.get("normalize", True)))
     for r in results.values():
         r["tol"] = FLASH_TOL
     return results
@@ -688,13 +735,16 @@ def record(torch, results, name, label, out, ref, control, tol):
 def flash_bound(name: str, b: int, n: int, elem: int) -> dict:
     """Least time at (b, n) causal: q, k, v read and out written once;
     the operations on each attended (query head, key) pair: the inhibitor
-    on the float32 CUDA cores (no tensor core computes a sum of absolute
-    differences), the Softmax products on the bf16 tensor cores."""
+    as float32 instructions that are not FMAs on the CUDA cores (no tensor
+    core computes a sum of absolute differences), the Softmax products on
+    the bf16 tensor cores (float32: FMAs on the CUDA cores)."""
     nbytes = elem * (2 * b * n * H * D + 2 * b * n * H_KV * D)
     pairs = b * H * n * (n + 1) // 2
     ops = OPS_PER_ELEMENT[name] * pairs * D
-    rate = (FP32_OPS_PER_S if name == "flash_inhibitor" or elem == 4
-            else BF16_TENSOR_OPS_PER_S)
+    if name == "flash_inhibitor":   # the prefix sums of v, added per query
+        ops += b * n * (H_KV + H) * D
+    rate = (FP32_INSTR_PER_S if name == "flash_inhibitor"
+            else FP32_OPS_PER_S if elem == 4 else BF16_TENSOR_OPS_PER_S)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / rate
     return {"bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",

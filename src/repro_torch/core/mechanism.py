@@ -15,15 +15,17 @@ Backends implemented in this slice:
                (prefill chunks; the CPU's decode)
   ``paged_pallas``  the block-table-native decode kernel — on CUDA the
                hand-written kernels of ``csrc/paged_decode.cu``
+  ``blocked``  two-level chunk loop with structural masks and an analytic
+               chunked backward (inhibitor family; ``core.blocked``)
   ``pallas``   the blockwise flash kernels (training forward, contiguous
                prefill) — on CUDA the hand-written kernels of
                ``csrc/flash_prefill.cu``, differentiable through the
                reference's backward (``kernels.ops``)
 
-``blocked``, ``int`` and ``fhe_sim`` stay registered under the
-reference's names, so the planner returns the same plan as the reference
-for the same shapes, but running one raises ``NotImplementedError``
-naming the ROADMAP item that ports it.
+``int`` and ``fhe_sim`` stay registered under the reference's names, so
+the planner returns the same plan as the reference for the same shapes,
+but running one raises ``NotImplementedError`` naming the ROADMAP item
+that ports it.
 
 Selection order is the reference's (see :func:`plan_attention`); kernel
 preference keys on :func:`kernel_native`, i.e. on the kernel modules'
@@ -208,6 +210,13 @@ def backend_eligible(backend: str, cfg, shapes: AttnShapes,
         return False, (f"paged decode kernel is single-query (n_q=1); "
                        f"n_q={shapes.n_q} prefill goes through the gather "
                        f"path")
+    if backend == "paged_pallas" and kernel_family(mech.name) == "flash":
+        from repro_torch.kernels.paged import split_refusal
+
+        why = split_refusal(shapes.num_heads // shapes.num_kv_heads,
+                            shapes.head_dim)
+        if why:
+            return False, why
     is_int = _is_integer_dtype(shapes.dtype)
     if backend in ("int", "fhe_sim") and not is_int:
         return False, "requires integer-lane inputs"
@@ -455,7 +464,6 @@ def _not_ported(backend: str, roadmap: str) -> BackendFn:
     return fn
 
 
-_BLOCKED = _not_ported("blocked", "ROADMAP queue 1 item 3: core/blocked.py")
 _INT = _not_ported("int", "ROADMAP queue 1 item 9: integer lanes")
 _FHE_SIM = _not_ported("fhe_sim", "ROADMAP queue 1 item 9: FHE simulator")
 
@@ -537,6 +545,18 @@ def _inhibitor_chunked(q, k, v, *, mask=None, params, structural=None):
         q, k, v, mask=mask, score_scale=params.score_scale,
         score_shift=params.score_shift, signed=params.signed,
         normalize=params.normalize, kv_chunk=params.kv_chunk)
+
+
+def _inhibitor_blocked(q, k, v, *, mask=None, params, structural=None):
+    from repro_torch.core.blocked import blocked_inhibitor_attention
+
+    s = structural or Structural()
+    return blocked_inhibitor_attention(
+        q, k, v, score_scale=params.score_scale,
+        score_shift=params.score_shift, signed=params.signed,
+        normalize=params.normalize, causal=s.causal, window=s.window,
+        q_offset=s.q_offset, kv_valid_len=s.kv_valid_len,
+        chunk_k=params.kv_chunk, chunk_q=min(params.kv_chunk, 512))
 
 
 def _structural_is_plain(s: Structural) -> bool:
@@ -663,7 +683,7 @@ def _register_builtins() -> None:
         "naive": _inhibitor_naive,
         "fused": _inhibitor_fused,
         "chunked": _inhibitor_chunked,
-        "blocked": _BLOCKED,
+        "blocked": _inhibitor_blocked,
         "pallas": _inhibitor_pallas,
         "paged": _inhibitor_paged,
         "paged_pallas": _inhibitor_paged_pallas,

@@ -23,34 +23,88 @@
 // A row with no attended key writes 0 (flash.py:92-95); a Softmax row
 // writes acc / max(l, 1e-20).
 //
-// The CUDA-core kernels (the inhibitor in both types, the Softmax in
-// float32).  One block per (row, kv head, tile of block_q queries): the
-// TPU's sequential kv grid axis becomes a loop inside the block over
-// 32-key tiles, from the tile holding the first key any query of the
-// block attends to the last (tiles wholly above the causal diagonal,
-// below the window or past the cursor are skipped).  All `group = heads /
-// kv_heads` query heads of the kv head share each staged K/V tile, as on
-// the TPU.  Shared memory holds Q (group*block_q rows), the K and V tile
-// (rows padded to head_dim + 1 floats, so the 32 lanes reading 32 keys
-// hit 32 banks) and the tile's scores.  Per tile:
-//   1. stage K, V as float;
-//   2. scores: one warp per query row, one lane per key, the sum over
-//      head_dim from shared memory;
-//   3. accumulate: each thread owns one head_dim column e and up to 16
-//      query rows, its outputs in float32 registers; it reads V[j][e] once
-//      per key and the rows' scores as warp broadcasts.
-// Masked pairs are left out by predicate, never multiplied by 0: nan or
-// inf past a cursor cannot reach a sum.  The inhibitor evaluates the
-// direct form relu(v - z) (unsigned) or relu(v+ - z) + min(v- + z, 0) =
-// (v > 0 ? relu(v - z) : min(v + z, 0)) (signed), identical to the fused
-// eq. 9 / 10 for z >= 0 (the relu shift guarantees it), cheaper per
-// element and rounding less; out / max(count, 1) when normalizing.  Its
-// sums are plain: no rescaling between tiles.  The float32 Softmax keeps
-// a running max (from -1e30), a running sum and a rescaled accumulator per
-// row: the score warp also does the row's bookkeeping with shuffles.  It
-// stays on the CUDA cores because TF32 products (10-bit mantissas) would
-// not meet the float32 tolerance; the training path never launches it
-// (it computes in bf16), the float32 parity cases do.
+// The inhibitor (flash_inhibitor_kernel<T, D, SIGNED>), register-tiled on
+// the CUDA cores.  It computes, per query, Z_j = relu(sum_d |q - k_j| /
+// gamma - alpha) and out = sum_j relu(v_j - Z_j) (eq. 9, unsigned) or
+// sum_j relu(v+ - Z) + min(v- + Z, 0) (eq. 10, signed), / max(count, 1)
+// when normalizing.  No tensor core computes a sum of absolute
+// differences, and only the normalisation is a product.
+//
+// Bound on this card.  Its inner-loop instructions are adds, min / max and
+// one fma whose product is by +-1, each one instruction per lane and
+// cycle: 132 SMs x 128 lanes x 1.98 GHz = 33.5e12 a second, half the 67
+// TFLOP/s quoted for FMAs (which count an fma as two operations).  The least work per (query head,
+// attended key, d) is 4 instructions: t = q - k and s += |t| for the score
+// (the absolute value is a free operand modifier of the add), and m =
+// min(|v|, z), acc = fma(-sgn v, m, acc) for the inhibition, because for
+// z >= 0 each term v > 0 ? relu(v - z) : min(v + z, 0) equals
+// v - sgn(v) min(|v|, z) (v > 0: v - z or 0; v < 0: v + z or 0; v = 0: 0)
+// and relu(v - z) equals v - min(v, z); the sum of v over the attended
+// keys is one prefix sum shared by all queries.  At the training shape
+// (b 8, n 1024 causal, 9 / 3 heads, d 64, bf16: 2.42e9 such elements)
+// that is 0.289 ms, against 25 MB of operands (7.5 us at 3.35 TB/s): bound
+// by operations.  What the design does about that bound, step by step:
+//   1. Register-tiled scores.  One block of 4 warps per (row, query head,
+//      tile of 64 queries), looping over 64-key tiles.  Each thread owns a
+//      micro-tile of 8 queries x 4 keys (keys kg + 16 n, so the 8 threads
+//      of a quarter warp read 8 distinct K rows) and reads Q (float32,
+//      staged once per block) and K 16 bytes at a time: per 4 d, 8 Q loads
+//      and, per 8 d, 4 K loads and 32 conversions serve 256 instructions of
+//      sums, about 2.2 instructions per (pair, d).  Z goes to shared memory
+//      once per pair, key-major.
+//   2. Register-tiled inhibition, branch-free.  A thread owns head_dim / 8
+//      queries x 4 dims; per key it loads its 4 values of V (|v| is an
+//      operand modifier, sgn v one logic instruction) and its queries' z.
+//      On a tile every query wholly attends it adds -sgn(v) min(|v|, z)
+//      (unsigned: -min(v, z)), one min and one fma per element, and the
+//      tile's sum of v once per output at the tile's end (4 adds per key
+//      and thread).  On a tile with masked pairs it adds sgn(v) relu(|v| -
+//      z) (unsigned: relu(v - z)), one add, one max and one fma: for z >=
+//      0, v > 0 ? relu(v - z) : min(v + z, 0) equals sgn(v) relu(|v| - z)
+//      bit for bit (for v < 0, -(v + z) and |v| - z are the same float),
+//      and a masked pair (z = +inf) adds an exact 0, where the min form
+//      would cancel its v against the tile's sum only up to rounding.  At
+//      d 64: 64 or 96 such instructions per key against 2 Z loads, 1 V
+//      load and 8 conversions.
+//   3. Masks only where a tile needs them.  A tile that every query of the
+//      block wholly attends runs without predicates; on one that crosses
+//      the causal diagonal, the window edge or a cursor, a masked pair gets
+//      z = +inf, and relu(|v| - inf) adds an exact 0.  Keys at or past
+//      min(kv_valid, n_k) enter shared memory as zeros (cp.async's source
+//      size 0), so nan or inf past a cursor never meets an operation, and
+//      poisoned and clean inputs give identical bits.  Queries past n_q are
+//      zeros and are never written.  Counts are the closed form.
+//   4. Asynchronous staging.  K and V tiles are double-buffered in shared
+//      memory by cp.async, 16 bytes a thread, kept in the operand type
+//      (rows padded by 16 bytes) and converted at the fragment load: the
+//      copy of tile t + 1 runs under the sums of tile t.
+//   5. One query head per block, K and V of the group read through L2
+//      (each kv head's tiles by its 3 query heads' blocks, 160 MB of L2
+//      traffic at the training shape, tens of microseconds beside the sums)
+//      rather than the group's 3 heads sharing a tile: rows stay a power of
+//      two for the micro-tiles and a block stays at 4 warps and 72 KB of
+//      shared memory (bf16, d 64), three blocks to an SM.  The heaviest
+//      causal tiles launch first.
+// Per interior 64 x 64 tile at d 64 a thread issues about 9.7k
+// instructions (counted from this source) against the 8.2k of the bound;
+// the diagonal tiles take the 3-instruction inhibition and their masked
+// half adds 6%.
+//
+// The float32 Softmax (flash_attention_kernel) on the CUDA cores.  One
+// block per (row, kv head, tile of block_q queries) loops over 32-key
+// tiles, from the tile holding the first key any query of the block
+// attends to the last.  All `group = heads / kv_heads` query heads of the
+// kv head share each staged K/V tile.  Shared memory holds Q (group *
+// block_q rows), the K and V tile (rows padded to head_dim + 1 floats, so
+// the 32 lanes reading 32 keys hit 32 banks) and the tile's scores.  Per
+// tile: stage K, V as float; scores, one warp per query row, one lane per
+// key, with the row's running max (from -1e30), running sum and rescale
+// done by shuffles; then each thread owns one head_dim column e and up to
+// 16 query rows, its rescaled outputs in float32 registers.  Masked pairs
+// are left out by predicate.  It stays on the CUDA cores because TF32
+// products (10-bit mantissas) would not meet the float32 tolerance; the
+// training path never launches it (it computes in bf16), the float32
+// parity cases do.
 //
 // The bf16 Softmax on the tensor cores (flash_attention_tc_kernel), in
 // the shape of FlashAttention-2.  One block per (row, query head, tile of
@@ -89,22 +143,15 @@
 // 0 x nan = nan in P V).  Queries past n_q are zero-filled the same way
 // and never written.
 //
-// Bound on this card.  At the training shapes (b 8, n 1024 causal, 9 / 3
-// heads, d 64, bf16) the inhibitor does ~7 float32 operations per (query
-// head, attended key, d): 2.4e9 such elements, 17 GFLOP, about 0.25 ms at
-// the 67 TFLOP/s of the CUDA cores, against 25 MB of operands (7.5 us at
-// 3.35 TB/s): bound by operations, which no tensor core can take (a sum of
-// absolute differences is no product).  The inhibitor is limited in
-// practice by the shared-memory loads of steps 2 and 3 (about one per
-// operation); a register-tiled score phase is later work.  The Softmax's
-// 9.7 GFLOP take 10 us on the bf16 tensor cores (989 TFLOP/s): bound by
-// operations too.  Between the tensor-core kernel and that bound stand
-// mma.sync itself (the synchronous warp-level product, slower than the
-// asynchronous warpgroup wgmma), the hi/lo split's third product,
-// the exponentials on the CUDA cores (one per attended pair), and the
-// diagonal tiles' masked half; wgmma on TMA-staged tiles with mbarriers,
-// warp specialisation (a producer warp and consumer warpgroups) and a
-// persistent causal schedule are the next steps.
+// The Softmax's bound: 9.7 GFLOP at the training shape take 10 us on the
+// bf16 tensor cores (989 TFLOP/s), bound by operations.  Between the
+// tensor-core kernel and that bound stand mma.sync itself (the
+// synchronous warp-level product, slower than the asynchronous warpgroup
+// wgmma), the hi/lo split's third product, the exponentials on the CUDA
+// cores (one per attended pair), and the diagonal tiles' masked half;
+// wgmma on TMA-staged tiles with mbarriers, warp specialisation (a
+// producer warp and consumer warpgroups) and a persistent causal schedule
+// are the next steps.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -124,18 +171,10 @@ template <typename T> __device__ __forceinline__ float to_f32(T x);
 template <> __device__ __forceinline__ float to_f32<float>(float x) {
   return x;
 }
-template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(
-    __nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) {
   return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(
-    float x) {
-  return __float2bfloat16_rn(x);
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -193,7 +232,7 @@ __device__ __forceinline__ KeyRange key_range(const PrefillArgs& a, int q_off,
   return kr;
 }
 
-// Block-level state shared by both kernels: where the block's queries and
+// Block-level state of the float32 Softmax kernel: where the block's queries and
 // keys lie and the key-tile range it walks.
 template <int D>
 struct BlockCtx {
@@ -274,77 +313,6 @@ __device__ __forceinline__ void write_out(const PrefillArgs& a,
   T* out = static_cast<T*>(a.out);
   out[(((size_t)c.row * a.n_q + c.q0 + i) * a.heads +
        (size_t)c.kvh * c.group + g) * D + w.e] = from_f32<T>(val);
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_inhibitor_kernel(PrefillArgs a) {
-  extern __shared__ float smem[];
-  constexpr int dp = D + 1;
-  const BlockCtx<D> c(a);
-  float* qs = smem;
-  float* ks = qs + (size_t)c.R * dp;
-  float* vs = ks + kBlockK * dp;
-  float* zs = vs + kBlockK * dp;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const Owner<D> w;
-  stage_q<T, D>(a, c, qs);
-
-  float acc[kMaxAcc];
-  int lo[kMaxAcc], hi[kMaxAcc];
-#pragma unroll
-  for (int s = 0; s < kMaxAcc; ++s) {
-    acc[s] = 0.0f;
-    const int r = w.row(s);
-    const KeyRange kr =
-        r < c.R ? key_range(a, c.q_off, c.kv_valid,
-                            c.q0 + r % a.block_q)
-                : KeyRange{0, 0};
-    lo[s] = kr.lo;
-    hi[s] = kr.hi;
-  }
-  const float inv_scale = 1.0f / a.scale;
-
-  for (int k0 = c.k_first; k0 < c.k_end; k0 += kBlockK) {
-    const int nk = min(kBlockK, c.k_end - k0);
-    __syncthreads();  // q staged; the previous tile's readers are done
-    stage_kv<T, D>(a, c, k0, nk, ks, vs);
-    __syncthreads();
-    // scores Z = relu(sum_d |q - k| / gamma - alpha): warp per row
-    for (int r = warp; r < c.R; r += kWarps) {
-      const float* qr = qs + r * dp;
-      const float* kr = ks + lane * dp;
-      float sum = 0.0f;
-#pragma unroll 16
-      for (int e = 0; e < D; ++e) sum += fabsf(qr[e] - kr[e]);
-      float z = sum * inv_scale;
-      if (a.shift != 0.0f) z = fmaxf(z - a.shift, 0.0f);
-      zs[r * kBlockK + lane] = z;
-    }
-    __syncthreads();
-    for (int j = 0; j < nk; ++j) {
-      const float v = vs[j * dp + w.e];
-      const int kp = k0 + j;
-#pragma unroll
-      for (int s = 0; s < kMaxAcc; ++s) {
-        if (kp >= lo[s] && kp < hi[s]) {
-          const float z = zs[w.row(s) * kBlockK + j];
-          if (a.is_signed)
-            acc[s] += v > 0.0f ? fmaxf(v - z, 0.0f) : fminf(v + z, 0.0f);
-          else
-            acc[s] += fmaxf(v - z, 0.0f);
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int s = 0; s < kMaxAcc; ++s) {
-    const int r = w.row(s);
-    if (r >= c.R || c.q0 + r % a.block_q >= a.n_q) continue;
-    float o = acc[s];
-    if (a.normalize) o = o / fmaxf((float)max(0, hi[s] - lo[s]), 1.0f);
-    write_out<T, D>(a, c, w, s, o);
-  }
 }
 
 template <typename T, int D>
@@ -467,6 +435,10 @@ __device__ __forceinline__ void cp_async_commit() {
 
 __device__ __forceinline__ void cp_async_wait_1() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
@@ -728,10 +700,312 @@ __global__ void __launch_bounds__(256)
 }
 
 // ---------------------------------------------------------------------------
+// The inhibitor, register-tiled on the CUDA cores
+// ---------------------------------------------------------------------------
+
+constexpr int kIhThreads = 128;
+constexpr int kIhBQ = 64;   // queries per block, all of one query head
+constexpr int kIhBK = 64;   // keys per staged tile
+constexpr int kIhTM = 8;    // score micro-tile: 8 queries ...
+constexpr int kIhTN = 4;    // ... x 4 keys per thread
+
+// Shared memory of one block, in bytes (T the operand type):
+//   Q float [kIhBQ][D + 4] | K T [2][kIhBK][D + E] | V T [2][kIhBK][D + E]
+//   | Z float [kIhBK][kIhBQ + 4]
+// E = 16 / sizeof(T): K and V rows are padded by 16 bytes, so the 8 rows
+// that a quarter warp reads 16 bytes each of lie in 8 distinct bank groups.
+template <typename T, int D>
+struct IhSmem {
+  static constexpr int kE = 16 / (int)sizeof(T);
+  static constexpr int kQStride = D + 4;          // floats
+  static constexpr int kKVStride = D + kE;        // T
+  static constexpr int kZStride = kIhBQ + 4;      // floats
+  static constexpr size_t kQBytes = sizeof(float) * kIhBQ * kQStride;
+  static constexpr size_t kTileBytes = sizeof(T) * kIhBK * kKVStride;
+  static constexpr size_t kBytes = kQBytes + 4 * kTileBytes +
+                                   sizeof(float) * kIhBK * kZStride;
+};
+
+// 16 bytes (shared or global memory) as float32: 8 bf16 or 4 float
+__device__ __forceinline__ void ld16(const __nv_bfloat16* p, float (&x)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    x[2 * i] = f.x;
+    x[2 * i + 1] = f.y;
+  }
+}
+__device__ __forceinline__ void ld16(const float* p, float (&x)[4]) {
+  const float4 u = *reinterpret_cast<const float4*>(p);
+  x[0] = u.x;
+  x[1] = u.y;
+  x[2] = u.z;
+  x[3] = u.w;
+}
+
+// 4 consecutive elements (8 or 16 bytes) as float32
+__device__ __forceinline__ void ld4(const __nv_bfloat16* p, float (&x)[4]) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  x[0] = a.x;
+  x[1] = a.y;
+  x[2] = b.x;
+  x[3] = b.y;
+}
+__device__ __forceinline__ void ld4(const float* p, float (&x)[4]) {
+  const float4 u = *reinterpret_cast<const float4*>(p);
+  x[0] = u.x;
+  x[1] = u.y;
+  x[2] = u.z;
+  x[3] = u.w;
+}
+
+// 4 float32 values to 4 consecutive elements of global memory
+__device__ __forceinline__ void st4(__nv_bfloat16* p, const float (&x)[4]) {
+  const __nv_bfloat162 a = __floats2bfloat162_rn(x[0], x[1]);
+  const __nv_bfloat162 b = __floats2bfloat162_rn(x[2], x[3]);
+  uint2 u;
+  u.x = *reinterpret_cast<const uint32_t*>(&a);
+  u.y = *reinterpret_cast<const uint32_t*>(&b);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+__device__ __forceinline__ void st4(float* p, const float (&x)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+}
+
+template <typename T, int D, bool SIGNED>
+__global__ void __launch_bounds__(kIhThreads, D <= 64 ? 3 : 1)
+    flash_inhibitor_kernel(PrefillArgs a) {
+  using S = IhSmem<T, D>;
+  constexpr int kE = S::kE;
+  constexpr int kChunks = D / kE;              // 16-byte chunks per row
+  constexpr int kCols = D / 4;                 // value phase: column groups
+  constexpr int kTMV = kIhBQ * kCols / kIhThreads;   // ... rows per thread
+  static_assert(kTMV >= 2 && kTMV % 2 == 0, "value micro-tile rows");
+  extern __shared__ __align__(16) unsigned char ih_smem[];
+  float* qs = reinterpret_cast<float*>(ih_smem);
+  T* ks = reinterpret_cast<T*>(ih_smem + S::kQBytes);
+  T* vs = reinterpret_cast<T*>(ih_smem + S::kQBytes + 2 * S::kTileBytes);
+  float* zs =
+      reinterpret_cast<float*>(ih_smem + S::kQBytes + 4 * S::kTileBytes);
+
+  const int tid = threadIdx.x;
+  const int row = blockIdx.x / a.heads;
+  const int head = blockIdx.x - row * a.heads;
+  const int kvh = head / (a.heads / a.kv_heads);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kIhBQ;   // heaviest first
+  const int q_off = a.cursors ? a.cursors[row] : 0;
+  const int kv_lim = a.cursors ? min(a.n_k, a.cursors[a.batch + row]) : a.n_k;
+  const int q_last = min(a.n_q, q0 + kIhBQ) - 1;
+  // every query of the block attends [lo_last, hi_first); their union is
+  // [first.lo, last.hi)
+  const KeyRange first = key_range(a, q_off, kv_lim, q0);
+  const KeyRange last = key_range(a, q_off, kv_lim, q_last);
+  const int k_first = (first.lo / kIhBK) * kIhBK;
+  const int n_tiles = last.hi > k_first
+                          ? (last.hi - k_first + kIhBK - 1) / kIhBK : 0;
+
+  const T* qg = static_cast<const T*>(a.q);
+  const T* kg = static_cast<const T*>(a.k);
+  const T* vg = static_cast<const T*>(a.v);
+  auto stage_kv = [&](int stage, int k0) {
+    for (int i = tid; i < kIhBK * kChunks; i += kIhThreads) {
+      const int j = i / kChunks, ch = i - j * kChunks;
+      const bool ok = k0 + j < kv_lim;   // else zero-filled, never read
+      const size_t src =
+          (((size_t)row * a.n_k + k0 + j) * a.kv_heads + kvh) * D + ch * kE;
+      const int dst = (stage * kIhBK + j) * S::kKVStride + ch * kE;
+      cp_async_16(smem_addr(ks + dst), ok ? kg + src : kg, ok);
+      cp_async_16(smem_addr(vs + dst), ok ? vg + src : vg, ok);
+    }
+  };
+  if (n_tiles > 0) {
+    stage_kv(0, k_first);
+    cp_async_commit();
+    // Q as float32, once per block; queries past n_q are zeros
+    for (int i = tid; i < kIhBQ * kChunks; i += kIhThreads) {
+      const int r = i / kChunks, ch = i - r * kChunks;
+      float x[kE];
+      if (q0 + r < a.n_q) {
+        const T* src =
+            qg + (((size_t)row * a.n_q + q0 + r) * a.heads + head) * D +
+            ch * kE;
+        ld16(src, x);
+      } else {
+#pragma unroll
+        for (int e = 0; e < kE; ++e) x[e] = 0.0f;
+      }
+#pragma unroll
+      for (int e = 0; e < kE; e += 4)
+        *reinterpret_cast<float4*>(qs + r * S::kQStride + ch * kE + e) =
+            make_float4(x[e], x[e + 1], x[e + 2], x[e + 3]);
+    }
+  }
+
+  // score phase: thread (rg, kg) owns queries rg*8 + m and keys kg + 16n
+  const int s_rg = tid >> 4, s_kg = tid & 15;
+  // value phase: thread (vr, vc) owns queries vr*kTMV + m, dims vc*4 + e
+  const int v_r = tid / kCols, v_c = tid - (tid / kCols) * kCols;
+  float o[kTMV][4];
+#pragma unroll
+  for (int m = 0; m < kTMV; ++m)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[m][e] = 0.0f;
+  const float inv_scale = 1.0f / a.scale;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = k_first + t * kIhBK;
+    cp_async_wait_all();   // tile t (and Q's plain stores) visible after:
+    __syncthreads();       // every thread is also done with tile t - 1
+    if (t + 1 < n_tiles) {
+      stage_kv((t + 1) & 1, k0 + kIhBK);
+      cp_async_commit();
+    }
+    const T* kt = ks + (size_t)(t & 1) * kIhBK * S::kKVStride;
+    const T* vt = vs + (size_t)(t & 1) * kIhBK * S::kKVStride;
+
+    // 1. Z = relu(sum_d |q - k| / gamma - alpha) for 8 x 4 pairs
+    float sc[kIhTM][kIhTN];
+#pragma unroll
+    for (int m = 0; m < kIhTM; ++m)
+#pragma unroll
+      for (int n = 0; n < kIhTN; ++n) sc[m][n] = 0.0f;
+#pragma unroll 2
+    for (int d0 = 0; d0 < D; d0 += kE) {
+      float kf[kIhTN][kE];
+#pragma unroll
+      for (int n = 0; n < kIhTN; ++n)
+        ld16(kt + (s_kg + 16 * n) * S::kKVStride + d0, kf[n]);
+#pragma unroll
+      for (int dd = 0; dd < kE; dd += 4) {
+#pragma unroll
+        for (int m = 0; m < kIhTM; ++m) {
+          const float4 qv = *reinterpret_cast<const float4*>(
+              qs + (s_rg * kIhTM + m) * S::kQStride + d0 + dd);
+#pragma unroll
+          for (int n = 0; n < kIhTN; ++n) {
+            sc[m][n] += fabsf(qv.x - kf[n][dd]);
+            sc[m][n] += fabsf(qv.y - kf[n][dd + 1]);
+            sc[m][n] += fabsf(qv.z - kf[n][dd + 2]);
+            sc[m][n] += fabsf(qv.w - kf[n][dd + 3]);
+          }
+        }
+      }
+    }
+    // masks only on a tile that some query of the block does not wholly
+    // attend: a masked pair gets z = +inf, so relu(|v| - z) adds exactly 0
+    const bool interior = k0 >= last.lo && k0 + kIhBK <= first.hi;
+#pragma unroll
+    for (int n = 0; n < kIhTN; ++n) {
+      const int j = s_kg + 16 * n;
+      float z[kIhTM];
+#pragma unroll
+      for (int m = 0; m < kIhTM; ++m) {
+        z[m] = sc[m][n] * inv_scale;
+        if (a.shift != 0.0f) z[m] = fmaxf(z[m] - a.shift, 0.0f);
+        if (!interior) {
+          const KeyRange r =
+              key_range(a, q_off, kv_lim, q0 + s_rg * kIhTM + m);
+          if (k0 + j < r.lo || k0 + j >= r.hi) z[m] = INFINITY;
+        }
+      }
+      float* dst = zs + j * S::kZStride + s_rg * kIhTM;
+      *reinterpret_cast<float4*>(dst) = make_float4(z[0], z[1], z[2], z[3]);
+      *reinterpret_cast<float4*>(dst + 4) =
+          make_float4(z[4], z[5], z[6], z[7]);
+    }
+    __syncthreads();
+
+    // 2. the inhibition, for head_dim / 8 queries x 4 dims
+    auto load_vz = [&](int j, float (&vv)[4], float (&z)[kTMV]) {
+      ld4(vt + j * S::kKVStride + v_c * 4, vv);
+      const float* zr = zs + j * S::kZStride + v_r * kTMV;
+      if constexpr (kTMV % 4 == 0) {
+#pragma unroll
+        for (int m = 0; m < kTMV; m += 4) {
+          const float4 zz = *reinterpret_cast<const float4*>(zr + m);
+          z[m] = zz.x;
+          z[m + 1] = zz.y;
+          z[m + 2] = zz.z;
+          z[m + 3] = zz.w;
+        }
+      } else {
+#pragma unroll
+        for (int m = 0; m < kTMV; m += 2) {
+          const float2 zz = *reinterpret_cast<const float2*>(zr + m);
+          z[m] = zz.x;
+          z[m + 1] = zz.y;
+        }
+      }
+    };
+    if (interior) {
+      // every pair attended: out += v - sgn(v) min(|v|, z) (unsigned:
+      // v - min(v, z)), one min and one fma per element; the tile's sum
+      // of v is added once per output
+      float vsum[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll 4
+      for (int j = 0; j < kIhBK; ++j) {
+        float vv[4], z[kTMV];
+        load_vz(j, vv, z);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          vsum[e] += vv[e];
+          const float ns = SIGNED ? -copysignf(1.0f, vv[e]) : -1.0f;
+          const float av = SIGNED ? fabsf(vv[e]) : vv[e];
+#pragma unroll
+          for (int m = 0; m < kTMV; ++m)
+            o[m][e] = fmaf(ns, fminf(av, z[m]), o[m][e]);
+        }
+      }
+#pragma unroll
+      for (int m = 0; m < kTMV; ++m)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[m][e] += vsum[e];
+    } else {
+      // out += sgn(v) relu(|v| - z) (unsigned: relu(v - z)): one add, one
+      // max and one fma per element; a masked pair (z = +inf) adds 0
+#pragma unroll 4
+      for (int j = 0; j < kIhBK; ++j) {
+        float vv[4], z[kTMV];
+        load_vz(j, vv, z);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float sg = SIGNED ? copysignf(1.0f, vv[e]) : 1.0f;
+          const float av = SIGNED ? fabsf(vv[e]) : vv[e];
+#pragma unroll
+          for (int m = 0; m < kTMV; ++m)
+            o[m][e] = fmaf(sg, fmaxf(av - z[m], 0.0f), o[m][e]);
+        }
+      }
+    }
+  }
+
+  T* out = static_cast<T*>(a.out);
+#pragma unroll
+  for (int m = 0; m < kTMV; ++m) {
+    const int qi = q0 + v_r * kTMV + m;
+    if (qi >= a.n_q) continue;
+    if (a.normalize) {
+      const KeyRange r = key_range(a, q_off, kv_lim, qi);
+      const float c = fmaxf((float)max(0, r.hi - r.lo), 1.0f);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[m][e] = o[m][e] / c;
+    }
+    st4(out + (((size_t)row * a.n_q + qi) * a.heads + head) * D + v_c * 4,
+        o[m]);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
 
-// the CUDA-core kernels: grid (row x kv head, query tile)
+// the float32 Softmax on the CUDA cores: grid (row x kv head, query tile)
 template <int D>
 cudaError_t launch_cuda_core(void (*kern)(PrefillArgs), const PrefillArgs& a,
                              cudaStream_t stream) {
@@ -764,15 +1038,34 @@ cudaError_t launch_tc(const PrefillArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// the inhibitor: grid (row x query head, query tile of kIhBQ)
+template <typename T, int D, bool SIGNED>
+cudaError_t launch_inhibitor_as(const PrefillArgs& a, cudaStream_t stream) {
+  constexpr size_t smem = IhSmem<T, D>::kBytes;
+  void (*kern)(PrefillArgs) = flash_inhibitor_kernel<T, D, SIGNED>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  const dim3 grid(a.batch * a.heads, (a.n_q + kIhBQ - 1) / kIhBQ);
+  kern<<<grid, kIhThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch_inhibitor(const PrefillArgs& a, cudaStream_t stream) {
+  if (a.block_q != kIhBQ) return cudaErrorInvalidValue;
+  return a.is_signed ? launch_inhibitor_as<T, D, true>(a, stream)
+                     : launch_inhibitor_as<T, D, false>(a, stream);
+}
+
 template <int D>
 cudaError_t launch(bool inhibitor, int dtype, const PrefillArgs& a,
                    cudaStream_t stream) {
   if (inhibitor)
-    return dtype == 0
-               ? launch_cuda_core<D>(flash_inhibitor_kernel<float, D>, a,
-                                     stream)
-               : launch_cuda_core<D>(flash_inhibitor_kernel<__nv_bfloat16, D>,
-                                     a, stream);
+    return dtype == 0 ? launch_inhibitor<float, D>(a, stream)
+                      : launch_inhibitor<__nv_bfloat16, D>(a, stream);
   return dtype == 0 ? launch_cuda_core<D>(flash_attention_kernel<float, D>, a,
                                           stream)
                     : launch_tc<D>(a, stream);
@@ -792,9 +1085,9 @@ cudaError_t dispatch(bool inhibitor, int dtype, int head_dim,
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16; head_dim 16, 32, 64 or 128; the bf16
-// Softmax (tensor cores) takes block_q 64 or 128, q / k / v 16-byte
-// aligned.  Returns a cudaError_t code (0 = launched); the launch is
+// dtype: 0 float32, 1 bfloat16; head_dim 16, 32, 64 or 128; the
+// inhibitor takes block_q 64, the bf16 Softmax (tensor cores) 64 or 128,
+// both with q / k / v 16-byte aligned.  Returns a cudaError_t code (0 = launched); the launch is
 // asynchronous on `stream`.
 extern "C" int flash_inhibitor_prefill(
     int dtype, const void* q, const void* k, const void* v,
@@ -818,11 +1111,13 @@ extern "C" int flash_attention_prefill(
   return (int)dispatch(false, dtype, head_dim, a, (cudaStream_t)stream);
 }
 
-// Shared-memory bytes one launch needs (the wrapper checks the limit).
+// Shared-memory bytes one launch of the float32 Softmax needs (the wrapper
+// checks the limit).
 extern "C" long long flash_prefill_smem_bytes(int group, int block_q,
                                               int head_dim) {
   return (long long)(sizeof(float) * smem_floats(group, block_q, head_dim));
 }
 
-// Most output elements (group * block_q * head_dim) one block can hold.
+// Most output elements (group * block_q * head_dim) one block of the
+// float32 Softmax can hold.
 extern "C" int flash_prefill_max_outputs() { return kMaxAcc * kThreads; }

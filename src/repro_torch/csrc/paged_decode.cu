@@ -48,8 +48,10 @@
 // each lane loads 16 bytes of a key row (8 bf16 or 4 float) straight from
 // the pool, so L = head_dim / 8 lanes (bf16; head_dim / 4 in float32)
 // cover one key and a warp 32 / L keys per load, 4 loads of K and V in
-// flight per lane before any is used.  Each lane keeps its 16 bytes of q
-// for each of the group's query heads in registers; a partial dot reduces
+// flight per lane before any is used (2 above 4 query heads per kv head,
+// whose q and sums take twice the registers; groups 1-8 are built, which
+// covers every config of the reference).  Each lane keeps its 16 bytes of
+// q for each of the group's query heads in registers; a partial dot reduces
 // over the key's L lanes by xor shuffles; then the online softmax (running
 // max from -1e30, running sum, rescaled float32 accumulator) per key and
 // head.  The lanes of a warp that hold the same dims merge by shuffles,
@@ -245,7 +247,6 @@ __global__ void paged_inhibitor_kernel(DecodeArgs a) {
 // ---------------------------------------------------------------------------
 
 constexpr int kSplitWarps = 4;
-constexpr int kSplitUnroll = 4;   // key loads in flight per lane
 constexpr float kNegInf = -1e30f;
 
 // 16 bytes of the pool as float32: 8 bf16 or 4 float
@@ -286,6 +287,9 @@ template <typename T, int G>
 __global__ void __launch_bounds__(kSplitWarps * 32)
     paged_attention_split_kernel(DecodeArgs a, int batch, float* scratch) {
   constexpr int E = 16 / sizeof(T);   // elements per 16-byte load
+  // key loads in flight per lane: 4, or 2 above 4 query heads per kv
+  // head, whose q and sums take twice the registers
+  constexpr int U = G > 4 ? 2 : 4;
   extern __shared__ float split_smem[];
   const int d = a.head_dim, ps = a.page_size;
   const int lpk = d / E;              // lanes per key row
@@ -334,11 +338,11 @@ __global__ void __launch_bounds__(kSplitWarps * 32)
 
   const int step = kSplitWarps * kpw;   // keys per block-wide load
   for (int base = s_lo + warp * kpw; base < s_hi;
-       base += kSplitUnroll * step) {   // warp-uniform
-    float kx[kSplitUnroll][E], vx[kSplitUnroll][E];
-    bool live[kSplitUnroll];
+       base += U * step) {   // warp-uniform
+    float kx[U][E], vx[U][E];
+    bool live[U];
 #pragma unroll
-    for (int u = 0; u < kSplitUnroll; ++u) {
+    for (int u = 0; u < U; ++u) {
       const int j = base + u * step + slot;
       live[u] = j < s_hi;
       if (live[u]) {
@@ -353,7 +357,7 @@ __global__ void __launch_bounds__(kSplitWarps * 32)
       }
     }
 #pragma unroll
-    for (int u = 0; u < kSplitUnroll; ++u) {
+    for (int u = 0; u < U; ++u) {
 #pragma unroll
       for (int g = 0; g < G; ++g) {
         float s = 0.0f;
@@ -492,6 +496,10 @@ cudaError_t dispatch_split(const DecodeArgs& a, int batch, float* scratch,
     case 2: return launch_split<T, 2>(a, batch, scratch, stream);
     case 3: return launch_split<T, 3>(a, batch, scratch, stream);
     case 4: return launch_split<T, 4>(a, batch, scratch, stream);
+    case 5: return launch_split<T, 5>(a, batch, scratch, stream);
+    case 6: return launch_split<T, 6>(a, batch, scratch, stream);
+    case 7: return launch_split<T, 7>(a, batch, scratch, stream);
+    case 8: return launch_split<T, 8>(a, batch, scratch, stream);
     default: return cudaErrorInvalidValue;
   }
 }

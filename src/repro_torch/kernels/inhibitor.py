@@ -3,12 +3,17 @@
 :func:`flash_inhibitor_fwd` launches the hand-written CUDA kernel of
 ``csrc/flash_prefill.cu``, which replaces the TPU kernel
 ``repro/kernels/inhibitor.py:99`` ``_flash_inhibitor_kernel``: one block
-per (row, kv head, query tile) loops over 32-key tiles, the group's query
-heads sharing each staged K/V tile, with causal / window / cursor masks
-computed from indices and applied by predicate.  It is bound by the
-CUDA-core float32 operations of the score and inhibition sums (no tensor
-core computes a sum of absolute differences); the source's header note
-gives the count and the design.
+of 4 warps per (row, query head, tile of 64 queries) loops over 64-key
+tiles of K and V, double-buffered in shared memory by ``cp.async``.  Each
+thread sums |q - k| over head_dim for a register micro-tile of 8 queries
+x 4 keys, then adds ``v - sgn(v) min(|v|, z)`` (the signed eq. 10 term
+by term; ``v - min(v, z)`` unsigned) for head_dim / 8 queries x 4 dims:
+about four float32 instructions per (query head, attended key, d), none
+of them a product the tensor cores could take.  Masks (causal, window,
+cursors) are applied only on tiles that need them, as z = +inf, with the
+term in the form ``sgn(v) relu(|v| - z)`` that adds an exact 0 there;
+keys past a cursor enter shared memory as zeros and are never read.  The
+source's header note gives the bound and the design.
 
 :func:`flash_inhibitor_plain` is its plain version: the chunked streaming
 form of :mod:`repro_torch.core.inhibitor` under the same mask (exact; its
@@ -33,8 +38,8 @@ import torch
 
 from repro_torch.kernels import ref as kref
 
-DEFAULT_BLOCK_Q = 16
-BLOCK_K = 32                  # keys per staged tile: one per lane
+BLOCK_Q = 64                  # queries per block (fixed by the micro-tiles)
+BLOCK_K = 64                  # keys per staged tile
 PLAIN_KV_CHUNK = 128
 
 #: Platforms (tensor device types) these kernels run natively on.
@@ -108,7 +113,7 @@ def launch_prefill(entry: str, q, k, v, cursors, *, block_q: int,
     flash attention wrappers (the two kernels take the same layout).
     ``tiles``: the query tiles a kernel of fixed tiles takes (its operands
     then must be 16-byte aligned, for its 16-byte copies); None for the
-    CUDA-core kernels, whose tile is halved to fit."""
+    float32 Softmax kernel, whose tile is halved to fit."""
     from repro_torch.kernels import cuda_lib
 
     batch, n_q, n_k, heads, kv_heads, d = _layout(q, k, v)
@@ -184,7 +189,6 @@ def flash_inhibitor_fwd(
     normalize: bool = True,
     causal: bool = True,
     window: Optional[int] = None,
-    block_q: int = DEFAULT_BLOCK_Q,
     q_offset=None,
     kv_valid_len=None,
 ) -> torch.Tensor:
@@ -192,7 +196,8 @@ def flash_inhibitor_fwd(
 
     The ragged edge (n_q, n_k not multiples of the tiles) is masked inside
     the kernel: no padding copy.  ``q_offset`` / ``kv_valid_len`` (int,
-    0-d or (batch,) tensors) select the decode-cache form."""
+    0-d or (batch,) tensors) select the decode-cache form.  On the card
+    q, k, v must be 16-byte aligned (else ValueError)."""
     _layout(q, k, v)
     kw = dict(score_scale=score_scale, score_shift=score_shift,
               signed=signed, normalize=normalize, causal=causal,
@@ -203,10 +208,10 @@ def flash_inhibitor_fwd(
     scale = score_scale if score_scale is not None else math.sqrt(q.shape[-1])
     out = launch_prefill(
         "flash_inhibitor_prefill", q, k, v,
-        _cursors_or_none(q, k, q_offset, kv_valid_len), block_q=block_q,
+        _cursors_or_none(q, k, q_offset, kv_valid_len), block_q=BLOCK_Q,
         scale=scale, extra=(float(score_shift), int(bool(signed)),
                             int(bool(normalize))), causal=causal,
-        window=window)
+        window=window, tiles=(BLOCK_Q,))
     flash_inhibitor_fwd.launches += 1
     return out
 

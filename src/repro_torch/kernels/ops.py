@@ -51,11 +51,12 @@ NATIVE_PLATFORMS: Dict[str, Tuple[str, ...]] = {
 @dataclasses.dataclass(frozen=True)
 class KernelChoice:
     """Launch configuration for one kernel call; ``None`` fields fall back
-    to the registry's choice.  The prefill kernels read ``block_q`` (the
-    query tile) and fix their key tile: the inhibitor's
-    ``kinhibitor.BLOCK_K`` = 32 (one key per lane, as the float32 Softmax
-    variant), the bf16 Softmax's ``kflash.BLOCK_K`` = 64 on the tensor
-    cores, which takes ``block_q`` in ``kflash.BLOCK_QS`` only.  The paged
+    to the registry's choice.  The prefill kernels fix their key tile at
+    64 (``kinhibitor.BLOCK_K``, ``kflash.BLOCK_K``).  The Softmax reads
+    ``block_q`` (the query tile): in ``kflash.BLOCK_QS`` only on the
+    tensor cores (bf16), any tile in float32, halved to fit.  The
+    inhibitor ignores ``block_q``: its query tile is fixed at
+    ``kinhibitor.BLOCK_Q``.  The paged
     kernels read ``pages_per_step``: pages staged in shared memory per
     round by the inhibitor, pages per split (one block each) by the
     Softmax."""
@@ -79,11 +80,7 @@ class KernelChoice:
 
 #: Candidate launch configurations per family — the first is the default.
 CANDIDATES: Dict[str, Tuple[KernelChoice, ...]] = {
-    "inhibitor": (
-        KernelChoice(kinhibitor.DEFAULT_BLOCK_Q, kinhibitor.BLOCK_K),
-        KernelChoice(8, kinhibitor.BLOCK_K),
-        KernelChoice(32, kinhibitor.BLOCK_K),
-    ),
+    "inhibitor": (KernelChoice(block_k=kinhibitor.BLOCK_K),),
     "flash": tuple(KernelChoice(bq, kflash.BLOCK_K)
                    for bq in kflash.BLOCK_QS),
     "paged": (
@@ -181,14 +178,13 @@ class _FlashInhibitor(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, score_scale, score_shift, signed, normalize,
                 causal, window, choice):
-        c = _prefill_choice("inhibitor", q, k, causal, window, False, choice)
+        _prefill_choice("inhibitor", q, k, causal, window, False, choice)
         ctx.save_for_backward(q, k, v)
         ctx.kw = dict(score_scale=score_scale, score_shift=score_shift,
                       signed=signed, normalize=normalize)
         ctx.mask = (causal, window)
         return kinhibitor.flash_inhibitor_fwd(
-            q, k, v, causal=causal, window=window, block_q=c.block_q,
-            **ctx.kw)
+            q, k, v, causal=causal, window=window, **ctx.kw)
 
     @staticmethod
     def backward(ctx, g):
@@ -219,11 +215,11 @@ def flash_inhibitor_cached(q, k, v, q_offset, kv_valid_len, *,
     """Decode-cache flash inhibitor: per-row ``q_offset`` /
     ``kv_valid_len`` cursors (ints, 0-d or (b,) tensors).  Inference only:
     no backward is defined for the cursor-carrying form."""
-    c = _prefill_choice("inhibitor", q, k, causal, window, True, choice)
+    _prefill_choice("inhibitor", q, k, causal, window, True, choice)
     return kinhibitor.flash_inhibitor_fwd(
         q, k, v, score_scale=score_scale, score_shift=score_shift,
         signed=signed, normalize=normalize, causal=causal, window=window,
-        block_q=c.block_q, q_offset=q_offset, kv_valid_len=kv_valid_len)
+        q_offset=q_offset, kv_valid_len=kv_valid_len)
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -69,9 +69,21 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_THREADS = 1024
 _MAX_SMEM = 227 * 1024
 # the split Softmax keeps q and the sums of each of the group's heads in
-# registers, and each lane loads 16 bytes of a key row
-_SPLIT_MAX_GROUP = 4
+# registers (one instantiation per group), and each lane loads 16 bytes
+# of a key row
+_SPLIT_MAX_GROUP = 8
 _SPLIT_HEAD_DIMS = (16, 32, 64, 128)
+
+
+def split_refusal(group: int, d: int) -> Optional[str]:
+    """Why the split Softmax kernel does not take ``group`` query heads
+    per kv head at ``head_dim`` d, or None when it does (the planner asks
+    before it plans ``paged_pallas``)."""
+    if group > _SPLIT_MAX_GROUP or d not in _SPLIT_HEAD_DIMS:
+        return (f"paged attention kernel: group {group} > "
+                f"{_SPLIT_MAX_GROUP} or head_dim {d} not in "
+                f"{_SPLIT_HEAD_DIMS}")
+    return None
 
 
 def _decode_layout(q, k_pool, v_pool, block_tables, lengths):
@@ -116,10 +128,9 @@ def _launch_config(entry: str, group: int, d: int, ps: int,
                          f"exceeds {_MAX_THREADS} threads per block")
     pps = max(1, min(pages_per_step, width))
     if entry == "paged_attention_decode":
-        if group > _SPLIT_MAX_GROUP or d not in _SPLIT_HEAD_DIMS:
-            raise ValueError(f"paged attention kernel: group {group} > "
-                             f"{_SPLIT_MAX_GROUP} or head_dim {d} not in "
-                             f"{_SPLIT_HEAD_DIMS}")
+        why = split_refusal(group, d)
+        if why:
+            raise ValueError(why)
         return pps, attention_splits(width, pps)
     from repro_torch.kernels import cuda_lib
 

@@ -209,7 +209,8 @@ def test_plan_attention_matches_reference(mech, case):
 def test_cuda_decode_plans_the_kernel_and_unported_backends_raise():
     """On CUDA the planner picks the paged decode kernel for a paged
     single-query decode and the blockwise flash kernels (``pallas``) for a
-    training forward at n_q * n_k >= 2^20, for both families; ``blocked``,
+    training forward at n_q * n_k >= 2^20, for both families; ``blocked``
+    runs (tests/test_torch_blocked.py holds it against the reference);
     ``int`` and ``fhe_sim`` still raise, naming their ROADMAP items."""
     cfg = tatt.AttentionConfig(mechanism="inhibitor", num_heads=9,
                                num_kv_heads=3, head_dim=64)
@@ -232,12 +233,13 @@ def test_cuda_decode_plans_the_kernel_and_unported_backends_raise():
             mcfg, train._replace(platform="cpu")).backend != "pallas"
     q = torch.zeros(1, 4, 9, 64)
     params = tmech.get_mechanism("inhibitor").make_params()
-    for backend, item in (("blocked", "ROADMAP queue 1 item 3"),
-                          ("int", "ROADMAP queue 1 item 9"),
+    out = tmech.execute_plan(
+        tmech.ExecutionPlan("inhibitor", "blocked", "t"), q, q[:, :, :3],
+        q[:, :, :3], params=params, structural=tmech.Structural())
+    assert out.shape == q.shape and bool(torch.isfinite(out).all())
+    for backend, item in (("int", "ROADMAP queue 1 item 9"),
                           ("fhe_sim", "ROADMAP queue 1 item 9")):
         with pytest.raises(NotImplementedError, match=item):
             tmech.execute_plan(
                 tmech.ExecutionPlan("inhibitor", backend, "t"), q,
-                q[:, :, :3], q[:, :, :3], params=params,
-                structural=(tmech.Structural() if backend == "blocked"
-                            else None))
+                q[:, :, :3], q[:, :, :3], params=params)

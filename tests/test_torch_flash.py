@@ -8,6 +8,11 @@ against the JAX package on the same numpy inputs.
     ``tests/test_kernels.py`` runs them (``interpret=True``): signed /
     unsigned, shift, window, causal or not, GQA, ragged n, and the per-row
     cursor form.
+(b) the CUDA inhibitor kernel's arithmetic, in float32 torch: its
+    sign-folded value term sgn(v) relu(|v| - z) against the signed branch
+    form v > 0 ? relu(v - z) : min(v + z, 0), bit for bit; then that
+    term summed over keys, masked pairs given z = +inf and V past a
+    cursor zeroed as the kernel does, against ``flash_inhibitor_plain``.
 (c) ``kernels.ops.flash_inhibitor`` / ``flash_attention`` gradients (the
     kernel's forward, the reference's backward) against ``jax.grad`` of
     the JAX ops.
@@ -16,9 +21,9 @@ Inputs are live: q and k of stddev 1/sqrt(d) for the inhibitor, so the
 score Z = sum_d |q - k| / sqrt(d) - 0.5 is about 0.6 and the inhibition
 is materially nonzero (at unit scale every output would be 0).
 
-Tolerances: (a) float32, summation order only: atol 1e-5, rtol 1e-5; the
-unnormalized inhibitor sums (up to n terms of size |V| + Z, cancelled in
-the eq. 9/10 forms of both sides) atol 1e-4.  (c) rtol 1e-4, atol 1e-5,
+Tolerances: (a) and the sums of (b) float32, summation order only: atol
+1e-5, rtol 1e-5; the unnormalized inhibitor sums (up to n terms of size
+|V| + Z, cancelled in the eq. 9/10 forms of both sides) atol 1e-4.  (c) rtol 1e-4, atol 1e-5,
 as ``tests/test_kernels.py::test_ops_grads_match_ref``.
 """
 
@@ -142,6 +147,173 @@ def test_pack_cursors_broadcasts_scalars():
     cur = kinh.pack_cursors(2, torch.tensor([1, 2]), torch.tensor(7), 10,
                             "cpu")
     assert cur.tolist() == [[1, 2], [7, 7]]
+
+
+def _term_operands(seed):
+    """v (64, 1) with zeros of both signs, z (1, 256) >= 0 with zeros,
+    values past |v|, 1e30 and +inf (the kernel's masked pairs)."""
+    rng = np.random.default_rng(seed)
+    v = rng.normal(size=(64, 1)).astype(np.float32) * 3
+    v[::8], v[1::8] = 0.0, -0.0
+    z = np.abs(rng.normal(size=(1, 256))).astype(np.float32) * 2
+    z[:, ::16], z[:, 1::16], z[:, 2::16] = 0.0, 1e30, np.inf
+    return torch.from_numpy(v), torch.from_numpy(z)
+
+
+def test_sign_folded_term_equals_the_branch_form_bit_for_bit():
+    """For z >= 0, sgn(v) relu(|v| - z) and v > 0 ? relu(v - z) :
+    min(v + z, 0) are the same float (for v < 0, -(v + z) and |v| - z
+    round alike), up to the sign of a zero result, which adds nothing to
+    a sum; over v with zeros of both signs and z with zeros, values past
+    |v|, 1e30 and +inf (the kernel's masked pairs)."""
+    v, z = _term_operands(11)
+    branch = torch.where(v > 0, torch.relu(v - z),
+                         torch.clamp(v + z, max=0.0))
+    folded = torch.copysign(torch.ones_like(v), v) * torch.relu(v.abs() - z)
+    assert bool((branch != 0).float().mean() > 0.2)
+    assert torch.equal((folded + 0.0).view(torch.int32),
+                       (branch + 0.0).view(torch.int32))
+
+
+def test_min_form_term_equals_the_branch_form_bit_for_bit():
+    """For z >= 0, v - sgn(v) min(|v|, z) (the kernel's form on a tile
+    every query attends) and v > 0 ? relu(v - z) : min(v + z, 0) are the
+    same float, and unsigned v - min(v, z) is relu(v - z), up to the sign
+    of a zero result; z = +inf gives 0 too.  Over v with zeros of both
+    signs and z with zeros, values past |v|, 1e30 and +inf."""
+    v, z = _term_operands(12)
+    sg = torch.copysign(torch.ones_like(v), v)
+    pairs = (
+        (torch.where(v > 0, torch.relu(v - z), torch.clamp(v + z, max=0.0)),
+         v - sg * torch.minimum(v.abs(), z)),
+        (torch.relu(v - z), v - torch.minimum(v, z)))
+    for branch, min_form in pairs:
+        assert bool((branch != 0).float().mean() > 0.2)
+        assert torch.equal((min_form + 0.0).view(torch.int32),
+                           (branch + 0.0).view(torch.int32))
+
+
+def _folded_setup(q, k, v, *, causal, window, q_offset, kv_valid_len):
+    """z (b, h, n_q, n_k, 1) = relu(sum |q - k| / sqrt(d) - 0.5), +inf for
+    a masked pair; V (b, h, 1, n_k, d) zeroed past each row's cursor; the
+    mask, broadcastable to (b, h, n_q, n_k)."""
+    b, n_q, h, d = q.shape
+    n_k, hk = k.shape[1], k.shape[2]
+    cursors = kinh._cursors_or_none(q, k, q_offset, kv_valid_len)
+    mask = kref.prefill_mask(n_q, n_k, causal=causal, window=window,
+                             cursors=cursors)
+    if mask is None:
+        mask = torch.ones(1, 1, n_q, n_k, dtype=torch.bool)
+    if cursors is not None:
+        live = torch.arange(n_k)[None, :] < cursors[1].long()[:, None]
+        v = torch.where(live[:, :, None, None], v, torch.zeros_like(v))
+    qt = q.transpose(1, 2)
+    kt = k.repeat_interleave(h // hk, dim=2).transpose(1, 2)
+    vt = v.repeat_interleave(h // hk, dim=2).transpose(1, 2)
+    z = torch.relu((qt[..., :, None, :] - kt[..., None, :, :]).abs().sum(-1)
+                   * (1.0 / d ** 0.5) - 0.5)
+    z = torch.where(mask, z, torch.full_like(z, torch.inf))[..., None]
+    return z, vt[..., None, :, :], mask
+
+
+def _folded_inhibitor(q, k, v, *, signed, normalize, causal=True,
+                      window=None, q_offset=None, kv_valid_len=None):
+    """The kernel's arithmetic on a tile with masked pairs, over all
+    pairs: out = sum_j sgn(v) relu(|v| - z) (unsigned: relu(v - z)) /
+    max(count, 1)."""
+    z, vj, mask = _folded_setup(q, k, v, causal=causal, window=window,
+                                q_offset=q_offset, kv_valid_len=kv_valid_len)
+    if signed:
+        terms = torch.copysign(torch.ones_like(vj), vj) * torch.relu(
+            vj.abs() - z)
+    else:
+        terms = torch.relu(vj - z)
+    out = terms.sum(-2)
+    if normalize:
+        out = out / mask.sum(-1, keepdim=True).clamp(min=1)
+    return out.transpose(1, 2)
+
+
+def _tiled_inhibitor(q, k, v, *, tile, signed, normalize, causal=True,
+                     window=None, q_offset=None, kv_valid_len=None):
+    """The kernel's arithmetic tile by tile, with `tile` queries x `tile`
+    keys: on a whole key tile that every query of the block attends, sum_j
+    -sgn(v) min(|v|, z) (unsigned: -min(v, z)) plus the tile's sum of v;
+    on any other, the relu form.  Returns (out, interior tiles taken)."""
+    z, vj, mask = _folded_setup(q, k, v, causal=causal, window=window,
+                                q_offset=q_offset, kv_valid_len=kv_valid_len)
+    n_q, n_k = z.shape[2], z.shape[3]
+    out = torch.zeros(z.shape[:3] + vj.shape[-1:])
+    n_interior = 0
+    for q0 in range(0, n_q, tile):
+        for k0 in range(0, n_k, tile):
+            qs, ks = slice(q0, q0 + tile), slice(k0, k0 + tile)
+            interior = mask[..., qs, ks].flatten(-2).all(-1)
+            if k0 + tile > n_k:
+                interior = torch.zeros_like(interior)
+            vs, zs = vj[..., ks, :], z[..., qs, ks, :]
+            sg = torch.copysign(torch.ones_like(vs), vs) if signed else 1.0
+            av = vs.abs() if signed else vs
+            relu_form = (sg * torch.relu(av - zs)).sum(-2)
+            min_form = (-sg * torch.minimum(av, zs)).sum(-2) + vs.sum(-2)
+            out[..., qs, :] += torch.where(interior[..., None, None],
+                                           min_form, relu_form)
+            n_interior += int(interior.sum())
+    if normalize:
+        out = out / mask.sum(-1, keepdim=True).clamp(min=1)
+    return out.transpose(1, 2), n_interior
+
+
+# (kwargs, n_q, n_k): the kernel's mask branches
+FOLDED_CASES = {
+    "causal": (dict(), 37, 37),
+    "window": (dict(window=8), 37, 37),
+    "not_causal": (dict(causal=False), 33, 33),
+    "cursors": (dict(q_offset=torch.tensor([0, 13, 30, 2], dtype=torch.int32),
+                     kv_valid_len=torch.tensor([5, 18, 40, 0],
+                                               dtype=torch.int32)), 5, 40),
+    "unnormalized": (dict(normalize=False), 37, 37),
+}
+
+
+def _check_against_plain(case, signed, form):
+    """form(q, k, v, **kw) -> out against flash_inhibitor_plain on the
+    case's inputs, with nan past every cursor."""
+    kw, n_q, n_k = FOLDED_CASES[case]
+    b = 4 if "q_offset" in kw else 2
+    q, _, _ = _operands(7, b, n_q, n_k, 6, 2, 16, 16 ** -0.5)
+    _, k, v = _operands(8, b, n_k, n_k, 6, 2, 16, 16 ** -0.5)
+    q, k, v = map(torch.from_numpy, (q, k, v))
+    kw = dict(kw, signed=signed)
+    kw.setdefault("normalize", True)
+    ref = kinh.flash_inhibitor_plain(q, k, v, **kw)
+    if "kv_valid_len" in kw:    # nan past every cursor reaches no sum
+        for row, ln in enumerate(kw["kv_valid_len"].tolist()):
+            k[row, ln:], v[row, ln:] = float("nan"), float("nan")
+    out = form(q, k, v, **kw)
+    assert np.abs(ref.numpy()).max() > 0.05
+    tol = TOL if kw["normalize"] else dict(rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), **tol)
+
+
+@pytest.mark.parametrize("signed", [True, False])
+@pytest.mark.parametrize("case", sorted(FOLDED_CASES))
+def test_folded_inhibitor_matches_plain_version(signed, case):
+    _check_against_plain(case, signed, _folded_inhibitor)
+
+
+@pytest.mark.parametrize("signed", [True, False])
+@pytest.mark.parametrize("case", sorted(FOLDED_CASES))
+def test_tiled_min_form_matches_plain_version(signed, case):
+    """The kernel's two forms together: the min form on interior tiles,
+    the relu form with inf masks elsewhere (4 x 4 tiles, at least one
+    interior)."""
+    def tiled(q, k, v, **kw):
+        out, n_interior = _tiled_inhibitor(q, k, v, tile=4, **kw)
+        assert n_interior > 0
+        return out
+
+    _check_against_plain(case, signed, tiled)
 
 
 # (op, kwargs, heads, kv_heads)

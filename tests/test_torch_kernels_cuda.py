@@ -1,9 +1,11 @@
 """The CUDA kernels (csrc/paged_decode.cu, csrc/flash_prefill.cu,
 csrc/wkv6.cu) against their plain versions, on the card; the redesigned
-Softmax kernels (the bf16 flash forward on the tensor cores, the paged
-decode split over pages) also at their tiles' and splits' edges.  Every test here needs a CUDA card and
-skips without one; the file imports no JAX, so it runs where only PyTorch
-is installed:
+kernels (the bf16 Softmax flash forward on the tensor cores, the paged
+Softmax decode split over pages, the register-tiled flash inhibitor) also
+at their tiles' and splits' edges, every group the split Softmax takes
+beyond smollm's 3 that a config needs (5, 7) and its largest (8).  Every
+test here needs a CUDA card and skips without one; the file imports no
+JAX, so it runs where only PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 
@@ -199,6 +201,30 @@ def test_paged_attention_splits_at_their_edges(dtype, pages_per_step):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("group", [5, 7, 8])
+def test_paged_attention_split_at_large_groups(dtype, group):
+    """The split Softmax at 5 (llama4-scout, hymba-1.5b), 7 (qwen2-0.5b)
+    and 8 query heads per kv head: ragged lengths across split edges,
+    shared pages, windows, nan past every cursor."""
+    _needs_card()
+    lengths = [1, 63, 64, 65, 200, 512, 129, 0]
+    q, kp, vp, (kc, vc), tables, lens = _case(
+        12 + group, batch=len(lengths), heads=2 * group, kv_heads=2, d=64,
+        ps=16, width=32, lengths=lengths, dtype=dtype)
+    for window in (None, 5, 70):
+        out = kpaged.paged_flash_attention_fwd(q, kp, vp, tables, lens,
+                                               window=window)
+        assert torch.equal(out, kpaged.paged_flash_attention_fwd(
+            q, kc, vc, tables, lens, window=window))
+        ref, control = (kpaged.paged_flash_attention_plain(
+            q, kc, v, tables, lens, window=window)
+            for v in (vc, vc.roll(1, dims=0)))
+        _check(out, ref, dtype, control)
+        assert not out[7].any()                # the length-0 row
+
+
+@pytest.mark.cuda
 def test_wrapper_counts_launches_and_rejects_bad_operands():
     _needs_card()
     q, kp, vp, _, tables, lens = _case(
@@ -371,9 +397,9 @@ def test_flash_tensor_core_never_reads_past_the_cursor(block_q, d):
 @pytest.mark.cuda
 def test_redesigned_kernels_reject_what_they_do_not_take():
     """A bf16 query tile the tensor-core kernel does not take raises (the
-    float32 variant halves any tile to fit); operands that are not
-    16-byte aligned raise for both 16-byte-copy kernels; the split
-    Softmax takes at most 8 query heads per kv head."""
+    float32 variant halves any tile to fit); operands that are not 16-byte
+    aligned raise for all three 16-byte-copy kernels; the split Softmax
+    takes at most kpaged._SPLIT_MAX_GROUP = 8 query heads per kv head."""
     _needs_card()
     q, k, v = _prefill_operands(10, batch=1, n=40, heads=4, kv_heads=2, d=16,
                                 dtype=torch.bfloat16, qk_std=1.0)
@@ -386,7 +412,11 @@ def test_redesigned_kernels_reject_what_they_do_not_take():
     shifted = flat[1:].view(q.shape).copy_(q)
     with pytest.raises(ValueError, match="aligned"):
         kflash.flash_attention_fwd(shifted, k, v)
+    with pytest.raises(ValueError, match="aligned"):
+        kinh.flash_inhibitor_fwd(shifted, k, v)
     assert kops.counts()["flash_attention"] == 1
+    assert kops.counts()["flash_inhibitor"] == 0
+    assert kpaged._SPLIT_MAX_GROUP == 8
     qp, kp, vp, _, tables, lens = _case(
         11, batch=2, heads=9, kv_heads=1, d=16, ps=8, width=2,
         lengths=[9, 4], dtype=torch.float32)
@@ -420,6 +450,69 @@ def test_prefill_wrappers_count_launches_and_reject_bad_operands():
                                  k[..., :8].contiguous(),
                                  v[..., :8].contiguous())
     assert kops.counts()["flash_inhibitor"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("n", [1, 65, 1000])
+def test_flash_inhibitor_tiles_match_plain_version(dtype, d, n):
+    """The register-tiled inhibitor at every head_dim (each its own value
+    micro-tile), one query, one past a 64-key tile and a ragged 1000:
+    causal (diagonal tiles masked, the rest interior), window 1 (each
+    query its own key), a window edge inside a key tile (100), no mask
+    (interior but the ragged last tile), unnormalized, signed and
+    unsigned, with and without the score shift."""
+    _needs_card()
+    q, k, v = _prefill_operands(13, batch=2, n=n, heads=6, kv_heads=2, d=d,
+                                dtype=dtype, qk_std=d ** -0.5)
+    for m in (dict(), dict(signed=False), dict(window=1),
+              dict(window=100, signed=False), dict(causal=False),
+              dict(causal=False, score_shift=0.0),
+              dict(normalize=False, signed=False)):
+        out = kinh.flash_inhibitor_fwd(q, k, v, **m)
+        ref, control = (kinh.flash_inhibitor_plain(q, k, vv, **m)
+                        for vv in (v, _late(v)))
+        if m.get("normalize", True):
+            _check(out, ref, dtype, control, elementwise=True)
+        else:   # the plain eq. 9 form cancels sums of up to n terms
+            err = (out.float() - ref.float()).abs()
+            tol = (1e-5 * max(1.0, ref.float().abs().max().item()) * n / 8
+                   + (ULP[dtype] or 0.0) * ref.float().abs())
+            assert bool((err <= tol).all()), f"max_abs_err {err.max()}"
+            assert not bool(((control.float() - ref.float()).abs()
+                             <= tol).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_flash_inhibitor_never_reads_past_the_cursor(dtype, d):
+    """n_q != n_k with ragged per-row cursors, as the tensor-core test:
+    every key past a cursor holds nan, which must enter shared memory as
+    zeros and change no bit; the kv_valid_len 0 row outputs 0."""
+    _needs_card()
+    b, n_q, n_k = 5, 65, 200
+    offs = torch.tensor([0, 135, 64, 3, 190], dtype=torch.int32,
+                        device="cuda")
+    valid = torch.tensor([65, 200, 0, 70, 129], dtype=torch.int32,
+                         device="cuda")
+    q, _, _ = _prefill_operands(14, batch=b, n=n_q, heads=6, kv_heads=2,
+                                d=d, dtype=dtype, qk_std=d ** -0.5)
+    _, k, v = _prefill_operands(15, batch=b, n=n_k, heads=6, kv_heads=2,
+                                d=d, dtype=dtype, qk_std=d ** -0.5)
+    kn, vn = k.clone(), v.clone()
+    for row, ln in enumerate(valid.tolist()):
+        kn[row, ln:], vn[row, ln:] = float("nan"), float("nan")
+    for window, signed in ((None, True), (1, False), (50, True)):
+        cur = dict(q_offset=offs, kv_valid_len=valid, window=window,
+                   signed=signed)
+        out = kinh.flash_inhibitor_fwd(q, kn, vn, **cur)
+        assert torch.equal(out, kinh.flash_inhibitor_fwd(q, k, v, **cur))
+        ref, control = (kinh.flash_inhibitor_plain(q, k, vv, **cur)
+                        for vv in (v, _late(v)))
+        _check(out, ref, dtype, control, elementwise=True)
+        assert not out[2].any()
 
 
 @pytest.mark.cuda

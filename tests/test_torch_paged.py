@@ -149,3 +149,39 @@ def test_registry_default_override_and_native_platforms(rng):
     assert got.pages_per_step == 2
     d = r.decisions[("paged",) + key]
     assert d["source"] == "override" and d["native"] is True
+
+
+# (heads, kv_heads, head_dim, does the split Softmax take it): group 9,
+# group 5 (llama4-scout, hymba-1.5b), group 7 (qwen2-0.5b), group 8, a
+# head_dim the kernel was not built for
+SPLIT_SHAPES = [(9, 1, 64, False), (25, 5, 64, True), (14, 2, 64, True),
+                (8, 1, 128, True), (8, 2, 80, False)]
+
+
+@pytest.mark.parametrize("heads,kv_heads,d,takes", SPLIT_SHAPES)
+def test_planner_plans_the_split_softmax_only_where_it_runs(
+        heads, kv_heads, d, takes):
+    """On a ``cuda`` platform (set through AttnShapes: no card needed),
+    ``paged_pallas`` is eligible for the Softmax exactly where the split
+    kernel takes the shape (kernels.paged's own limits), and the planner
+    sends the rest to the gather; the inhibitor's decode kernel is not
+    held to the Softmax's limits."""
+    from repro_torch.core import mechanism as tmech
+    from repro_torch.core.attention import AttentionConfig
+
+    shapes = tmech.AttnShapes(batch=8, n_q=1, n_k=512, num_heads=heads,
+                              num_kv_heads=kv_heads, head_dim=d,
+                              has_cache=True, scalar_cursor=False,
+                              platform="cuda", paged=True)
+    cfg = AttentionConfig(mechanism="dotprod", num_heads=heads,
+                          num_kv_heads=kv_heads, head_dim=d)
+    ok, why = tmech.backend_eligible("paged_pallas", cfg, shapes,
+                                     tmech.get_mechanism("dotprod"))
+    assert ok == takes
+    assert ok or "group" in why
+    assert (kpaged.split_refusal(heads // kv_heads, d) is None) == takes
+    assert tmech.plan_attention(cfg, shapes).backend == (
+        "paged_pallas" if takes else "paged")
+    inh = AttentionConfig(mechanism="inhibitor", num_heads=heads,
+                          num_kv_heads=kv_heads, head_dim=d)
+    assert tmech.plan_attention(inh, shapes).backend == "paged_pallas"
