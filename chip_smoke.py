@@ -54,9 +54,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
                not.
   9. wkv_parity — the RWKV-6 WKV kernel against its plain version on the
                card: the reference's sweep, t below one chunk, t = 1 and
-               t = 0, decays mixed / zero / near one, float32 and bf16
-               r/k/v, and the train shape (b 8 x t 1024, 64 heads of 64,
-               bf16); then kernel, plain and bound times there.
+               t = 0, tails ending inside a 16-row tile, chunks of
+               8, 16, 20, 32 and 64, head_dim 8 to 64, decays mixed /
+               zero / near one, float32 and bf16 r/k/v; the train shape
+               (b 8 x t 1024, 64 heads of 64, bf16) and the full-depth
+               forward's (b 2 x t 1024) held the same way; then at both
+               shapes the kernel's ms and device µs per call and launch
+               grid, beside the plain version's time and the bound.
  10. rwkv_train — rwkv6-7b at full width and depth 4 (AdamW on all 32
                layers would need 122 GB) through the same training loop
                and checks as phase 7: the WKV plan ``pallas``, steps x 4 x
@@ -80,6 +84,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
 
 Then the ``kernels`` summary line, the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``.  TF32 is off for matmuls and cuDNN.
+
+    python3 chip_smoke.py --only wkv_parity [--src OTHER/src]
+
+runs phases 1, 2 and 9 alone, against the package under ``--src`` (by
+default this checkout's): another commit's kernels timed by this
+script's phase.
 """
 
 from __future__ import annotations
@@ -106,6 +116,12 @@ BF16_TENSOR_OPS_PER_S = 989e12
 # float32 instructions that are not FMAs (add, max) issue at one per lane
 # and cycle: 132 SMs x 128 lanes x 1.98 GHz boost, half the FMA rate above
 FP32_INSTR_PER_S = 132 * 128 * 1.98e9
+# TF32 on the tensor cores (dense), and the special-function units (exp2,
+# log2): 16 a cycle per SM
+TF32_TENSOR_OPS_PER_S = 495e12
+MUFU_PER_S = 132 * 16 * 1.98e9
+# TF32 passes a float32 product takes at float32 accuracy (hi/lo split)
+TF32_PASSES = 3
 # float32 operations per (query head, attendable key, head dim) element.
 # Paged inhibitor: |q-k| (sub, abs, add) + combine (select, add/sub,
 # clamp, accumulate), at FP32_OPS_PER_S; bound by bytes either way.
@@ -161,8 +177,10 @@ def cuda_ms(fn, n: int, warm: int = 3) -> float:
 def device_us(fn, n: int, grids: bool = False) -> dict:
     """Device time per call of fn(i) without the host: the CUDA kernels'
     device microseconds in a torch.profiler trace of n calls, summed and
-    divided by n, with the kernels launched per call.  With ``grids``,
-    also each kernel's launch grids as the trace recorded them."""
+    divided by n, with the kernels launched per call, and divided by the
+    kernels the trace holds (for a call of one kernel, its time even where
+    the trace missed some launches).  With ``grids``, also each kernel's
+    launch grids as the trace recorded them."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -184,8 +202,10 @@ def device_us(fn, n: int, grids: bool = False) -> dict:
                 return float(getattr(e, field))
         fail("profiler event has no device time field")
 
-    out = {"us": sum(us(e) for e in kernels) / n,
-           "kernels_per_call": sum(e.count for e in kernels) / n}
+    total = sum(us(e) for e in kernels)
+    count = sum(e.count for e in kernels)
+    out = {"us": total / n, "kernels_per_call": count / n,
+           "us_per_launch": total / count}
     if grids:
         with tempfile.TemporaryDirectory() as tmp:
             path = os.path.join(tmp, "trace.json")
@@ -975,10 +995,15 @@ RWKV_BLOCK_REL = 1e-4
 RWKV_FREE_RATIO = 2.0
 # (batch, t, heads, head_dim, chunk): the reference's sweep
 # (tests/test_kernels.py), t below one chunk, t = 1, t = 0, and
-# rwkv6-7b's heads at a ragged t
+# rwkv6-7b's heads at a ragged t; then the kernel's edges: a last chunk of
+# 24 positions (ending inside a 16-row tile), chunks of 16 and 64 (a last
+# chunk of 22), a chunk of 20 (padded to 32 inside), and head_dim 8 / 16
+# / 32 / 64 at a tail of 8
 WKV_CASES = [(2, 50, 3, 16, 16), (2, 32, 2, 8, 8), (2, 17, 1, 16, 32),
              (2, 20, 64, 64, 32), (2, 1, 64, 64, 32), (2, 0, 64, 64, 32),
-             (2, 300, 8, 64, 32)]
+             (2, 300, 8, 64, 32), (2, 88, 4, 64, 32), (2, 100, 4, 64, 16),
+             (2, 150, 4, 64, 64), (2, 70, 4, 32, 20), (2, 40, 4, 8, 32),
+             (2, 40, 4, 16, 32), (2, 40, 4, 32, 32), (2, 40, 4, 64, 32)]
 WKV_H, WKV_N, WKV_CHUNK = 64, 64, 32
 # kernel vs plain version, float32 arithmetic in both: the plain version
 # sums each exponent over its own segment where the kernel differences
@@ -1045,43 +1070,64 @@ def wkv_case(torch, results, label, ops, chunk):
         results["min_control_err_over_tol"] = ctl
 
 
-def wkv_chunk_ops(L: int, n: int) -> int:
-    """Float32 operations (an exp counted as one) of one chunk of L
-    positions of the chunked form: the decay's cumulative sum and
-    scalings 4 L n, the carry (r e^{cw_prev}) S 2 L n^2, the intra-chunk
-    matrix 4 L (L-1)/2 n (a subtraction, an exp, two products), the
-    bonus 3 L n, A v L (L+1) n, the state update 2 L n^2 + n^2.  At L = 1
-    it is the recurrence S = diag(w) S + k^T v, o = r (S + diag(u) k^T v):
-    5 n^2 + 9 n."""
+def wkv_chunk_ops(L: int, n: int) -> dict:
+    """The least operations of one chunk of L positions of the chunked
+    form, by the unit that does them.  ``tensor``: flops of its products,
+    the carry (r 2^C) S 2 L n^2, the state update 2 L n^2, the strictly
+    lower intra-chunk matrix L (L-1) n and A v L (L+1) n, one TF32 pass;
+    ``mufu``: a log2 of each decay and the exps of r 2^C and k 2^{C_L - C}
+    per (position, channel), one exp per channel for the chunk's decay;
+    ``fp32``: other float32 instructions, the scan, the two scalings and
+    the bonus's product and sum per (position, channel), and the state's
+    decay n^2.  At L = 1 it is the recurrence S = diag(w) S + k^T v, o =
+    r (S + diag(u) k^T v): 4 n^2 + 2 n flops of products."""
     if L == 0:
-        return 0
-    return (4 * L * n + 2 * L * n * n + 2 * L * (L - 1) * n + 3 * L * n
-            + L * (L + 1) * n + 2 * L * n * n + n * n)
+        return {"tensor": 0, "mufu": 0, "fp32": 0}
+    return {"tensor": 4 * L * n * n + 2 * L * L * n, "mufu": 3 * L * n + n,
+            "fp32": 5 * L * n + n * n}
 
 
 def wkv_bound(b: int, t: int, h: int, n: int, elem: int) -> dict:
     """Least time for the WKV from a zero state: r, k, v (``elem`` bytes
     each), w and u read once, out and the final state written once in
-    float32; and the least float32 operations that compute it on the
-    CUDA cores — the chunked form at the chunk length L that needs the
-    fewest (about sqrt(n / 3): 4.5 n^2 per position at n = 64, against
-    5 n^2 for the recurrence, L = 1, and 5.6 n^2 at the kernel's 32)."""
+    float32; beside the least time of its operations, each unit at its
+    peak: products at the dense TF32 tensor-core rate times the
+    TF32_PASSES a float32 product takes, logs and exps at the MUFU rate,
+    the rest at one float32 instruction per lane and cycle.  The units
+    run side by side, so the operations take the longest of the three, at
+    the chunk length L that makes it least (the tensor term grows with L,
+    the others fall with it: L = 2 at n = 64).  At the train shape (b 8,
+    t 1024, 64 x 64, bf16): 478 MB, 0.143 ms, against 0.053 ms of TF32
+    products (0.028 ms of MUFU, 0.037 ms of the rest): bound by bytes.
+    Counted as one float32 operation each at the 67e12 FMA rate, the same
+    work would take 0.145 ms."""
     nbytes = b * t * h * n * (3 * elem + 4 + 4) + b * h * n * n * 4 + h * n * 4
-    L, per_row = min(((L, (t // L) * wkv_chunk_ops(L, n)
-                       + wkv_chunk_ops(t % L, n))
-                      for L in range(1, max(t, 1) + 1)),
-                     key=lambda c: c[1])
-    ops = b * h * per_row
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    rates = {"tensor": TF32_TENSOR_OPS_PER_S / TF32_PASSES,
+             "mufu": MUFU_PER_S, "fp32": FP32_INSTR_PER_S}
+    best = None
+    for L in range(1, max(t, 1) + 1):
+        full, tail = divmod(t, L)
+        one, rest = wkv_chunk_ops(L, n), wkv_chunk_ops(tail, n)
+        ops = {u: b * h * (full * one[u] + rest[u]) for u in rates}
+        secs = {u: ops[u] / rates[u] for u in rates}
+        if best is None or max(secs.values()) < best[0]:
+            best = (max(secs.values()), L, ops, secs)
+    t_ops, L, ops, secs = best
+    t_bytes = nbytes / HBM_BYTES_PER_S
     return {"bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": nbytes, "ops": ops, "ops_chunk": L}
+            "bytes": nbytes, "bytes_ms": t_bytes * 1e3, "ops": ops,
+            "ops_ms": {u: x * 1e3 for u, x in secs.items()},
+            "ops_chunk": L}
 
 
 def phase_wkv_parity(torch):
     """The WKV kernel against its plain version over WKV_CASES, three
     decays, float32 and bf16 r/k/v; then at the train shape (b 8, t 1024,
-    64 heads of 64, bf16 r/k/v) held the same way and timed."""
+    64 heads of 64, bf16 r/k/v) and the full-depth forward's (b 2) held
+    the same way and timed: by CUDA events (ms, the host included) and by
+    the kernel's device time in a profiler trace, with the trace's launch
+    grid."""
     from repro_torch.kernels import rwkv6 as krwkv6
 
     gen = torch.Generator(device="cuda").manual_seed(4)
@@ -1094,26 +1140,42 @@ def phase_wkv_parity(torch):
                          f"chunk={chunk} {decay} {dtype}",
                          wkv_operands(torch, gen, b, t, h, n, dtype, decay),
                          chunk)
-    # two input sets at the train shape (670 MB, beyond the 50 MB L2)
-    sets = [wkv_operands(torch, gen, TRAIN_B, TRAIN_N, WKV_H, WKV_N,
-                         torch.bfloat16, "near_one"),
-            wkv_operands(torch, gen, TRAIN_B, TRAIN_N, WKV_H, WKV_N,
-                         torch.bfloat16, "mixed")]
-    for i, ops in enumerate(sets):
-        wkv_case(torch, results, f"train shape b={TRAIN_B} t={TRAIN_N} "
-                 f"set {i} bf16", ops, WKV_CHUNK)
-    t = {"ms": cuda_ms(lambda i: krwkv6.wkv6_chunked(*sets[i % 2]), 40),
-         "plain_ms": cuda_ms(lambda i: krwkv6.wkv6_chunked_plain(
-             *sets[i % 2]), 3, warm=1),
-         "library_ms": None}
-    t.update(wkv_bound(TRAIN_B, TRAIN_N, WKV_H, WKV_N, 2))
+    shapes = {}
+    for label, batch in (("train", TRAIN_B), ("forward", RWKV_FORWARD_B)):
+        # two input sets a shape (670 MB at the train shape, beyond the
+        # 50 MB L2)
+        sets = [wkv_operands(torch, gen, batch, TRAIN_N, WKV_H, WKV_N,
+                             torch.bfloat16, "near_one"),
+                wkv_operands(torch, gen, batch, TRAIN_N, WKV_H, WKV_N,
+                             torch.bfloat16, "mixed")]
+        for i, ops in enumerate(sets):
+            wkv_case(torch, results, f"{label} shape b={batch} t={TRAIN_N} "
+                     f"set {i} bf16", ops, WKV_CHUNK)
+        dev = device_us(lambda i: krwkv6.wkv6_chunked(*sets[i % 2]), 20,
+                        grids=True)
+        # one kernel a call: its mean time over the launches traced
+        shapes[label] = {
+            "ms": cuda_ms(lambda i: krwkv6.wkv6_chunked(*sets[i % 2]), 40),
+            "device_us": dev["us_per_launch"],
+            "kernels_per_call": dev["kernels_per_call"], "grid": dev["grids"],
+            "plain_ms": cuda_ms(lambda i: krwkv6.wkv6_chunked_plain(
+                *sets[i % 2]), 3, warm=1),
+            **wkv_bound(batch, TRAIN_N, WKV_H, WKV_N, 2)}
+        del sets
+    train, fwd = shapes["train"], shapes["forward"]
+    timings = {"ms": train["ms"], "device_us": train["device_us"],
+               "plain_ms": train["plain_ms"], "library_ms": None,
+               "bound_ms": train["bound_ms"], "bound_by": train["bound_by"],
+               "forward_ms": fwd["ms"], "forward_device_us": fwd["device_us"],
+               "forward_bound_ms": fwd["bound_ms"]}
     emit({"phase": "wkv_parity", "cases": WKV_CASES,
           "decays": ["mixed", "zero", "near_one"],
-          "timing_shapes": {"batch": TRAIN_B, "t": TRAIN_N, "heads": WKV_H,
-                            "head_dim": WKV_N, "chunk": WKV_CHUNK,
-                            "dtype": "bfloat16"},
-          "results": results, "timings": t})
-    return results, t
+          "timing_shapes": {"batch": {"train": TRAIN_B,
+                                      "forward": RWKV_FORWARD_B},
+                            "t": TRAIN_N, "heads": WKV_H, "head_dim": WKV_N,
+                            "chunk": WKV_CHUNK, "dtype": "bfloat16"},
+          "results": results, "timings": timings, "shapes": shapes})
+    return results, timings
 
 
 def phase_rwkv_train(torch, kops):
@@ -1330,6 +1392,13 @@ def phase_rwkv_forward(torch, kops):
             ctl = get_model(cfg32).forward(params, {"tokens": tokens}).float()
             run["float32"]["control_max_abs_err"] = (
                 ctl - scan32).abs().max().item()
+            # the largest ratio the free-running check holds to
+            # RWKV_FREE_RATIO (plus RWKV_BLOCK_REL)
+            r32 = run["float32"]
+            r32["free_kernel_over_plain_max"] = max(
+                (k / p for k, p in zip(r32["free_kernel_rel"],
+                                       r32["free_plain_rel"]) if p > 0),
+                default=None)
             del ctl, scan32
         out[f"seed_{seed}"] = run
         del params, tokens
@@ -1357,16 +1426,27 @@ def phase_rwkv_forward(torch, kops):
 
 
 def main() -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--src", type=Path, default=SRC,
+                    help="the directory holding repro_torch (default: the "
+                    "checkout's src/), e.g. another commit's, to time its "
+                    "kernels with this script's phases")
+    ap.add_argument("--only", choices=["wkv_parity"], default=None,
+                    help="run the device and build phases and this one, "
+                    "then end")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
-    if not (SRC / "repro_torch").is_dir():
-        print(f"chip_smoke: {SRC / 'repro_torch'} not found",
+    if not (args.src / "repro_torch").is_dir():
+        print(f"chip_smoke: {args.src / 'repro_torch'} not found",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, str(SRC))
+    sys.path.insert(0, str(args.src.resolve()))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -1392,6 +1472,12 @@ def main() -> int:
     emit({"phase": "build", "seconds": info.seconds, "cached": info.cached,
           "library": info.path.name, "ptxas": ptxas})
 
+    if args.only == "wkv_parity":
+        phase_wkv_parity(torch)
+        print(smi, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                     "count": torch.cuda.device_count()}})
+        return 0
     t_phase = {}
     t0 = time.perf_counter()
     results, timings = phase_parity(torch, kpaged)
@@ -1442,11 +1528,15 @@ def main() -> int:
             "replaces": replaces[name], "launches": launches[name],
             "max_abs_err": results[name]["max_abs_err"],
             "tol": results[name]["tol"], "ms": t["ms"],
-            "kernel_ms": t["ms"], "plain_ms": t["plain_ms"],
+            "kernel_ms": t["ms"], "device_us": t.get("device_us"),
+            "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"]})
     # the WKV kernel's other main path: the full-depth eval forward
     kernels[-1]["launches_full_depth_forward"] = forward_launches
+    kernels[-1].update(forward_ms=timings["wkv6"]["forward_ms"],
+                       forward_device_us=timings["wkv6"]["forward_device_us"],
+                       forward_bound_ms=timings["wkv6"]["forward_bound_ms"])
     check(all(math.isfinite(k["ms"]) for k in kernels), "bad kernel timing")
     emit({"phase_seconds": t_phase})
     emit({"kernels": kernels})

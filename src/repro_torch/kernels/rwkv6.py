@@ -5,15 +5,16 @@
 ``repro/kernels/rwkv6.py:43`` ``_wkv6_kernel``.  The TPU carries the
 (n × n) state in VMEM scratch across a sequential grid axis; a CUDA block
 cannot hand anything to another, so one block owns one (batch, head) row
-and walks its chunks itself, the float32 state in shared memory for the
-whole sequence, and writes the final state once.  Within a chunk it
-computes what the TPU kernel computes (see :func:`repro_torch.nn.ssm.
+and walks its chunks itself, the float32 state in its warps' tensor-core
+accumulators for the whole sequence, and writes the final state once.
+Within a chunk it computes what the TPU kernel computes (see :func:`repro_torch.nn.ssm.
 wkv6_chunk`): the carry term through the state, the strictly lower
 intra-chunk matrix with every exponent ≤ 0, the diagonal bonus, and the
-state update.  The decay is floored at 1e-30 before its log, and
-positions past ``t`` in the last chunk have zero k, v and a log-decay of
-0, so they add nothing to the state: the kernel applies both by predicate
-as it loads a chunk, where the TPU wrapper pads and floors in HBM.
+state update, its products in 3xTF32 on the tensor cores.  The decay is
+floored at 1e-30 before its log, and positions past ``t`` in the last
+chunk have zero k, v and a log-decay of 0, so they add nothing to the
+state: the kernel applies both by predicate as it loads a chunk, where
+the TPU wrapper pads and floors in HBM.
 
 :func:`wkv6_chunked_plain` is its plain version: the same chunk-carried
 formula in torch (:func:`repro_torch.nn.ssm.wkv6_chunked_form`).  The

@@ -158,7 +158,7 @@ def profile_train(args, device) -> dict:
 
     fwd_ms = kernel_ms("flash_inhibitor_kernel", "flash_attention_kernel",
                        "flash_attention_tc_kernel")
-    wkv_ms = kernel_ms("wkv6_kernel")
+    wkv_ms = kernel_ms("wkv6_tc_kernel")
 
     # a range's CPU events: their device time sums the kernels of the ops
     # under them (the trace also holds a device-side copy of each range)

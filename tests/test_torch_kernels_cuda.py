@@ -547,10 +547,15 @@ def test_flash_ops_gradients_on_the_card():
 
 
 # (t, heads, head_dim, chunk): the reference's sweep (tests/test_kernels.py),
-# t below one chunk, t = 1 and t = 0, and rwkv6-7b's heads at a ragged t
+# t below one chunk, t = 1 and t = 0, and rwkv6-7b's heads at a ragged t;
+# then the tensor-core kernel's edges (chip_smoke.py WKV_CASES): a last
+# chunk of 24 (ending inside a 16-row tile), chunks of 16 and 64, a chunk
+# of 20 (padded to 32 inside), head_dim 8 / 16 / 32 / 64 at a tail of 8
 WKV_SHAPES = [(50, 3, 16, 16), (32, 2, 8, 8), (17, 1, 16, 32), (5, 2, 64, 32),
               (1, 2, 64, 32), (0, 2, 64, 32), (300, 4, 64, 32),
-              (70, 2, 32, 64)]
+              (70, 2, 32, 64), (88, 4, 64, 32), (100, 4, 64, 16),
+              (150, 4, 64, 64), (70, 4, 32, 20), (40, 4, 8, 32),
+              (40, 4, 16, 32), (40, 4, 32, 32), (40, 4, 64, 32)]
 # float32 throughout the kernel: the plain version forms the same
 # exponents by segment sums rather than differences of cumulative sums
 # and sums in another order, so 5e-5 of the largest magnitude
@@ -603,6 +608,30 @@ def test_wkv6_kernel_matches_plain_version(shape, dtype, decay):
                 krwkv6.wkv6_chunked_plain(r, k, v, w, 0 * u,
                                           chunk=chunk)[0]):
         assert (ctl - ref_o).abs().max().item() > tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wkv6_kernel_takes_operands_off_16_byte_alignment(dtype):
+    """Contiguous views one element into their storage are not 16-byte
+    aligned: the kernel stages them by plain loads instead of cp.async,
+    and computes the same."""
+    _needs_card()
+    ops = _wkv_operands(12, 2, 70, 4, 64, dtype)
+
+    def shifted(x):
+        buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+        y = buf[1:].view(x.shape)
+        y.copy_(x)
+        return y
+
+    moved = [shifted(x) for x in ops[:4]] + [ops[4]]
+    assert all(x.data_ptr() % 16 for x in moved[:4])
+    out, state = krwkv6.wkv6_chunked(*moved)
+    ref_o, ref_s = krwkv6.wkv6_chunked_plain(*ops)
+    for got, ref in ((out, ref_o), (state, ref_s)):
+        tol = WKV_REL * max(1.0, ref.abs().max().item())
+        assert (got - ref).abs().max().item() <= tol
 
 
 @pytest.mark.cuda
