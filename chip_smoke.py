@@ -13,11 +13,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
                on the card, at smollm-135m's decode shapes (h=9, h_kv=3,
                d=64, page 16, batch 8, table width 32, ragged lengths 1..512,
                two rows sharing pages, a poisoned trash page, a window
-               case), the split Softmax also at 5 and 8 query heads per kv
-               head, with kernel, plain, library and bound times, the
+               case), both split kernels also at 5 and 8 query heads per
+               kv head, with kernel, plain, library and bound times, the
                kernel's and the library's device time per call (CUDA
-               kernels in a torch.profiler trace, no host time) and the
-               Softmax kernel's launch grid (splits and blocks) read from
+               kernels in a torch.profiler trace, no host time) and each
+               split kernel's launch grid (splits and blocks) read from
                that trace.
   4. serve   — smollm-135m@inhibitor, then smollm-135m (dot-product), at
                full width (bf16 compute, seeded random init) through the
@@ -85,11 +85,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
 Then the ``kernels`` summary line, the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``.  TF32 is off for matmuls and cuDNN.
 
+    python3 chip_smoke.py --only parity [--src OTHER/src]
     python3 chip_smoke.py --only wkv_parity [--src OTHER/src]
 
-runs phases 1, 2 and 9 alone, against the package under ``--src`` (by
-default this checkout's): another commit's kernels timed by this
-script's phase.
+run phases 1, 2 and 3 (or 9) alone, against the package under ``--src``
+(by default this checkout's): another commit's kernels checked and timed
+by this script's phase.  Against another package, phase 3 records the
+launch grids without holding them to the split design.
 """
 
 from __future__ import annotations
@@ -123,18 +125,17 @@ MUFU_PER_S = 132 * 16 * 1.98e9
 # TF32 passes a float32 product takes at float32 accuracy (hi/lo split)
 TF32_PASSES = 3
 # float32 operations per (query head, attendable key, head dim) element.
-# Paged inhibitor: |q-k| (sub, abs, add) + combine (select, add/sub,
-# clamp, accumulate), at FP32_OPS_PER_S; bound by bytes either way.
-# Softmax: two FMAs (q.k and p.v).  Flash inhibitor: instructions at
-# FP32_INSTR_PER_S, the least that compute it: t = q - k and s += |t|
-# (|t| an operand modifier of the add) for the score; m = min(|v|, z) and
-# acc = fma(-sgn v, m, acc) for the inhibition, since for z >= 0
-# (v > 0 ? relu(v - z) : min(v + z, 0)) = v - sgn(v) min(|v|, z) term by
-# term (v > 0: v - z or 0; v < 0: v + z or 0; v = 0: 0; z = +inf: 0), and
-# unsigned relu(v - z) = v - min(v, z).  The sum of v over the attended
-# keys is a prefix sum shared by every query: flash_bound adds one add per
-# (kv head, key, d) and one per (query head, query, d).
-OPS_PER_ELEMENT = {"paged_inhibitor": 7, "paged_attention": 4,
+# Softmax: two FMAs (q.k and p.v), at FP32_OPS_PER_S.  Both inhibitor
+# kernels: instructions at FP32_INSTR_PER_S, the least that compute it:
+# t = q - k and s += |t| (|t| an operand modifier of the add) for the
+# score; m = min(|v|, z) and acc = fma(-sgn v, m, acc) for the
+# inhibition, since for z >= 0 (v > 0 ? relu(v - z) : min(v + z, 0)) =
+# v - sgn(v) min(|v|, z) term by term (v > 0: v - z or 0; v < 0: v + z or
+# 0; v = 0: 0; z = +inf: 0), and unsigned relu(v - z) = v - min(v, z).
+# The sum of v over the attended keys is shared by the query heads of a
+# kv head (flash: a prefix sum shared by every query): the bounds add one
+# add per (kv head, key, d) and one per (query head, query, d).
+OPS_PER_ELEMENT = {"paged_inhibitor": 4, "paged_attention": 4,
                    "flash_inhibitor": 4, "flash_attention": 4}
 
 H, H_KV, D, PS, BATCH, WIDTH = 9, 3, 64, 16, 8, 32
@@ -174,47 +175,73 @@ def cuda_ms(fn, n: int, warm: int = 3) -> float:
     return start.elapsed_time(end) / n
 
 
-def device_us(fn, n: int, grids: bool = False) -> dict:
-    """Device time per call of fn(i) without the host: the CUDA kernels'
-    device microseconds in a torch.profiler trace of n calls, summed and
-    divided by n, with the kernels launched per call, and divided by the
-    kernels the trace holds (for a call of one kernel, its time even where
-    the trace missed some launches).  With ``grids``, also each kernel's
-    launch grids as the trace recorded them."""
+# runtime calls that put work on the card, and the device records they make
+DEVICE_WORK_CALLS = ("Launch", "Memcpy", "Memset")
+DEVICE_RECORDS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def device_us(fn, n: int, grids: bool = False, attempts: int = 3) -> dict:
+    """Device time per call of fn(i) without the host: the device records
+    (kernels, copies, fills) of n calls in a torch.profiler trace, summed
+    and divided by n, with the records per call, the mean per record and,
+    with ``grids``, each kernel's launch grids as the trace recorded them.
+
+    The n calls run inside a recorded range, and only the records whose
+    correlation ids match a runtime call made inside that range count.
+    On the H100 the trace drops the first records of a session, more the
+    longer the process has run (a handful after a few minutes), so the
+    range follows ``pad`` tiny fills; a trace in which any call of the range
+    lost its record is taken again with four times the pad, and after
+    ``attempts`` such traces the phase fails."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     for i in range(3):
         fn(i)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for i in range(n):
-            fn(i)
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    check(bool(kernels), "the profiler trace holds no CUDA kernel")
-
-    def us(e):
-        for field in ("self_device_time_total", "self_cuda_time_total"):
-            if hasattr(e, field):
-                return float(getattr(e, field))
-        fail("profiler event has no device time field")
-
-    total = sum(us(e) for e in kernels)
-    count = sum(e.count for e in kernels)
-    out = {"us": total / n, "kernels_per_call": count / n,
-           "us_per_launch": total / count}
-    if grids:
+    fill = torch.zeros(1, device="cuda")
+    pad = 1000
+    for attempt in range(1, attempts + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(pad):
+                fill.zero_()
+            torch.cuda.synchronize()
+            with record_function("device_us"):
+                for i in range(n):
+                    fn(i)
+            torch.cuda.synchronize()
         with tempfile.TemporaryDirectory() as tmp:
             path = os.path.join(tmp, "trace.json")
             prof.export_chrome_trace(path)
             with open(path) as f:
                 events = json.load(f)["traceEvents"]
+        span = [(e["ts"], e["ts"] + e["dur"]) for e in events
+                if e.get("name") == "device_us"
+                and e.get("cat") == "user_annotation"]
+        check(len(span) == 1, f"{len(span)} device_us ranges in the trace")
+        lo, hi = span[0]
+        calls = {e["args"]["correlation"] for e in events
+                 if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                 and "correlation" in e.get("args", {})
+                 and lo <= e["ts"] <= hi
+                 and any(w in e.get("name", "") for w in DEVICE_WORK_CALLS)}
+        records = [e for e in events if e.get("cat") in DEVICE_RECORDS
+                   and e.get("args", {}).get("correlation") in calls]
+        lost = len(calls) - len(records)
+        if records and lost == 0:
+            break
+        check(attempt < attempts, f"the profiler trace lost {lost} of the "
+              f"{len(calls)} device records of the timed calls in each of "
+              f"{attempts} traces (last pad {pad} fills)")
+        pad *= 4
+    total = sum(float(e["dur"]) for e in records)
+    out = {"us": total / n, "kernels_per_call": len(records) / n,
+           "us_per_launch": total / len(records), "trace_attempts": attempt}
+    if grids:
         out["grids"] = {}
-        for e in events:
-            if e.get("cat") == "kernel" and "grid" in e.get("args", {}):
+        for e in records:
+            if e["cat"] == "kernel" and "grid" in e["args"]:
                 seen = out["grids"].setdefault(e["name"], [])
                 if e["args"]["grid"] not in seen:
                     seen.append(e["args"]["grid"])
@@ -262,7 +289,8 @@ def bound(name: str, q, tables, lengths, window, elem: int) -> dict:
     (page, slot) position some row attends read once (rows sharing pages
     read them once between them), q read and out written once, the table
     entries walked and the lengths read once; the kernel's float32
-    operations on the attendable keys of every query head."""
+    operations on the attendable keys of every query head (the
+    inhibitor's as instructions, with the sum of v per kv head)."""
     positions, entries, ops = set(), 0, 0
     tab = tables.tolist()
     for row, ln in enumerate(lengths.tolist()):
@@ -270,9 +298,12 @@ def bound(name: str, q, tables, lengths, window, elem: int) -> dict:
         positions.update((tab[row][j // PS], j % PS) for j in range(lo, ln))
         entries += -(-ln // PS) - lo // PS
         ops += (ln - lo) * H * D * OPS_PER_ELEMENT[name]
+        if name == "paged_inhibitor":
+            ops += (ln - lo) * H_KV * D + H * D
     nbytes = (2 * len(positions) * H_KV * D * elem + 2 * q.numel() * elem
               + 4 * entries + 4 * lengths.numel())
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    rate = FP32_INSTR_PER_S if name == "paged_inhibitor" else FP32_OPS_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / rate
     return {"bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": nbytes, "ops": ops}
@@ -285,9 +316,9 @@ def bound(name: str, q, tables, lengths, window, elem: int) -> dict:
 QK_STD = {"paged_inhibitor": D ** -0.5, "paged_attention": 1.0}
 # least share of reference elements above the tolerance in every case
 MIN_NONZERO_SHARE = 0.1
-# query heads per kv head at which phase 3 also checks the split Softmax
-# (smollm-135m's is 3): llama4-scout and hymba-1.5b have 5, the kernel's
-# largest is 8
+# query heads per kv head at which phase 3 also checks both split
+# kernels (smollm-135m's is 3): llama4-scout and hymba-1.5b have 5, the
+# kernels' largest is 8
 SPLIT_GROUPS = (5, 8)
 
 
@@ -317,12 +348,16 @@ def parity_checks(torch, kpaged, device: str = "cuda") -> dict:
                  ("paged_inhibitor", dict(signed=True), WINDOW),
                  ("paged_attention", {}, None),
                  ("paged_attention", {}, WINDOW)]
-        # the split Softmax at groups its smollm shape does not reach
+        # both split kernels at groups the smollm shape does not reach
         for group in SPLIT_GROUPS:
-            name = f"paged_attention group {group}"
-            pools[name] = make_pools(gen, dtype, heads=group * H_KV,
-                                     device=device)
-            cases += [(name, {}, None), (name, {}, WINDOW)]
+            for kernel, kws in (("paged_inhibitor", (dict(signed=True),
+                                                     dict(signed=False))),
+                                ("paged_attention", ({}, {}))):
+                name = f"{kernel} group {group}"
+                pools[name] = make_pools(gen, dtype, heads=group * H_KV,
+                                         qk_std=QK_STD[kernel],
+                                         device=device)
+                cases += [(name, kws[0], None), (name, kws[1], WINDOW)]
         for label_name, kw, window in cases:
             name = label_name.split()[0]
             fwd, plain = kernel_fns(kpaged, name)
@@ -370,15 +405,22 @@ def parity_checks(torch, kpaged, device: str = "cuda") -> dict:
                         t[int(tables[row, ln // PS]), ln % PS:] = float("nan")
             check(torch.equal(fwd(q, kn, vn, tables, lengths), clean),
                   f"{label_name} kernel read a masked position (nan poison)")
-    results["paged_attention"]["groups"] = [H // H_KV, *SPLIT_GROUPS]
+    for name in ("paged_inhibitor", "paged_attention"):
+        results[name]["groups"] = [H // H_KV, *SPLIT_GROUPS]
     return results
 
 
-def phase_parity(torch, kpaged):
+def phase_parity(torch, kpaged, check_grids: bool = True):
+    """parity_checks, then each kernel timed at the main path's shapes.
+    With ``check_grids``, each split kernel's launch grid in the trace
+    must be (batch x kv heads, ceil(width / pages per split)) over more
+    blocks than the card has SMs; without, the grids are only recorded
+    (another commit's kernels)."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     results = parity_checks(torch, kpaged)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
 
     # timing at the main path's shapes and dtype: bf16, cycling over 30
     # layers' pools (96 MB, beyond the 50 MB L2) as a decode tick does.
@@ -398,23 +440,25 @@ def phase_parity(torch, kpaged):
         t = {"ms": cuda_ms(kernel, n),
              "plain_ms": cuda_ms(lambda i: plain(
                  q, kp[i % LAYERS], vp[i % LAYERS], tables, lengths), 30)}
-        dev = device_us(kernel, 100, grids=name == "paged_attention")
+        dev = device_us(kernel, 100, grids=True)
         t["device_us"], t["kernels_per_call"] = (dev["us"],
                                                  dev["kernels_per_call"])
-        if name == "paged_attention":
-            # the split kernel's grid as launched: (row x kv head, split)
-            grid = [g for k, gs in dev["grids"].items()
-                    if "paged_attention_split_kernel" in k for g in gs]
-            check(len(grid) == 1, f"paged_attention: split kernel grids "
+        t["trace_attempts"] = dev["trace_attempts"]
+        t["grids"] = dev["grids"]
+        # the split kernel's grid as launched: (row x kv head, split)
+        grid = [g for k, gs in dev["grids"].items()
+                if f"{name}_split_kernel" in k for g in gs]
+        if check_grids:
+            check(len(grid) == 1, f"{name}: split kernel grids "
                   f"{dev['grids']} in the trace, expected one")
             t["splits"] = grid[0][1]
             t["blocks"] = math.prod(grid[0])
-            sms = torch.cuda.get_device_properties(0).multi_processor_count
             check(t["splits"] == kpaged.attention_splits(
                 WIDTH, kpaged.DEFAULT_PAGES_PER_STEP)
-                and t["blocks"] > sms, f"paged_attention: launched grid "
+                and t["blocks"] > sms, f"{name}: launched grid "
                 f"{grid[0]}, expected (batch x kv heads, ceil(width / "
                 f"pages per split)) over more blocks than the {sms} SMs")
+        if name == "paged_attention":
             group = H // H_KV
             mask = (torch.arange(WIDTH * PS, device="cuda")[None]
                     < lengths.long()[:, None])[:, None, None, :]
@@ -789,6 +833,7 @@ def phase_flash_parity(torch):
         dev = device_us(lambda i: fwd(*sets[i % 4]), 20)
         t["device_us"], t["kernels_per_call"] = (dev["us"],
                                                  dev["kernels_per_call"])
+        t["trace_attempts"] = dev["trace_attempts"]
         # the train phase's exact shapes and dtype, held like the cases above
         q, k, v = sets[0]
         ref = plain(q, k, v)
@@ -1153,11 +1198,11 @@ def phase_wkv_parity(torch):
                      f"set {i} bf16", ops, WKV_CHUNK)
         dev = device_us(lambda i: krwkv6.wkv6_chunked(*sets[i % 2]), 20,
                         grids=True)
-        # one kernel a call: its mean time over the launches traced
         shapes[label] = {
             "ms": cuda_ms(lambda i: krwkv6.wkv6_chunked(*sets[i % 2]), 40),
-            "device_us": dev["us_per_launch"],
+            "device_us": dev["us"],
             "kernels_per_call": dev["kernels_per_call"], "grid": dev["grids"],
+            "trace_attempts": dev["trace_attempts"],
             "plain_ms": cuda_ms(lambda i: krwkv6.wkv6_chunked_plain(
                 *sets[i % 2]), 3, warm=1),
             **wkv_bound(batch, TRAIN_N, WKV_H, WKV_N, 2)}
@@ -1435,7 +1480,8 @@ def main() -> int:
                     help="the directory holding repro_torch (default: the "
                     "checkout's src/), e.g. another commit's, to time its "
                     "kernels with this script's phases")
-    ap.add_argument("--only", choices=["wkv_parity"], default=None,
+    ap.add_argument("--only", choices=["parity", "wkv_parity"],
+                    default=None,
                     help="run the device and build phases and this one, "
                     "then end")
     args = ap.parse_args()
@@ -1472,8 +1518,12 @@ def main() -> int:
     emit({"phase": "build", "seconds": info.seconds, "cached": info.cached,
           "library": info.path.name, "ptxas": ptxas})
 
-    if args.only == "wkv_parity":
-        phase_wkv_parity(torch)
+    if args.only is not None:
+        if args.only == "parity":
+            phase_parity(torch, kpaged, check_grids=(
+                args.src.resolve() == SRC.resolve()))
+        else:
+            phase_wkv_parity(torch)
         print(smi, flush=True)
         emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                      "count": torch.cuda.device_count()}})

@@ -210,10 +210,11 @@ def backend_eligible(backend: str, cfg, shapes: AttnShapes,
         return False, (f"paged decode kernel is single-query (n_q=1); "
                        f"n_q={shapes.n_q} prefill goes through the gather "
                        f"path")
-    if backend == "paged_pallas" and kernel_family(mech.name) == "flash":
+    if backend == "paged_pallas":
         from repro_torch.kernels.paged import split_refusal
 
-        why = split_refusal(shapes.num_heads // shapes.num_kv_heads,
+        why = split_refusal(kernel_family(mech.name),
+                            shapes.num_heads // shapes.num_kv_heads,
                             shapes.head_dim)
         if why:
             return False, why
@@ -464,8 +465,8 @@ def _not_ported(backend: str, roadmap: str) -> BackendFn:
     return fn
 
 
-_INT = _not_ported("int", "ROADMAP queue 1 item 9: integer lanes")
-_FHE_SIM = _not_ported("fhe_sim", "ROADMAP queue 1 item 9: FHE simulator")
+_INT = _not_ported("int", "ROADMAP queue 1 item 2: integer lanes")
+_FHE_SIM = _not_ported("fhe_sim", "ROADMAP queue 1 item 2: FHE simulator")
 
 
 def _gather_pages(k_pool, v_pool, paged: PagedLayout):

@@ -3,7 +3,8 @@
 // row's block table over a shared pool of KV pages.
 //
 // Replaces the TPU kernels of src/repro/kernels/paged.py:
-//   paged_inhibitor_kernel        <- _paged_inhibitor_kernel (paged.py:124)
+//   paged_inhibitor_split_kernel  <- _paged_inhibitor_kernel (paged.py:124)
+//   + paged_inhibitor_merge_kernel
 //   paged_attention_split_kernel  <- _paged_attention_kernel (paged.py:259)
 //   + paged_attention_merge_kernel
 //
@@ -19,65 +20,71 @@
 // a sliding window.  Keys outside that range are left out by predicate,
 // never multiplied by 0: garbage, inf or nan in a page's tail past the
 // cursor cannot reach a sum, and table entries past the cursor (trash
-// page 0) are never read at all.  A row with len = 0 writes 0.
+// page 0) are never read at all.  A row with no attendable key writes 0.
 //
-// Inhibitor (paged_inhibitor_kernel).  One block per (row, kv_head); it
-// serves the `group = heads / kv_heads` query heads that share the KV head
-// (head = kv_head * group + g).  The block loads its own lengths[row] and
-// walks table entries [k_lo / ps, ceil(k_hi / ps)) by pointer arithmetic
-// (this replaces the TPU grid's scalar-prefetched index maps), staging
-// `pages_per_step` pages of K and V at a time into shared memory as
-// float.  One warp per (g, key) pair reduces the score over head_dim with
-// shuffles; then each thread owns one (g, dim) output element and
-// accumulates it in a float register.  Per attendable pair it evaluates
-// eq. 6 / eq. 7 directly: relu(v - z) unsigned; relu(v+ - z) + min(v- +
-// z, 0) signed.  The fused eq. 9 / 10 forms of the reference are the same
-// sums decomposed for vectorised hardware (identical for z >= 0, which
-// the relu shift guarantees); per element the direct form is cheaper and
-// rounds less.  Output / max(count, 1) when normalizing.  Inhibition
-// partials are plain sums: a later split of a long context over several
-// blocks combines partial sums and counts by addition, with no rescaling.
+// One design, twice: both kernels are split over pages (flash-decoding).
+// One block of 4 warps per (row, kv head, split), n_splits =
+// ceil(table_width / pages_per_step) (at least 1), fixed at launch from
+// the table width: the host never reads lengths.  Split s covers keys
+// [s * pages_per_step * ps, (s + 1) * pages_per_step * ps).  The block
+// serves the `group = heads / kv_heads` query heads that share its kv
+// head (head = kv_head * group + g).  Nothing is staged in shared
+// memory: each lane loads 16 bytes of a key row (8 bf16 or 4 float)
+// straight from the pool, so L = head_dim / 8 lanes (bf16; head_dim / 4
+// in float32) cover one key and a warp 32 / L keys per load, 4 loads of
+// K and V in flight per lane before any is used (2 above 4 query heads
+// per kv head, whose q and sums take twice the registers; groups 1-8
+// are built, which covers every config of the reference).  A key past
+// the split's end is not loaded: its lanes hold zeros.  Each lane keeps
+// its 16 bytes of q for each of the group's query heads in registers as
+// float; a partial score over its dims reduces over the key's L lanes by
+// xor shuffles.  The lanes of a warp that hold the same dims merge by
+// shuffles, the 4 warps through shared memory.  With one split the
+// block writes the output itself; otherwise it writes a float32 partial
+// per (row, head, split) to scratch, and a small merge kernel, one block
+// per (row, head) and one thread per dim, reads the partials of the
+// splits that hold an attendable key, in split order, and writes the
+// output.  A split that holds no attendable key writes nothing (the
+// Softmax: an empty partial) and exits.  Sums are in a fixed order:
+// results do not change from run to run.
 //
-// Softmax, split over pages (flash-decoding).  One block of 4 warps per
-// (row, kv head, split), n_splits = ceil(table_width / pages_per_step)
-// (at least 1), fixed at launch from the table width: the host never
-// reads lengths.  Split s covers keys [s * pages_per_step * ps, (s + 1) *
-// pages_per_step * ps).  A block
-// whose split holds no attendable key writes an empty partial (m = -1e30,
-// l = 0) and exits.  Inside a block nothing is staged in shared memory:
-// each lane loads 16 bytes of a key row (8 bf16 or 4 float) straight from
-// the pool, so L = head_dim / 8 lanes (bf16; head_dim / 4 in float32)
-// cover one key and a warp 32 / L keys per load, 4 loads of K and V in
-// flight per lane before any is used (2 above 4 query heads per kv head,
-// whose q and sums take twice the registers; groups 1-8 are built, which
-// covers every config of the reference).  Each lane keeps its 16 bytes of
-// q for each of the group's query heads in registers; a partial dot reduces
-// over the key's L lanes by xor shuffles; then the online softmax (running
-// max from -1e30, running sum, rescaled float32 accumulator) per key and
-// head.  The lanes of a warp that hold the same dims merge by shuffles,
-// the 4 warps through shared memory.  With one split the block writes
-// acc / max(l, 1e-20) itself; otherwise it writes its partial (m, l, acc)
-// to float32 scratch, and paged_attention_merge_kernel rescales the
+// Inhibitor (paged_inhibitor_split_kernel).  Per (head, key): z =
+// max(sum_d |q - k| / gamma - alpha, 0).  For z >= 0 each term of eq. 6
+// / eq. 7 folds to a branch-free form, as in the flash inhibitor kernel
+// (flash_prefill.cu):
+//   signed:   v > 0 ? relu(v - z) : min(v + z, 0) = v - sgn(v) min(|v|, z)
+//   unsigned: relu(v - z)                         = v - min(v, z)
+// so the block keeps sum_j v once per (kv head, dim), shared by the
+// group's heads, and per (head, key, dim) one min and one fma into a
+// float32 register: acc += s * min(a, z) with (a, s) = (|v|, -sgn v)
+// signed and (v, -1) unsigned, formed once per (key, dim).  A key past
+// the split's end holds v = 0 and adds exact zeros.  The partial of a
+// (row, head, split) is sum v + acc: inhibition partials are plain sums,
+// so the merge adds them (no running max, no rescaling) and divides by
+// the count k_hi - k_lo, which it computes from lengths and the window:
+// the partials carry no count.
+//
+// Softmax (paged_attention_split_kernel).  Per (head, key) the dot q.k
+// over the key's lanes, then the online softmax (running max from
+// -1e30, running sum, rescaled float32 accumulator) per key and head.
+// The block's partial is (m, l, acc); with one split it writes acc /
+// max(l, 1e-20) itself, and paged_attention_merge_kernel rescales the
 // partials of each (row, head) to their common max and writes acc /
-// max(l, 1e-20), reading only partials with l > 0: a row of length 0
-// writes 0.
+// max(l, 1e-20), reading only partials with l > 0.
 //
-// Bound on this card.  Each KV byte is read once; per (query head, key,
-// dim) the inhibitor does ~7 float32 operations on CUDA cores (|q-k|
-// sub/abs/add, then select, add/sub, clamp, accumulate) and the Softmax
-// ~4 (two FMAs plus the exp share).  At group 3 and 2-byte KV that is
-// about 5 and 3 operations per KV byte, below the H100's ~20 float32
-// operations per byte of HBM bandwidth: both kernels are bound by the
-// bytes of the valid pages, about 1.1 MB at the serve shape (0.3 us).  At
-// that size neither kernel is near its bound: a launch and a chain of
-// dependent loads (length, table entry, key row) cost microseconds.  The
-// inhibitor still launches only batch * kv_heads blocks and stages with
-// plain loads, so its time is the longest row's walk; splitting it (its
-// partials add) is later work.  The Softmax's split spreads the longest
-// row over n_splits blocks; what stands between it and its bound is the
-// second launch of the merge, the dependent-load latency inside a split
-// and the launch itself (a CUDA graph of the decode step would hide the
-// last).
+// Bound on this card.  Each KV byte is read once.  Per (query head,
+// key, dim) the inhibitor issues 4 float32 instructions on the CUDA
+// cores (q - k, an add of its absolute value, min, fma), none of them
+// an FMA but the last, plus one add per (kv head, key, dim) for sum v;
+// the Softmax 2 FMAs.  At group 3 and 2-byte KV that is about 3.3
+// instructions per KV byte for the inhibitor and 1.5 for the Softmax,
+// below the H100's 10 per byte of HBM bandwidth at one instruction per
+// lane and cycle: both kernels are bound by the bytes of the valid
+// pages, about 1.03 MB at the serve shape (0.3 us).  At that size
+// neither kernel is near its bound: a launch, the merge's second launch
+// and a chain of dependent loads (length, table entry, key row) cost
+// microseconds; a CUDA graph of the decode step would hide the
+// launches.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -86,15 +93,6 @@
 
 namespace {
 
-template <typename T> __device__ __forceinline__ float to_f32(T x);
-template <> __device__ __forceinline__ float to_f32<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(
-    __nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) {
   return x;
@@ -102,11 +100,6 @@ template <> __device__ __forceinline__ float from_f32<float>(float x) {
 template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(
     float x) {
   return __float2bfloat16_rn(x);
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
 }
 
 struct DecodeArgs {
@@ -129,122 +122,17 @@ struct DecodeArgs {
   int window;  // < 0: no sliding window
 };
 
-// Shared-memory carve-up, in floats:
-//   qs[group*d] | ks[kb*d] | vs[kb*d] | zs[group*kb] | m[group] | l[group]
-//   | alpha[group]       (kb = pages_per_step * page_size)
-__host__ __device__ inline size_t smem_floats(int group, int d, int kb) {
-  return (size_t)group * d + 2 * (size_t)kb * d + (size_t)group * kb +
-         3 * (size_t)group;
-}
-
 struct Walk {
-  int len, k_lo, k_hi, first_page, last_page;
+  int k_lo, k_hi;   // the attendable keys [k_lo, k_hi)
 };
 
 __device__ __forceinline__ Walk make_walk(const DecodeArgs& a, int row) {
+  const int len = a.lengths[row];
   Walk w;
-  w.len = a.lengths[row];
-  w.k_hi = min(w.len, a.table_width * a.page_size);
-  w.k_lo = a.window >= 0 ? max(0, w.len - a.window) : 0;
-  w.first_page = w.k_lo / a.page_size;
-  w.last_page = (w.k_hi + a.page_size - 1) / a.page_size;  // exclusive
+  w.k_hi = min(len, a.table_width * a.page_size);
+  w.k_lo = a.window >= 0 ? max(0, len - a.window) : 0;
   return w;
 }
-
-// Stage pages [p0, p0 + np) of this row's table, kv head kvh, as float.
-template <typename T>
-__device__ __forceinline__ void stage_pages(const DecodeArgs& a,
-                                            const int* table, int kvh,
-                                            int p0, int nk, float* ks,
-                                            float* vs) {
-  const T* kp = static_cast<const T*>(a.k_pool);
-  const T* vp = static_cast<const T*>(a.v_pool);
-  const int d = a.head_dim, ps = a.page_size;
-  for (int i = threadIdx.x; i < nk * d; i += blockDim.x) {
-    const int j = i / d, e = i - (i / d) * d;
-    const size_t page = (size_t)table[p0 + j / ps];
-    const size_t src =
-        ((page * ps + (size_t)(j % ps)) * a.kv_heads + kvh) * d + e;
-    ks[i] = to_f32<T>(kp[src]);
-    vs[i] = to_f32<T>(vp[src]);
-  }
-}
-
-template <typename T>
-__global__ void paged_inhibitor_kernel(DecodeArgs a) {
-  extern __shared__ float smem[];
-  const int group = a.heads / a.kv_heads;
-  const int d = a.head_dim, ps = a.page_size;
-  const int kb = a.pages_per_step * ps;
-  float* qs = smem;
-  float* ks = qs + group * d;
-  float* vs = ks + (size_t)kb * d;
-  float* zs = vs + (size_t)kb * d;
-
-  const int row = blockIdx.x / a.kv_heads;
-  const int kvh = blockIdx.x - row * a.kv_heads;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5, nwarps = blockDim.x >> 5;
-  const bool owner = tid < group * d;
-  const int g = tid / d, dd = tid - (tid / d) * d;
-
-  const T* q = static_cast<const T*>(a.q);
-  T* out = static_cast<T*>(a.out);
-  const size_t qo_base = ((size_t)row * a.heads + (size_t)kvh * group) * d;
-  for (int i = tid; i < group * d; i += blockDim.x)
-    qs[i] = to_f32<T>(q[qo_base + i]);
-
-  const Walk w = make_walk(a, row);
-  const int* table = a.tables + (size_t)row * a.table_width;
-  const float inv_scale = 1.0f / a.scale;
-  float acc = 0.0f;
-  int cnt = 0;
-  __syncthreads();
-
-  for (int p0 = w.first_page; p0 < w.last_page; p0 += a.pages_per_step) {
-    const int nk = min(a.pages_per_step, w.last_page - p0) * ps;
-    stage_pages<T>(a, table, kvh, p0, nk, ks, vs);
-    __syncthreads();
-    // scores Z = relu(sum_d |q - k| / gamma - alpha): one warp per pair
-    for (int pr = warp; pr < group * nk; pr += nwarps) {
-      const int gg = pr / nk, j = pr - (pr / nk) * nk;
-      float s = 0.0f;
-      for (int e = lane; e < d; e += 32)
-        s += fabsf(qs[gg * d + e] - ks[j * d + e]);
-      s = warp_sum(s);
-      if (lane == 0) {
-        float z = s * inv_scale;
-        if (a.shift != 0.0f) z = fmaxf(z - a.shift, 0.0f);
-        zs[gg * kb + j] = z;
-      }
-    }
-    __syncthreads();
-    if (owner) {
-      const int kbase = p0 * ps;
-      const int j_lo = max(0, w.k_lo - kbase);
-      const int j_hi = min(nk, w.k_hi - kbase);
-      for (int j = j_lo; j < j_hi; ++j) {
-        const float z = zs[g * kb + j];
-        const float v = vs[j * d + dd];
-        if (a.is_signed)
-          acc += v > 0.0f ? fmaxf(v - z, 0.0f) : fminf(v + z, 0.0f);
-        else
-          acc += fmaxf(v - z, 0.0f);
-      }
-      cnt += max(0, j_hi - j_lo);
-    }
-    __syncthreads();  // the next round overwrites ks / vs / zs
-  }
-  if (owner) {
-    float o = acc;
-    if (a.normalize) o = o / fmaxf((float)cnt, 1.0f);
-    out[qo_base + tid] = from_f32<T>(o);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// Softmax split over pages
-// ---------------------------------------------------------------------------
 
 constexpr int kSplitWarps = 4;
 constexpr float kNegInf = -1e30f;
@@ -269,6 +157,181 @@ __device__ __forceinline__ void load16(const float* p, float (&x)[4]) {
   x[3] = u.w;
 }
 
+// The lane's share of one block-wide load: up to U keys of K and V, 16
+// bytes each, all in flight before any is used.  Keys at or past s_hi
+// are not loaded; their lanes hold zeros and live[u] is false.
+template <typename T, int U, int E>
+__device__ __forceinline__ void load_keys(const DecodeArgs& a,
+                                          const int* table, int kvh, int col,
+                                          int first, int step, int s_hi,
+                                          float (&kx)[U][E],
+                                          float (&vx)[U][E], bool (&live)[U]) {
+  const T* kp = static_cast<const T*>(a.k_pool);
+  const T* vp = static_cast<const T*>(a.v_pool);
+  const int ps = a.page_size;
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int j = first + u * step;
+    live[u] = j < s_hi;
+    if (live[u]) {
+      const size_t src =
+          (((size_t)table[j / ps] * ps + j % ps) * a.kv_heads + kvh) *
+              a.head_dim + col;
+      load16(kp + src, kx[u]);
+      load16(vp + src, vx[u]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < E; ++e) kx[u][e] = vx[u][e] = 0.0f;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Inhibitor split over pages
+// ---------------------------------------------------------------------------
+
+// shared memory: sum_v[warps][d] | acc[warps][G][d]
+__host__ __device__ inline size_t inhibitor_smem_bytes(int group, int d) {
+  return sizeof(float) * (size_t)kSplitWarps * (group + 1) * d;
+}
+
+// Partials in float32 scratch, for n_splits > 1: sum v + acc of each
+// (row, head, split) at ((row * heads + head) * n_splits + split) * d.
+template <typename T, int G>
+__global__ void __launch_bounds__(kSplitWarps * 32)
+    paged_inhibitor_split_kernel(DecodeArgs a, float* scratch) {
+  constexpr int E = 16 / sizeof(T);   // elements per 16-byte load
+  constexpr int U = G > 4 ? 2 : 4;    // key loads in flight per lane
+  extern __shared__ float split_smem[];
+  const int d = a.head_dim, ps = a.page_size;
+  const int lpk = d / E;              // lanes per key row
+  const int kpw = 32 / lpk;           // keys per warp load
+  const int row = blockIdx.x / a.kv_heads;
+  const int kvh = blockIdx.x - row * a.kv_heads;
+  const int split = blockIdx.y, n_splits = gridDim.y;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int slot = lane / lpk, col = (lane - slot * lpk) * E;
+  const size_t head0 = (size_t)row * a.heads + (size_t)kvh * G;
+  T* out = static_cast<T*>(a.out);
+
+  const Walk w = make_walk(a, row);
+  const int span = a.pages_per_step * ps;
+  const int s_lo = max(w.k_lo, split * span);
+  const int s_hi = min(w.k_hi, (split + 1) * span);
+  if (s_lo >= s_hi) {   // no attendable key: the merge never reads it
+    if (n_splits == 1)
+      for (int i = threadIdx.x; i < G * d; i += blockDim.x)
+        out[head0 * d + i] = from_f32<T>(0.0f);
+    return;
+  }
+
+  const T* qg = static_cast<const T*>(a.q);
+  const int* table = a.tables + (size_t)row * a.table_width;
+  const float inv_scale = 1.0f / a.scale, shift = a.shift;
+  const bool is_signed = a.is_signed != 0;
+  float qr[G][E], acc[G][E], sv[E];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    load16(qg + (head0 + g) * d + col, qr[g]);
+#pragma unroll
+    for (int e = 0; e < E; ++e) acc[g][e] = 0.0f;
+  }
+#pragma unroll
+  for (int e = 0; e < E; ++e) sv[e] = 0.0f;
+
+  const int step = kSplitWarps * kpw;   // keys per block-wide load
+  for (int base = s_lo + warp * kpw; base < s_hi;
+       base += U * step) {   // warp-uniform
+    float kx[U][E], vx[U][E];
+    bool live[U];
+    load_keys<T, U, E>(a, table, kvh, col, base + slot, step, s_hi, kx, vx,
+                       live);
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      // per (key, dim), shared by the group's heads
+      float av[E], ns[E];
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        const float v = vx[u][e];
+        sv[e] += v;
+        av[e] = is_signed ? fabsf(v) : v;
+        ns[e] = is_signed ? -copysignf(1.0f, v) : -1.0f;
+      }
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        float s = 0.0f;
+#pragma unroll
+        for (int e = 0; e < E; ++e) s += fabsf(qr[g][e] - kx[u][e]);
+        for (int o = 1; o < lpk; o <<= 1)
+          s += __shfl_xor_sync(0xffffffffu, s, o);
+        const float z = fmaxf(s * inv_scale - shift, 0.0f);
+#pragma unroll
+        for (int e = 0; e < E; ++e)
+          acc[g][e] = fmaf(ns[e], fminf(av[e], z), acc[g][e]);
+      }
+    }
+  }
+
+  // merge the warp's key slots (lanes lpk apart hold the same dims)
+  for (int o = lpk; o < 32; o <<= 1) {
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      sv[e] += __shfl_xor_sync(0xffffffffu, sv[e], o);
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+        acc[g][e] += __shfl_xor_sync(0xffffffffu, acc[g][e], o);
+    }
+  }
+  // merge the warps through shared memory
+  float* sm_sv = split_smem;
+  float* sm_acc = sm_sv + kSplitWarps * d;
+  if (slot == 0) {
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      sm_sv[warp * d + col + e] = sv[e];
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+        sm_acc[(warp * G + g) * d + col + e] = acc[g][e];
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < G * d; i += blockDim.x) {
+    const int g = i / d, e = i - g * d;
+    float t = 0.0f;
+#pragma unroll
+    for (int wi = 0; wi < kSplitWarps; ++wi)
+      t += sm_sv[wi * d + e] + sm_acc[(wi * G + g) * d + e];
+    if (n_splits == 1)
+      out[head0 * d + i] = from_f32<T>(
+          a.normalize ? t / (float)(w.k_hi - w.k_lo) : t);
+    else
+      scratch[((head0 + g) * n_splits + split) * d + e] = t;
+  }
+}
+
+// One block per (row, head), one thread per dim: the partials of the
+// splits overlapping [k_lo, k_hi), added in split order; out = sum /
+// count (count = k_hi - k_lo) when normalizing.
+template <typename T>
+__global__ void paged_inhibitor_merge_kernel(DecodeArgs a, int n_splits,
+                                             const float* scratch) {
+  const int d = a.head_dim, e = threadIdx.x;
+  const size_t rh = blockIdx.x;   // row * heads + head
+  const Walk w = make_walk(a, (int)(rh / a.heads));
+  const int span = a.pages_per_step * a.page_size;
+  const float* p = scratch + rh * n_splits * d + e;
+  float t = 0.0f;
+  if (w.k_lo < w.k_hi)
+    for (int s = w.k_lo / span; s <= (w.k_hi - 1) / span; ++s)
+      t += p[(size_t)s * d];
+  if (a.normalize) t /= (float)max(w.k_hi - w.k_lo, 1);
+  static_cast<T*>(a.out)[rh * d + e] = from_f32<T>(t);
+}
+
+// ---------------------------------------------------------------------------
+// Softmax split over pages
+// ---------------------------------------------------------------------------
+
 // Partials in float32 scratch, for n_splits > 1: `count` = batch * heads
 // * n_splits entries (index (row * heads + head) * n_splits + split) of
 // m | l | acc[head_dim].
@@ -279,7 +342,7 @@ struct Partials {
 };
 
 // shared memory: m[warps][G] | l[warps][G] | acc[warps][G][d]
-__host__ __device__ inline size_t split_smem_bytes(int group, int d) {
+__host__ __device__ inline size_t attention_smem_bytes(int group, int d) {
   return sizeof(float) * (size_t)kSplitWarps * group * (2 + d);
 }
 
@@ -322,8 +385,6 @@ __global__ void __launch_bounds__(kSplitWarps * 32)
   }
 
   const T* qg = static_cast<const T*>(a.q);
-  const T* kp = static_cast<const T*>(a.k_pool);
-  const T* vp = static_cast<const T*>(a.v_pool);
   const int* table = a.tables + (size_t)row * a.table_width;
   const float inv_scale = 1.0f / a.scale;
   float qr[G][E], acc[G][E], m[G], l[G];
@@ -341,21 +402,8 @@ __global__ void __launch_bounds__(kSplitWarps * 32)
        base += U * step) {   // warp-uniform
     float kx[U][E], vx[U][E];
     bool live[U];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int j = base + u * step + slot;
-      live[u] = j < s_hi;
-      if (live[u]) {
-        const size_t src =
-            (((size_t)table[j / ps] * ps + j % ps) * a.kv_heads + kvh) * d +
-            col;
-        load16(kp + src, kx[u]);
-        load16(vp + src, vx[u]);
-      } else {
-#pragma unroll
-        for (int e = 0; e < E; ++e) kx[u][e] = vx[u][e] = 0.0f;
-      }
-    }
+    load_keys<T, U, E>(a, table, kvh, col, base + slot, step, s_hi, kx, vx,
+                       live);
 #pragma unroll
     for (int u = 0; u < U; ++u) {
 #pragma unroll
@@ -466,24 +514,38 @@ __global__ void paged_attention_merge_kernel(DecodeArgs a, int batch,
   static_cast<T*>(a.out)[rh * d + e] = from_f32<T>(as / fmaxf(ls, 1e-20f));
 }
 
-template <typename T, int G>
+// ---------------------------------------------------------------------------
+// launch
+// ---------------------------------------------------------------------------
+
+template <typename T, int G, bool INHIBITOR>
 cudaError_t launch_split(const DecodeArgs& a, int batch, float* scratch,
                          cudaStream_t stream) {
   const int n_splits =
       max(1, (a.table_width + a.pages_per_step - 1) / a.pages_per_step);
   const dim3 grid(batch * a.kv_heads, n_splits);
-  paged_attention_split_kernel<T, G>
-      <<<grid, kSplitWarps * 32, split_smem_bytes(G, a.head_dim), stream>>>(
-          a, batch, scratch);
+  const int threads = kSplitWarps * 32;
+  if constexpr (INHIBITOR)
+    paged_inhibitor_split_kernel<T, G>
+        <<<grid, threads, inhibitor_smem_bytes(G, a.head_dim), stream>>>(
+            a, scratch);
+  else
+    paged_attention_split_kernel<T, G>
+        <<<grid, threads, attention_smem_bytes(G, a.head_dim), stream>>>(
+            a, batch, scratch);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || n_splits == 1) return e;
-  paged_attention_merge_kernel<T>
-      <<<batch * a.heads, a.head_dim, 0, stream>>>(a, batch, n_splits,
-                                                   scratch);
+  if constexpr (INHIBITOR)
+    paged_inhibitor_merge_kernel<T>
+        <<<batch * a.heads, a.head_dim, 0, stream>>>(a, n_splits, scratch);
+  else
+    paged_attention_merge_kernel<T>
+        <<<batch * a.heads, a.head_dim, 0, stream>>>(a, batch, n_splits,
+                                                     scratch);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool INHIBITOR>
 cudaError_t dispatch_split(const DecodeArgs& a, int batch, float* scratch,
                            cudaStream_t stream) {
   constexpr int E = 16 / sizeof(T);
@@ -492,64 +554,57 @@ cudaError_t dispatch_split(const DecodeArgs& a, int batch, float* scratch,
       a.pages_per_step < 1)
     return cudaErrorInvalidValue;
   switch (a.heads / a.kv_heads) {
-    case 1: return launch_split<T, 1>(a, batch, scratch, stream);
-    case 2: return launch_split<T, 2>(a, batch, scratch, stream);
-    case 3: return launch_split<T, 3>(a, batch, scratch, stream);
-    case 4: return launch_split<T, 4>(a, batch, scratch, stream);
-    case 5: return launch_split<T, 5>(a, batch, scratch, stream);
-    case 6: return launch_split<T, 6>(a, batch, scratch, stream);
-    case 7: return launch_split<T, 7>(a, batch, scratch, stream);
-    case 8: return launch_split<T, 8>(a, batch, scratch, stream);
+    case 1: return launch_split<T, 1, INHIBITOR>(a, batch, scratch, stream);
+    case 2: return launch_split<T, 2, INHIBITOR>(a, batch, scratch, stream);
+    case 3: return launch_split<T, 3, INHIBITOR>(a, batch, scratch, stream);
+    case 4: return launch_split<T, 4, INHIBITOR>(a, batch, scratch, stream);
+    case 5: return launch_split<T, 5, INHIBITOR>(a, batch, scratch, stream);
+    case 6: return launch_split<T, 6, INHIBITOR>(a, batch, scratch, stream);
+    case 7: return launch_split<T, 7, INHIBITOR>(a, batch, scratch, stream);
+    case 8: return launch_split<T, 8, INHIBITOR>(a, batch, scratch, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <typename T>
-cudaError_t launch_inhibitor(const DecodeArgs& a, int batch,
-                             cudaStream_t stream) {
-  const int group = a.heads / a.kv_heads;
-  const int threads = ((group * a.head_dim + 31) / 32) * 32;
-  const int kb = a.pages_per_step * a.page_size;
-  const size_t smem = sizeof(float) * smem_floats(group, a.head_dim, kb);
-  void (*kern)(DecodeArgs) = paged_inhibitor_kernel<T>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
+template <bool INHIBITOR>
+int dispatch_dtype(int dtype, const DecodeArgs& a, int batch, void* scratch,
+                   void* stream) {
+  float* part = static_cast<float*>(scratch);
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (dtype) {
+    case 0: return (int)dispatch_split<float, INHIBITOR>(a, batch, part, s);
+    case 1: return (int)dispatch_split<__nv_bfloat16, INHIBITOR>(a, batch,
+                                                                 part, s);
+    default: return (int)cudaErrorInvalidValue;
   }
-  kern<<<batch * a.kv_heads, threads, smem, stream>>>(a);
-  return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16.  Returns a cudaError_t code
-// (0 = launched); the launch is asynchronous on `stream`.
+// Both entries: dtype 0 float32, 1 bfloat16; pages_per_step pages per
+// split, n_splits = max(1, ceil(table_width / pages_per_step));
+// head_dim * element size / 16 must be a power of two <= 32 and 1 <=
+// group <= 8; q and the pools 16-byte aligned.  Each returns a
+// cudaError_t code (0 = launched); the launches are asynchronous on
+// `stream`.
+
+// The inhibitor: `scratch` holds batch * heads * n_splits * head_dim
+// floats (unused with one split).
 extern "C" int paged_inhibitor_decode(
     int dtype, const void* q, const void* k_pool, const void* v_pool,
     const int* tables, const int* lengths, void* out, int batch, int heads,
     int kv_heads, int head_dim, int page_size, int table_width,
     int pages_per_step, float scale, float shift, int is_signed,
-    int normalize, int window, void* stream) {
+    int normalize, int window, void* scratch, void* stream) {
   const DecodeArgs a{q, k_pool, v_pool, tables, lengths, out, heads,
                      kv_heads, head_dim, page_size, table_width,
                      pages_per_step, scale, shift, is_signed, normalize,
                      window};
-  switch (dtype) {
-    case 0: return (int)launch_inhibitor<float>(a, batch,
-                                                (cudaStream_t)stream);
-    case 1: return (int)launch_inhibitor<__nv_bfloat16>(
-        a, batch, (cudaStream_t)stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return dispatch_dtype<true>(dtype, a, batch, scratch, stream);
 }
 
-// The split Softmax: pages_per_step pages per split, n_splits =
-// max(1, ceil(table_width / pages_per_step)); `scratch` holds batch * heads *
-// n_splits * (head_dim + 2) floats (unused with one split).
-// head_dim * element size / 16 must be a power of two <= 32, group <= 4
-// (instantiated for the groups the configs and tests reach);
-// q and the pools 16-byte aligned.
+// The Softmax: `scratch` holds batch * heads * n_splits * (head_dim + 2)
+// floats (unused with one split).
 extern "C" int paged_attention_decode(
     int dtype, const void* q, const void* k_pool, const void* v_pool,
     const int* tables, const int* lengths, void* out, int batch, int heads,
@@ -559,22 +614,7 @@ extern "C" int paged_attention_decode(
   const DecodeArgs a{q, k_pool, v_pool, tables, lengths, out, heads,
                      kv_heads, head_dim, page_size, table_width,
                      pages_per_step, scale, 0.0f, 0, 0, window};
-  float* part = static_cast<float*>(scratch);
-  switch (dtype) {
-    case 0: return (int)dispatch_split<float>(a, batch, part,
-                                              (cudaStream_t)stream);
-    case 1: return (int)dispatch_split<__nv_bfloat16>(a, batch, part,
-                                                      (cudaStream_t)stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
-// Shared-memory bytes one launch needs (the wrapper checks the limit).
-extern "C" long long paged_decode_smem_bytes(int group, int head_dim,
-                                             int page_size,
-                                             int pages_per_step) {
-  return (long long)(sizeof(float) *
-                     smem_floats(group, head_dim, page_size * pages_per_step));
+  return dispatch_dtype<false>(dtype, a, batch, scratch, stream);
 }
 
 extern "C" const char* paged_decode_error_string(int code) {

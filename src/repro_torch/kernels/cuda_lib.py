@@ -131,13 +131,11 @@ def library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build().path))
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.paged_inhibitor_decode.argtypes = [
-        I, P, P, P, P, P, P, I, I, I, I, I, I, I, F, F, I, I, I, P]
+        I, P, P, P, P, P, P, I, I, I, I, I, I, I, F, F, I, I, I, P, P]
     lib.paged_inhibitor_decode.restype = I
     lib.paged_attention_decode.argtypes = [
         I, P, P, P, P, P, P, I, I, I, I, I, I, I, F, I, P, P]
     lib.paged_attention_decode.restype = I
-    lib.paged_decode_smem_bytes.argtypes = [I, I, I, I]
-    lib.paged_decode_smem_bytes.restype = ctypes.c_longlong
     lib.flash_inhibitor_prefill.argtypes = [
         I, P, P, P, P, P, I, I, I, I, I, I, I, F, F, I, I, I, I, P]
     lib.flash_inhibitor_prefill.restype = I

@@ -57,9 +57,8 @@ class KernelChoice:
     tensor cores (bf16), any tile in float32, halved to fit.  The
     inhibitor ignores ``block_q``: its query tile is fixed at
     ``kinhibitor.BLOCK_Q``.  The paged
-    kernels read ``pages_per_step``: pages staged in shared memory per
-    round by the inhibitor, pages per split (one block each) by the
-    Softmax."""
+    kernels read ``pages_per_step``: the pages per split (one block
+    each), for the inhibitor and the Softmax alike."""
     block_q: Optional[int] = None
     block_k: Optional[int] = None
     sub_k: Optional[int] = None

@@ -15,26 +15,37 @@ wrapper                            replaces (TPU Pallas kernel)
 =================================  ==========================================
 
 Both are bound by the bytes of the valid KV pages (each read once; a few
-float32 operations per byte, below the card's FP32 ridge point), about
-1.1 MB at the serve shape: at that size a launch and a chain of
+float32 instructions per byte, below the card's ridge point), about
+1.03 MB at the serve shape: at that size a launch and a chain of
 dependent loads, not the bytes, set the time.
 
-* The inhibitor: one block per (row, kv head) walks the row's pages,
-  ``pages_per_step`` at a time staged in shared memory.
-* The Softmax is split over pages (flash-decoding): one block of 4 warps
-  per (row, kv head, split), ``n_splits = ceil(table_width /
-  pages_per_step)`` fixed from the table width (the host never reads
-  ``lengths``; the serve tick keeps its 2 h2d + 1 d2h copies).  A block
-  whose split holds no attendable key writes an empty partial (m =
-  -1e30, l = 0) and exits; the others read K and V rows 16 bytes a lane
-  straight from the pool (no shared-memory staging), reduce each key's
-  dot over its lanes by shuffles and keep the online softmax in
-  registers.  With more than one split a second small kernel rescales
-  the float32 partials (scratch from ``torch.empty``) to their common max
-  and writes ``acc / max(l, 1e-20)``; a row of length 0 writes 0.  Both
-  launches count as one in ``paged_flash_attention_fwd.launches``.  What
-  stands between it and its bound: the merge's second launch, the
-  dependent-load latency inside a split, the launch itself.
+Both kernels are split over pages (flash-decoding), one design twice:
+one block of 4 warps per (row, kv head, split), ``n_splits =
+ceil(table_width / pages_per_step)`` (:func:`attention_splits`) fixed
+from the table width (the host never reads ``lengths``; the serve tick
+keeps its 2 h2d + 1 d2h copies), so ``pages_per_step`` is the pages per
+split.  Each block reads K and V rows 16 bytes a lane straight from the
+pool (no shared-memory staging), reduces each key's score over its
+lanes by shuffles and keeps its sums in registers.  With more than one
+split a second small kernel merges the float32 partials (scratch from
+``torch.empty``), in split order; both launches count as one in the
+wrapper's ``launches``.
+
+* The inhibitor keeps, per (kv head, dim), the split's sum of v, and per
+  (query head, dim) the sign-folded sum of -sgn(v) min(|v|, z)
+  (unsigned: -min(v, z)); a split's partial is their sum, a plain sum,
+  so the merge adds the partials of the splits holding an attendable
+  key and divides by the count ``k_hi - k_lo`` it computes from
+  ``lengths`` and the window.  A split with no attendable key writes
+  nothing.
+* The Softmax keeps the online softmax (m, l, acc); a split with no
+  attendable key writes an empty partial (m = -1e30, l = 0), and the
+  merge rescales the partials to their common max and writes ``acc /
+  max(l, 1e-20)``.
+
+A row with no attendable key writes 0.  What stands between either
+kernel and its bound: the merge's second launch, the dependent-load
+latency inside a split, the launch itself.
 
 Keys past a row's cursor are left out by predicate and never loaded, and
 table entries past the cursor (trash page 0) are never read.  The
@@ -52,7 +63,6 @@ which path it took.
 
 from __future__ import annotations
 
-import functools
 import math
 from typing import Optional
 
@@ -66,21 +76,21 @@ DEFAULT_PAGES_PER_STEP = 4
 LOWERS_ON = ("cuda",)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_THREADS = 1024
-_MAX_SMEM = 227 * 1024
-# the split Softmax keeps q and the sums of each of the group's heads in
+# both split kernels keep q and the sums of each of the group's heads in
 # registers (one instantiation per group), and each lane loads 16 bytes
 # of a key row
 _SPLIT_MAX_GROUP = 8
 _SPLIT_HEAD_DIMS = (16, 32, 64, 128)
+_KERNEL_NAMES = {"inhibitor": "paged inhibitor", "flash": "paged attention"}
 
 
-def split_refusal(group: int, d: int) -> Optional[str]:
-    """Why the split Softmax kernel does not take ``group`` query heads
-    per kv head at ``head_dim`` d, or None when it does (the planner asks
-    before it plans ``paged_pallas``)."""
+def split_refusal(family: str, group: int, d: int) -> Optional[str]:
+    """Why the split kernel of ``family`` (``"inhibitor"`` or ``"flash"``,
+    :func:`repro_torch.core.mechanism.kernel_family`) does not take
+    ``group`` query heads per kv head at ``head_dim`` d, or None when it
+    does (the planner asks before it plans ``paged_pallas``)."""
     if group > _SPLIT_MAX_GROUP or d not in _SPLIT_HEAD_DIMS:
-        return (f"paged attention kernel: group {group} > "
+        return (f"{_KERNEL_NAMES[family]} kernel: group {group} > "
                 f"{_SPLIT_MAX_GROUP} or head_dim {d} not in "
                 f"{_SPLIT_HEAD_DIMS}")
     return None
@@ -110,87 +120,62 @@ def _decode_layout(q, k_pool, v_pool, block_tables, lengths):
 
 
 def attention_splits(width: int, pages_per_step: int) -> int:
-    """Blocks per (row, kv head) of the split Softmax: one per
+    """Blocks per (row, kv head) of either split kernel: one per
     ``pages_per_step`` table entries, at least one."""
     return max(1, -(-width // max(1, min(pages_per_step, width))))
 
 
-@functools.lru_cache(maxsize=None)
-def _launch_config(entry: str, group: int, d: int, ps: int,
-                   pages_per_step: int, width: int):
-    """(pages per step, n_splits) of one kernel at one shape; raises on a
-    shape the kernel does not take.  The inhibitor halves its staging
-    depth until the pages fit shared memory; the Softmax splits the table
-    into ceil(width / pages per split) blocks.  Memoized: the serve path
-    asks 30 times a tick at one shape."""
-    if group * d > _MAX_THREADS:
-        raise ValueError(f"paged decode kernel: group*head_dim={group * d} "
-                         f"exceeds {_MAX_THREADS} threads per block")
-    pps = max(1, min(pages_per_step, width))
-    if entry == "paged_attention_decode":
-        why = split_refusal(group, d)
-        if why:
-            raise ValueError(why)
-        return pps, attention_splits(width, pps)
-    from repro_torch.kernels import cuda_lib
-
-    lib = cuda_lib.library()
-    while pps > 1 and lib.paged_decode_smem_bytes(group, d, ps,
-                                                  pps) > _MAX_SMEM:
-        pps //= 2
-    smem = lib.paged_decode_smem_bytes(group, d, ps, pps)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"paged decode kernel: {smem} bytes of shared "
-                         f"memory (page_size={ps}, pages_per_step={pps}) "
-                         f"exceed {_MAX_SMEM}")
-    return pps, 1
-
-
-def _launch(entry: str, layout, q, k_pool, v_pool, block_tables, lengths,
+def _launch(family: str, layout, q, k_pool, v_pool, block_tables, lengths,
             *, pages_per_step: int, scale: float, extra: tuple, window):
-    """Validate and launch one kernel on the current stream of q's device;
-    returns the output tensor.  ``layout`` is :func:`_decode_layout`'s."""
+    """Validate and launch one split kernel (and its merge) on the current
+    stream of q's device; returns the output tensor.  ``layout`` is
+    :func:`_decode_layout`'s."""
     from repro_torch.kernels import cuda_lib
 
     batch, heads, kv_heads, d, ps, width = layout
+    name = _KERNEL_NAMES[family]
     tensors = (q, k_pool, v_pool, block_tables, lengths)
     dev = q.get_device()                       # -1 on the CPU
     if not q.is_cuda or any(t.get_device() != dev for t in tensors):
-        raise ValueError("paged decode kernel: all operands must be on one "
+        raise ValueError(f"{name} kernel: all operands must be on one "
                          f"CUDA device, got {[str(t.device) for t in tensors]}")
     if q.dtype not in _DTYPE_CODE or k_pool.dtype != q.dtype or (
             v_pool.dtype != q.dtype):
-        raise TypeError(f"paged decode kernel: q/k_pool/v_pool must share "
+        raise TypeError(f"{name} kernel: q/k_pool/v_pool must share "
                         f"one of {list(_DTYPE_CODE)}, got {q.dtype}, "
                         f"{k_pool.dtype}, {v_pool.dtype}")
     if block_tables.dtype != torch.int32 or lengths.dtype != torch.int32:
-        raise TypeError("paged decode kernel: block_tables and lengths must "
-                        "be int32")
+        raise TypeError(f"{name} kernel: block_tables and lengths must be "
+                        "int32")
     if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("paged decode kernel: operands must be contiguous")
-    pps, n_splits = _launch_config(entry, heads // kv_heads, d, ps,
-                                   int(pages_per_step), width)
-    split = entry == "paged_attention_decode"
-    if split and any(t.data_ptr() % 16 for t in (q, k_pool, v_pool)):
-        raise ValueError("paged attention kernel: q and the pools must be "
-                         "16-byte aligned")
+        raise ValueError(f"{name} kernel: operands must be contiguous")
+    why = split_refusal(family, heads // kv_heads, d)
+    if why:
+        raise ValueError(why)
+    if any(t.data_ptr() % 16 for t in (q, k_pool, v_pool)):
+        raise ValueError(f"{name} kernel: q and the pools must be 16-byte "
+                         "aligned")
+    pps = max(1, min(int(pages_per_step), width))
+    n_splits = attention_splits(width, pps)
     lib = cuda_lib.library()
     out = torch.empty_like(q)
     if batch == 0:
         return out
-    scratch = ()
-    if split:
-        # partials (m, l, acc) of every (row, head, split), float32
-        part = (torch.empty(batch * heads * n_splits * (d + 2),
-                            dtype=torch.float32, device=q.device)
-                if n_splits > 1 else None)
-        scratch = (None if part is None else part.data_ptr(),)
+    # float32 partials of every (row, head, split): the inhibitor's sums,
+    # the Softmax's (m, l, acc)
+    per_split = d if family == "inhibitor" else d + 2
+    part = (torch.empty(batch * heads * n_splits * per_split,
+                        dtype=torch.float32, device=q.device)
+            if n_splits > 1 else None)
+    entry = ("paged_inhibitor_decode" if family == "inhibitor"
+             else "paged_attention_decode")
     err = cuda_lib.call_on_stream(
         dev, getattr(lib, entry), _DTYPE_CODE[q.dtype], q.data_ptr(),
         k_pool.data_ptr(), v_pool.data_ptr(), block_tables.data_ptr(),
         lengths.data_ptr(), out.data_ptr(), batch, heads, kv_heads, d, ps,
         width, pps, float(scale), *extra,
-        -1 if window is None else int(window), *scratch)
+        -1 if window is None else int(window),
+        None if part is None else part.data_ptr())
     if err:
         raise RuntimeError(f"{entry} launch failed: "
                            f"{lib.paged_decode_error_string(err).decode()}")
@@ -229,7 +214,8 @@ def paged_flash_inhibitor_fwd(
     window: Optional[int] = None,
     pages_per_step: Optional[int] = None,
 ) -> torch.Tensor:
-    """Block-table-native paged inhibitor decode -> (batch, 1, heads, d)."""
+    """Block-table-native paged inhibitor decode -> (batch, 1, heads, d),
+    split over pages: ``pages_per_step`` is the pages per split."""
     layout = _decode_layout(q, k_pool, v_pool, block_tables, lengths)
     if q.device.type == "cpu":
         return paged_flash_inhibitor_plain(
@@ -237,7 +223,7 @@ def paged_flash_inhibitor_fwd(
             score_scale=score_scale, score_shift=score_shift, signed=signed,
             normalize=normalize, window=window)
     scale = score_scale if score_scale is not None else math.sqrt(q.shape[-1])
-    out = _launch("paged_inhibitor_decode", layout, q, k_pool, v_pool,
+    out = _launch("inhibitor", layout, q, k_pool, v_pool,
                   block_tables, lengths, pages_per_step=pages_per_step
                   or DEFAULT_PAGES_PER_STEP, scale=scale,
                   extra=(float(score_shift), int(bool(signed)),
@@ -284,7 +270,7 @@ def paged_flash_attention_fwd(
             q, k_pool, v_pool, block_tables, lengths,
             score_scale=score_scale, window=window)
     scale = score_scale if score_scale is not None else math.sqrt(q.shape[-1])
-    out = _launch("paged_attention_decode", layout, q, k_pool, v_pool,
+    out = _launch("flash", layout, q, k_pool, v_pool,
                   block_tables, lengths, pages_per_step=pages_per_step
                   or DEFAULT_PAGES_PER_STEP, scale=scale, extra=(),
                   window=window)

@@ -58,11 +58,11 @@ def run(argv=None) -> dict:
     if args.data_parallel != 1 or args.model_parallel != 1:
         raise NotImplementedError(
             "--data-parallel / --model-parallel other than 1 are not ported "
-            "to PyTorch yet (ROADMAP queue 1 item 12: distributed)")
+            "to PyTorch yet (ROADMAP queue 1 item 7: distributed)")
     if args.ckpt_dir is not None:
         raise NotImplementedError(
-            "--ckpt-dir is not ported to PyTorch yet (ROADMAP queue 1, left "
-            "out of slice 2: checkpoint/store.py + manager.py and resume)")
+            "--ckpt-dir is not ported to PyTorch yet (ROADMAP queue 1 item "
+            "6: checkpoint/store.py + manager.py and resume)")
 
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(message)s")

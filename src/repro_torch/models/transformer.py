@@ -134,7 +134,7 @@ def _remat_blocks(cfg: ModelConfig, kv) -> bool:
         return True
     raise NotImplementedError(
         f"remat={cfg.remat!r} is not ported to PyTorch yet (ROADMAP queue "
-        f"1, left out of slice 2: remat \"dots\" / \"offload\")")
+        f"1 item 6: remat \"dots\" / \"offload\")")
 
 
 def _checkpointed_block(lp, cfg: ModelConfig, x, positions):

@@ -237,8 +237,8 @@ def test_cuda_decode_plans_the_kernel_and_unported_backends_raise():
         tmech.ExecutionPlan("inhibitor", "blocked", "t"), q, q[:, :, :3],
         q[:, :, :3], params=params, structural=tmech.Structural())
     assert out.shape == q.shape and bool(torch.isfinite(out).all())
-    for backend, item in (("int", "ROADMAP queue 1 item 9"),
-                          ("fhe_sim", "ROADMAP queue 1 item 9")):
+    for backend, item in (("int", "ROADMAP queue 1 item 2"),
+                          ("fhe_sim", "ROADMAP queue 1 item 2")):
         with pytest.raises(NotImplementedError, match=item):
             tmech.execute_plan(
                 tmech.ExecutionPlan("inhibitor", backend, "t"), q,

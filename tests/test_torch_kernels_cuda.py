@@ -1,9 +1,10 @@
 """The CUDA kernels (csrc/paged_decode.cu, csrc/flash_prefill.cu,
 csrc/wkv6.cu) against their plain versions, on the card; the redesigned
 kernels (the bf16 Softmax flash forward on the tensor cores, the paged
-Softmax decode split over pages, the register-tiled flash inhibitor) also
-at their tiles' and splits' edges, every group the split Softmax takes
-beyond smollm's 3 that a config needs (5, 7) and its largest (8).  Every
+Softmax and inhibitor decode split over pages, the register-tiled flash
+inhibitor) also at their tiles' and splits' edges, every group the split
+kernels take beyond smollm's 3 that a config needs (5, 7) and their
+largest (8), the inhibitor also at head_dim 16 and 128.  Every
 test here needs a CUDA card and skips without one; the file imports no
 JAX, so it runs where only PyTorch is installed:
 
@@ -152,9 +153,9 @@ def test_kernels_match_plain_versions(shape, dtype, pages_per_step):
 
 @pytest.mark.cuda
 def test_pages_per_step_does_not_change_a_bit():
-    """The staging depth (inhibitor) and the pages per split (Softmax) are
-    launch knobs: float32 results are identical up to summation order,
-    and the nan poison is never read."""
+    """The pages per split (both kernels) are a launch knob: float32
+    results are identical up to summation order, and the nan poison is
+    never read."""
     _needs_card()
     for fwd, qk_std in ((kpaged.paged_flash_inhibitor_fwd, 0.125),
                         (kpaged.paged_flash_attention_fwd, 1.0)):
@@ -222,6 +223,68 @@ def test_paged_attention_split_at_large_groups(dtype, group):
             for v in (vc, vc.roll(1, dims=0)))
         _check(out, ref, dtype, control)
         assert not out[7].any()                # the length-0 row
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pages_per_step", [1, 2, 4, 8])
+def test_paged_inhibitor_splits_at_their_edges(dtype, pages_per_step):
+    """The inhibitor split over pages, signed and unsigned: lengths at
+    each of the first split boundaries and one either side, a 512-token
+    row beside 1-token rows, two rows sharing pages across a split
+    boundary, windows that start inside a split; nan in the trash page
+    and past every cursor changes no bit."""
+    _needs_card()
+    ps, width, d = 16, 32, 64
+    span = ps * pages_per_step                 # keys per split
+    shared = 2 * span + 5                      # row 8 shares row 7's pages
+    lengths = [1, span - 1, span, span + 1, 2 * span - 1, 2 * span,
+               2 * span + 1, 512, shared, 1]
+    q, kp, vp, (kc, vc), tables, lens = _case(
+        19, batch=len(lengths), heads=9, kv_heads=3, d=d, ps=ps,
+        width=width, lengths=lengths, dtype=dtype, qk_std=d ** -0.5)
+    used = -(-shared // ps)
+    tables[8, :used] = tables[7, :used]
+    for window in (None, 5, span + 3):
+        for signed in (True, False):
+            kw = dict(window=window, signed=signed,
+                      pages_per_step=pages_per_step)
+            out = kpaged.paged_flash_inhibitor_fwd(q, kp, vp, tables, lens,
+                                                   **kw)
+            assert torch.equal(out, kpaged.paged_flash_inhibitor_fwd(
+                q, kc, vc, tables, lens, **kw))
+            ref, control = (kpaged.paged_flash_inhibitor_plain(
+                q, kc, v, tables, lens, window=window, signed=signed)
+                for v in (vc, vc.roll(1, dims=0)))
+            _check(out, ref, dtype, control)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("group", [5, 7, 8])
+@pytest.mark.parametrize("d", [16, 64, 128])
+def test_paged_inhibitor_split_at_large_groups(dtype, group, d):
+    """The split inhibitor at 5, 7 and 8 query heads per kv head and
+    head_dim 16, 64 and 128 (1 to 32 lanes a key): ragged lengths across
+    split edges, shared pages, windows, signed and unsigned, nan past
+    every cursor; the length-0 row writes 0."""
+    _needs_card()
+    lengths = [1, 63, 64, 65, 200, 512, 129, 0]
+    q, kp, vp, (kc, vc), tables, lens = _case(
+        20 + group, batch=len(lengths), heads=2 * group, kv_heads=2, d=d,
+        ps=16, width=32, lengths=lengths, dtype=dtype, qk_std=d ** -0.5)
+    for window in (None, 5, 70):
+        for signed in (True, False):
+            kw = dict(window=window, signed=signed)
+            out = kpaged.paged_flash_inhibitor_fwd(q, kp, vp, tables, lens,
+                                                   **kw)
+            assert torch.equal(out, kpaged.paged_flash_inhibitor_fwd(
+                q, kc, vc, tables, lens, **kw))
+            ref, control = (kpaged.paged_flash_inhibitor_plain(
+                q, kc, v, tables, lens, **kw)
+                for v in (vc, vc.roll(1, dims=0)))
+            _check(out, ref, dtype, control)
+            assert not out[7].any()            # the length-0 row
 
 
 @pytest.mark.cuda
@@ -398,8 +461,9 @@ def test_flash_tensor_core_never_reads_past_the_cursor(block_q, d):
 def test_redesigned_kernels_reject_what_they_do_not_take():
     """A bf16 query tile the tensor-core kernel does not take raises (the
     float32 variant halves any tile to fit); operands that are not 16-byte
-    aligned raise for all three 16-byte-copy kernels; the split Softmax
-    takes at most kpaged._SPLIT_MAX_GROUP = 8 query heads per kv head."""
+    aligned raise for all four 16-byte-copy kernels; the split Softmax and
+    the split inhibitor take at most kpaged._SPLIT_MAX_GROUP = 8 query
+    heads per kv head."""
     _needs_card()
     q, k, v = _prefill_operands(10, batch=1, n=40, heads=4, kv_heads=2, d=16,
                                 dtype=torch.bfloat16, qk_std=1.0)
@@ -420,10 +484,21 @@ def test_redesigned_kernels_reject_what_they_do_not_take():
     qp, kp, vp, _, tables, lens = _case(
         11, batch=2, heads=9, kv_heads=1, d=16, ps=8, width=2,
         lengths=[9, 4], dtype=torch.float32)
-    with pytest.raises(ValueError, match="group"):
+    with pytest.raises(ValueError, match="paged attention kernel: group"):
         kpaged.paged_flash_attention_fwd(qp, kp, vp, tables, lens)
-    kpaged.paged_flash_inhibitor_fwd(qp, kp, vp, tables, lens)
+    with pytest.raises(ValueError, match="paged inhibitor kernel: group"):
+        kpaged.paged_flash_inhibitor_fwd(qp, kp, vp, tables, lens)
+    qp, kp, vp, _, tables, lens = _case(
+        11, batch=2, heads=4, kv_heads=2, d=16, ps=8, width=2,
+        lengths=[9, 4], dtype=torch.float32)
+    flat = torch.empty(qp.numel() + 1, dtype=qp.dtype, device="cuda")
+    shifted = flat[1:].view(qp.shape).copy_(qp)
+    for fwd in (kpaged.paged_flash_attention_fwd,
+                kpaged.paged_flash_inhibitor_fwd):
+        with pytest.raises(ValueError, match="aligned"):
+            fwd(shifted, kp, vp, tables, lens)
     assert kpaged.counts()["paged_attention"] == 0
+    assert kpaged.counts()["paged_inhibitor"] == 0
 
 
 @pytest.mark.cuda

@@ -136,8 +136,8 @@ def test_launcher_trains_on_the_cpu_and_its_loss_falls(capsys):
 
 @pytest.mark.parametrize("argv,match", [
     (["--ckpt-dir", "x"], "checkpoint/store.py"),
-    (["--data-parallel", "2"], "queue 1 item 12"),
-    (["--model-parallel", "2"], "queue 1 item 12")])
+    (["--data-parallel", "2"], "queue 1 item 7"),
+    (["--model-parallel", "2"], "queue 1 item 7")])
 def test_launcher_refuses_what_is_not_ported(argv, match):
     with pytest.raises(NotImplementedError, match=match):
         launch_train.run(["--device", "cpu", "--steps", "1"] + argv)
