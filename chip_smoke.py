@@ -81,16 +81,37 @@ Phases, each printing one JSON line; any failure exits non-zero:
                kernel path no further from the scan than RWKV_FREE_RATIO
                times the plain chunked version's path.  The float32
                checks at two seeds.
+ 13. lanes   — the integer and TFHE-simulated lanes of paper-tiny at full
+               width (seeded init, wq and wk scaled by 1/sqrt(head_dim)),
+               which run none of the five kernels (every count stays 0):
+               (a) ``lm_forward_lane`` on the int lane on the card at seq 8
+               and 512 for inhibitor, inhibitor_unsigned and dotprod,
+               bit-exact with the same call on the CPU, at least 10% of
+               the logits non-zero, a control with every wv negated
+               different; (b) the fhe_sim lane on the card at seq 8 and
+               128, bit-exact with (a)'s int lane, its scope report equal
+               to the CPU run's, cmuls 0 on both inhibitor arms and above
+               0 on dotprod, the TFHE parameters it selects printed; (c)
+               the planner's ``int`` backend at smollm-135m's attention
+               widths (9 / 3 heads, d 64, b 1, n 256, causal, int32 q, k,
+               v on the card): planned on its own, bit-exact with the CPU;
+               the ``fhe_sim`` backend forced without a mask at n 32,
+               bit-exact with the int lane at the same shifts; (d)
+               printed: the walls of (a) and (b), the paper's Table 3
+               protocol (each arm's int32 entry point at T 32..256, one
+               head, d 16, 20 calls after warm-up), and the largest
+               max|a|·max|b|·K ``exact_int_matmul`` checked, against 2^53.
 
 Then the ``kernels`` summary line, the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``.  TF32 is off for matmuls and cuDNN.
 
     python3 chip_smoke.py --only parity [--src OTHER/src]
     python3 chip_smoke.py --only wkv_parity [--src OTHER/src]
+    python3 chip_smoke.py --only lanes
 
-run phases 1, 2 and 3 (or 9) alone, against the package under ``--src``
-(by default this checkout's): another commit's kernels checked and timed
-by this script's phase.  Against another package, phase 3 records the
+run phases 1, 2 and 3 (or 9, or 13) alone, against the package under
+``--src`` (by default this checkout's): another commit's kernels checked
+and timed by this script's phase.  Against another package, phase 3 records the
 launch grids without holding them to the split design.
 """
 
@@ -1470,6 +1491,224 @@ def phase_rwkv_forward(torch, kops):
     return counts["wkv6"], out
 
 
+LANE_ARCH = "paper-tiny"
+LANE_MECHS = ("inhibitor", "inhibitor_unsigned", "dotprod")
+LANE_INT_SEQS = (8, 512)                   # (a): the int lane, card vs CPU
+LANE_FHE_SEQS = (8, 128)                   # (b): the fhe_sim lane
+LANE_TOKENS_SEED = 7
+# (c): smollm-135m's attention widths, int32 q, k in [-8, 8], v in [-64, 64]
+PLAN_H, PLAN_H_KV, PLAN_D, PLAN_N, PLAN_FHE_N = 9, 3, 64, 256, 32
+# (c)'s forced fhe_sim check: q, k in [-2, 2] so that Z at gamma_shift 1
+# leaves the inhibition live
+PLAN_FHE_QK = 2
+# (d): the paper's Table 3 protocol (benchmarks/table3_plaintext.py)
+TABLE3_T, TABLE3_D, TABLE3_REPS = (32, 64, 128, 256), 16, 20
+
+
+def lane_forward(torch, qlm, lane_name, tokens, device=None):
+    """(logits on the host, wall seconds, lane) of ``qlm``'s lane forward
+    on ``device`` (default: the lanes' own default, the card)."""
+    from repro_torch.core.lanes import get_lane
+    from repro_torch.models import transformer as tfm
+
+    lane = get_lane(lane_name, device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = tfm.lm_forward_lane(qlm, lane, tokens)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return out.cpu(), wall, lane
+
+
+def planner_int_checks(torch, gen) -> dict:
+    """(c): the planner's ``int`` backend on the card at smollm-135m's
+    attention widths, against the same call on the CPU; the ``fhe_sim``
+    backend, forced without a mask, against the int lane."""
+    from repro_torch.core.attention import AttentionConfig, _build_mask
+    from repro_torch.core.lanes import IntLane
+    from repro_torch.core.mechanism import (AttnShapes, ExecutionPlan,
+                                            execute_plan, get_mechanism,
+                                            plan_attention)
+    from repro_torch.quant.int_attention import lane_attention_heads
+
+    def ints(lo, hi, *shape):
+        return torch.randint(lo, hi + 1, shape, generator=gen,
+                             dtype=torch.int32)
+
+    n = PLAN_N
+    q = ints(-8, 8, 1, n, PLAN_H, PLAN_D)
+    k = ints(-8, 8, 1, n, PLAN_H_KV, PLAN_D)
+    v = ints(-64, 64, 1, n, PLAN_H_KV, PLAN_D)
+    out = {}
+    for mech in LANE_MECHS:
+        cfg = AttentionConfig(mechanism=mech, num_heads=PLAN_H,
+                              num_kv_heads=PLAN_H_KV, head_dim=PLAN_D,
+                              causal=True, use_rope=False)
+        shapes = AttnShapes(1, n, n, PLAN_H, PLAN_H_KV, PLAN_D,
+                            dtype=torch.int32, platform="cuda")
+        plan = plan_attention(cfg, shapes)
+        params = get_mechanism(mech).make_params(
+            score_scale=cfg.score_scale, score_shift=cfg.score_shift,
+            normalize=cfg.normalize)
+        res = {}
+        for key, dev in (("card", "cuda"), ("host", "cpu")):
+            mask = _build_mask(cfg, n, n, 0, device=dev)
+            t0 = time.perf_counter()
+            res[key] = execute_plan(plan, q.to(dev), k.to(dev), v.to(dev),
+                                    mask=mask, params=params)
+            torch.cuda.synchronize()
+            res[key + "_s"] = time.perf_counter() - t0
+        r = {"plan": plan.backend, "device": res["card"].device.type,
+             "dtype": str(res["card"].dtype).replace("torch.", ""),
+             "bit_exact_with_cpu": bool(torch.equal(res["card"].cpu(),
+                                                    res["host"])),
+             "nonzero_share": float((res["host"] != 0).float().mean()),
+             "wall_s": {"card": res["card_s"], "cpu": res["host_s"]}}
+        # fhe_sim, forced, all-to-all at PLAN_FHE_N keys; the inhibitor
+        # arms against the int backend at the (gamma, alpha) = (2^1, 1)
+        # the fhe_sim backend fixes, dotprod against the int lane at the
+        # fhe_sim backend's (scale_shift 2, frac_bits 4)
+        m = PLAN_FHE_N
+        qs = (q[:, :m] % (2 * PLAN_FHE_QK + 1) - PLAN_FHE_QK).cuda()
+        ks = (k[:, :m] % (2 * PLAN_FHE_QK + 1) - PLAN_FHE_QK).cuda()
+        vs = v[:, :m].cuda()
+        fcfg = AttentionConfig(mechanism=mech, backend="fhe_sim",
+                               num_heads=PLAN_H, num_kv_heads=PLAN_H_KV,
+                               head_dim=PLAN_D, causal=False, use_rope=False)
+        fplan = plan_attention(fcfg, shapes._replace(n_q=m, n_k=m))
+        if mech == "dotprod":
+            fparams = get_mechanism(mech).make_params()
+            want = lane_attention_heads(
+                IntLane(), get_mechanism(mech).lane_fn, qs, ks, vs,
+                scale_shift=2, frac_bits=4)
+        else:
+            fparams = get_mechanism(mech).make_params(score_scale=2.0,
+                                                      score_shift=1.0)
+            want = execute_plan(ExecutionPlan(mech, "int", "check"), qs, ks,
+                                vs, params=fparams)
+        got = execute_plan(fplan, qs, ks, vs, params=fparams)
+        r.update(fhe_sim_plan=fplan.backend,
+                 fhe_sim_device=got.device.type,
+                 fhe_sim_bit_exact_with_int=bool(torch.equal(got, want)),
+                 fhe_sim_nonzero_share=float((want != 0).float().mean()))
+        out[mech] = r
+    return out
+
+
+def table3(torch) -> dict:
+    """(d): the paper's Table 3 protocol on the card — each arm's int32
+    entry point (the registry's ``int_reference``) at T keys, one head,
+    d 16, ms per call over TABLE3_REPS calls after warm-up."""
+    from repro_torch.core.mechanism import get_mechanism
+
+    inh = get_mechanism("inhibitor").int_reference
+    dot = get_mechanism("dotprod").int_reference
+    gen = torch.Generator().manual_seed(0)
+    rows = {}
+    for t in TABLE3_T:
+        q, k, v = (torch.randint(-127, 128, (t, TABLE3_D), generator=gen,
+                                 dtype=torch.int32).cuda() for _ in range(3))
+        t_i = cuda_ms(lambda i: inh(q, k, v, gamma_shift=2, alpha_q=1),
+                      TABLE3_REPS)
+        t_d = cuda_ms(lambda i: dot(q, k, v, scale_shift=4), TABLE3_REPS)
+        rows[t] = {"inhibitor_ms": t_i, "dotprod_ms": t_d,
+                   "saving": 1.0 - t_i / t_d}
+    return rows
+
+
+def phase_lanes(torch, kops):
+    """13. lanes — the integer and TFHE-simulated lanes of paper-tiny on
+    the card (no kernel of this script lies on this path)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import lanes
+    from repro_torch.fhe import select_params_for_report
+    from repro_torch.launch.fhe import init_params
+    from repro_torch.quant.ptq import ptq_lm
+
+    lanes.reset_matmul_bound()
+    kops.reset_counts()
+    cfg0 = get_config(LANE_ARCH)
+    params = init_params(cfg0, seed=0)
+    rng = np.random.default_rng(LANE_TOKENS_SEED)
+    tokens = {s: rng.integers(0, cfg0.vocab_size, (1, s))
+              for s in sorted(set(LANE_INT_SEQS + LANE_FHE_SEQS))}
+    out = {"phase": "lanes", "arch": LANE_ARCH, "d_model": cfg0.d_model,
+           "heads": cfg0.attention.num_heads, "int": {}, "fhe_sim": {}}
+    failures = []
+    for mech in LANE_MECHS:
+        cfg = cfg0.with_attention_kind(mech)
+        qlm = ptq_lm(params, cfg)
+        neg = dataclasses.replace(qlm, blocks=[
+            dict(b, wv={"kernel": -b["wv"]["kernel"]}) for b in qlm.blocks])
+        int_logits = {}
+        for s in sorted(set(LANE_INT_SEQS + LANE_FHE_SEQS)):
+            card, wall, lane = lane_forward(torch, qlm, "int", tokens[s])
+            _, warm, _ = lane_forward(torch, qlm, "int", tokens[s])
+            int_logits[s] = card
+            r = {"device": lane.device.type, "wall_s": wall,
+                 "warm_wall_s": warm,
+                 "nonzero_share": float((card != 0).float().mean())}
+            if s in LANE_INT_SEQS:
+                cpu, cpu_wall, _ = lane_forward(torch, qlm, "int",
+                                                tokens[s], device="cpu")
+                ctl, _, _ = lane_forward(torch, neg, "int", tokens[s])
+                r.update(bit_exact_with_cpu=bool(torch.equal(card, cpu)),
+                         cpu_wall_s=cpu_wall,
+                         control_differ_share=float(
+                             (ctl != card).float().mean()))
+                if not (r["bit_exact_with_cpu"]
+                        and r["control_differ_share"] >= MIN_NONZERO_SHARE
+                        and r["nonzero_share"] >= MIN_NONZERO_SHARE
+                        and r["device"] == "cuda"):
+                    failures.append(f"int lane {mech} seq {s}: {r}")
+            out["int"][f"{mech}/{s}"] = r
+        for s in LANE_FHE_SEQS:
+            card, wall, lane = lane_forward(torch, qlm, "fhe_sim", tokens[s])
+            _, cpu_wall, cpu_lane = lane_forward(torch, qlm, "fhe_sim",
+                                                 tokens[s], device="cpu")
+            report = lane.ctx.scope_report()
+            tot = lane.ctx.summary()
+            sel = select_params_for_report(report)
+            r = {"device": lane.device.type, "wall_s": wall,
+                 "cpu_wall_s": cpu_wall,
+                 "bit_exact_with_int": bool(torch.equal(
+                     card.to(torch.int32), int_logits[s])),
+                 "report_equals_cpu": report == cpu_lane.ctx.scope_report(),
+                 "totals": tot, "tfhe_params": dataclasses.asdict(sel)}
+            out["fhe_sim"][f"{mech}/{s}"] = r
+            cmuls_ok = ((tot["cmuls"] == 0) if mech.startswith("inhibitor")
+                        else tot["cmuls"] > 0)
+            if not (r["bit_exact_with_int"] and r["report_equals_cpu"]
+                    and cmuls_ok and r["device"] == "cuda"):
+                failures.append(f"fhe_sim lane {mech} seq {s}: {r}")
+    gen = torch.Generator().manual_seed(0)
+    out["planner"] = planner_int_checks(torch, gen)
+    for mech, r in out["planner"].items():
+        if not (r["plan"] == "int" and r["device"] == "cuda"
+                and r["dtype"] == "int32" and r["bit_exact_with_cpu"]
+                and r["nonzero_share"] >= MIN_NONZERO_SHARE
+                and r["fhe_sim_plan"] == "fhe_sim"
+                and r["fhe_sim_device"] == "cuda"
+                and r["fhe_sim_bit_exact_with_int"]
+                and r["fhe_sim_nonzero_share"] >= MIN_NONZERO_SHARE):
+            failures.append(f"planner {mech}: {r}")
+    out["table3"] = table3(torch)
+    out["kernel_launches"] = kops.counts()
+    stat = lanes.matmul_bound()
+    out["exact_int_matmul"] = {**stat, "limit": 1 << 53,
+                               "max_bound_over_limit":
+                               stat["max_bound"] / (1 << 53)}
+    emit(out)
+    check(not failures, "lanes: " + "; ".join(failures))
+    check(all(n == 0 for n in out["kernel_launches"].values()),
+          f"lanes: the lanes path launched a kernel {out['kernel_launches']}")
+    return out
+
+
 def main() -> int:
     import argparse
 
@@ -1480,7 +1719,7 @@ def main() -> int:
                     help="the directory holding repro_torch (default: the "
                     "checkout's src/), e.g. another commit's, to time its "
                     "kernels with this script's phases")
-    ap.add_argument("--only", choices=["parity", "wkv_parity"],
+    ap.add_argument("--only", choices=["parity", "wkv_parity", "lanes"],
                     default=None,
                     help="run the device and build phases and this one, "
                     "then end")
@@ -1522,6 +1761,8 @@ def main() -> int:
         if args.only == "parity":
             phase_parity(torch, kpaged, check_grids=(
                 args.src.resolve() == SRC.resolve()))
+        elif args.only == "lanes":
+            phase_lanes(torch, kops)
         else:
             phase_wkv_parity(torch)
         print(smi, flush=True)
@@ -1556,6 +1797,9 @@ def main() -> int:
     phase_rwkv_xcheck(torch, kops)
     forward_launches, _ = phase_rwkv_forward(torch, kops)
     t_phase["rwkv"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    phase_lanes(torch, kops)
+    t_phase["lanes"] = time.perf_counter() - t0
 
     sources = {"paged": "src/repro_torch/csrc/paged_decode.cu",
                "flash": "src/repro_torch/csrc/flash_prefill.cu",

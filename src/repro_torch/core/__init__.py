@@ -27,6 +27,14 @@ from repro_torch.core.mechanism import (  # noqa: F401
     register_mechanism,
 )
 from repro_torch.core.dotprod import dot_product_attention  # noqa: F401
+from repro_torch.core.lanes import (  # noqa: F401
+    FheSimLane,
+    FloatLane,
+    IntLane,
+    Lane,
+    available_lanes,
+    get_lane,
+)
 from repro_torch.core.inhibitor import (  # noqa: F401
     inhibit_fused,
     inhibit_naive,

@@ -6,7 +6,7 @@ the paper's Inhibitor, …) registers once with one callable per execution
 :class:`AttnShapes` and returns an inspectable :class:`ExecutionPlan`;
 :func:`execute_plan` runs it.
 
-Backends implemented in this slice:
+Backends:
 
   ``naive``    broadcast oracle (large-Z / -1e9 masking)
   ``fused``    dense masked form (default)
@@ -21,11 +21,10 @@ Backends implemented in this slice:
                prefill) — on CUDA the hand-written kernels of
                ``csrc/flash_prefill.cu``, differentiable through the
                reference's backward (``kernels.ops``)
-
-``int`` and ``fhe_sim`` stay registered under the reference's names, so
-the planner returns the same plan as the reference for the same shapes,
-but running one raises ``NotImplementedError`` naming the ROADMAP item
-that ports it.
+  ``int``      the mechanism's ``lane_fn`` on the int32 lane
+               (:mod:`repro_torch.core.lanes`), on the inputs' device
+  ``fhe_sim``  the same ``lane_fn`` on the TFHE-simulated lane (int64
+               with cost accounting; forced only, no explicit mask)
 
 Selection order is the reference's (see :func:`plan_attention`); kernel
 preference keys on :func:`kernel_native`, i.e. on the kernel modules'
@@ -146,13 +145,22 @@ BackendFn = Callable[..., torch.Tensor]
 class Mechanism:
     """One attention mechanism: semantics + its backend implementations.
     ``mask_semantics`` is ``"exclude"`` (masked pairs leave every sum —
-    inhibitor family) or ``"neg_inf"`` (masked logits -> -inf)."""
+    inhibitor family) or ``"neg_inf"`` (masked logits -> -inf).
+    ``lane_fn``: the lane-generic integer form of the mechanism
+    (``fn(lane, q, k, v, *, mask, **mechanism_kwargs)`` at (..., n, d)
+    per-head layout) — the single implementation behind the ``int`` and
+    ``fhe_sim`` backends *and* the lane-parameterized model forward.
+    ``fhe_circuit`` / ``int_reference``: the (T, d) TFHE circuit and the
+    int32 entry point (both thin lane dispatches of ``lane_fn``)."""
     name: str
     description: str
     mask_semantics: str
     backends: Mapping[str, BackendFn]
     param_overrides: Mapping[str, Any] = dataclasses.field(
         default_factory=dict)
+    lane_fn: Optional[Callable] = None
+    fhe_circuit: Optional[Callable] = None
+    int_reference: Optional[Callable] = None
 
     def make_params(self, **kw) -> MechanismParams:
         kw.update(self.param_overrides)
@@ -456,17 +464,15 @@ def _to_heads(q, k, v):
             _repeat_kv(v, rep).transpose(1, 2))
 
 
-def _not_ported(backend: str, roadmap: str) -> BackendFn:
-    """A registered backend name whose implementation a later slice ports:
-    running it raises, naming the ROADMAP item."""
-    def fn(*args, **kwargs):
-        raise NotImplementedError(
-            f"backend {backend!r} is not ported to PyTorch yet ({roadmap})")
-    return fn
+def _int_shifts(params: MechanismParams, d: int) -> Tuple[int, int]:
+    """Map the float-domain (γ, α) onto the integer lanes' power-of-two
+    analogues: γ ≈ 2^shift, α rounded to the nearest integer level."""
+    import math
 
-
-_INT = _not_ported("int", "ROADMAP queue 1 item 2: integer lanes")
-_FHE_SIM = _not_ported("fhe_sim", "ROADMAP queue 1 item 2: FHE simulator")
+    gamma = (params.score_scale if params.score_scale is not None
+             else float(d) ** 0.5)
+    shift = max(0, int(round(math.log2(gamma)))) if gamma > 1 else 0
+    return shift, max(0, int(round(params.score_shift)))
 
 
 def _gather_pages(k_pool, v_pool, paged: PagedLayout):
@@ -605,6 +611,20 @@ def _inhibitor_paged_pallas(q, k, v, *, mask=None, params, structural=None,
         choice=_kernel_choice(params))
 
 
+def _inhibitor_int(q, k, v, *, mask=None, params, structural=None):
+    """Lane dispatch: the mechanism's lane_fn on the int32 lane, on the
+    inputs' device."""
+    from repro_torch.core.lanes import IntLane
+    from repro_torch.quant.int_attention import (lane_attention_heads,
+                                                 lane_inhibitor_attention)
+
+    gamma_shift, alpha_q = _int_shifts(params, q.shape[-1])
+    return lane_attention_heads(
+        IntLane(device=q.device), lane_inhibitor_attention, q, k, v,
+        mask=mask, gamma_shift=gamma_shift, alpha_q=alpha_q,
+        signed=params.signed, normalize=params.normalize)
+
+
 # ---------------------------------------------------------------------------
 # Builtin backends — dot-product (Softmax) family
 # ---------------------------------------------------------------------------
@@ -661,11 +681,59 @@ def _dotprod_paged_pallas(q, k, v, *, mask=None, params, structural=None,
         choice=_kernel_choice(params))
 
 
+def _dotprod_int(q, k, v, *, mask=None, params, structural=None):
+    """Lane dispatch: the mechanism's lane_fn on the int32 lane, on the
+    inputs' device."""
+    from repro_torch.core.lanes import IntLane
+    from repro_torch.quant.int_attention import (lane_attention_heads,
+                                                 lane_dot_product_attention)
+
+    scale_shift, _ = _int_shifts(params, q.shape[-1])
+    return lane_attention_heads(
+        IntLane(device=q.device), lane_dot_product_attention, q, k, v,
+        mask=mask, scale_shift=scale_shift)
+
+
+# ---------------------------------------------------------------------------
+# fhe_sim adapter (lane dispatch onto the TFHE simulator; forced only)
+# ---------------------------------------------------------------------------
+
+def _fhe_backend(lane_fn, *, use_signed=False, **lane_kw):
+    """Adapt the mechanism's lane_fn, run on a fresh :class:`FheSimLane`
+    on the inputs' device, to the uniform (b, n, h, d) layout.  Returns
+    int32 on that device."""
+
+    def fn(q, k, v, *, mask=None, params=None, structural=None):
+        from repro_torch.core.lanes import FheSimLane
+        from repro_torch.quant.int_attention import lane_attention_heads
+
+        if mask is not None:
+            raise ValueError("fhe_sim circuits attend all-to-all; explicit "
+                             "masks are unsupported")
+        lane = FheSimLane(device=q.device)
+        kw = dict(lane_kw)
+        if use_signed and params is not None:
+            kw["signed"] = params.signed
+            kw["normalize"] = params.normalize
+        out = lane_attention_heads(lane, lane_fn, lane.array(q),
+                                   lane.array(k), lane.array(v), **kw)
+        return out.to(torch.int32)
+
+    return fn
+
+
 # ---------------------------------------------------------------------------
 # Builtin registrations
 # ---------------------------------------------------------------------------
 
 def _register_builtins() -> None:
+    from repro_torch.fhe.circuits import (dotprod_attention_circuit,
+                                          inhibitor_attention_circuit)
+    from repro_torch.quant.int_attention import (int_dot_product_attention,
+                                                 int_inhibitor_attention,
+                                                 lane_dot_product_attention,
+                                                 lane_inhibitor_attention)
+
     register_mechanism(Mechanism(
         name="dotprod",
         description="Scaled dot-product Softmax attention (paper eq. 3)",
@@ -676,9 +744,13 @@ def _register_builtins() -> None:
             "pallas": _dotprod_pallas,
             "paged": _dotprod_paged,
             "paged_pallas": _dotprod_paged_pallas,
-            "int": _INT,
-            "fhe_sim": _FHE_SIM,
+            "int": _dotprod_int,
+            "fhe_sim": _fhe_backend(lane_dot_product_attention,
+                                    scale_shift=2, frac_bits=4),
         },
+        lane_fn=lane_dot_product_attention,
+        fhe_circuit=dotprod_attention_circuit,
+        int_reference=int_dot_product_attention,
     ))
     inhibitor_backends = {
         "naive": _inhibitor_naive,
@@ -688,15 +760,22 @@ def _register_builtins() -> None:
         "pallas": _inhibitor_pallas,
         "paged": _inhibitor_paged,
         "paged_pallas": _inhibitor_paged_pallas,
-        "int": _INT,
-        "fhe_sim": _FHE_SIM,
+        "int": _inhibitor_int,
+        # the encrypted arm runs the same lane_fn on the TFHE simulator;
+        # ``signed`` follows the mechanism (eq. 7 doubles the ReLU LUTs)
+        "fhe_sim": _fhe_backend(lane_inhibitor_attention, use_signed=True,
+                                gamma_shift=1, alpha_q=1),
     }
+    lane = dict(lane_fn=lane_inhibitor_attention,
+                fhe_circuit=inhibitor_attention_circuit,
+                int_reference=int_inhibitor_attention)
     register_mechanism(Mechanism(
         name="inhibitor",
         description="Signed inhibitor attention (paper eq. 7 / fused eq. 10)",
         mask_semantics="exclude",
         backends=dict(inhibitor_backends),
         param_overrides={"signed": True},
+        **lane,
     ))
     register_mechanism(Mechanism(
         name="inhibitor_unsigned",
@@ -704,6 +783,7 @@ def _register_builtins() -> None:
         mask_semantics="exclude",
         backends=dict(inhibitor_backends),
         param_overrides={"signed": False},
+        **lane,
     ))
 
 

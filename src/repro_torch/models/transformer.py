@@ -176,6 +176,114 @@ def lm_forward(params: dict, cfg: ModelConfig,
     return _logits(params, cfg, x)
 
 
+# ---------------------------------------------------------------------------
+# Lane-parameterized forward (float / int / fhe_sim execution of a PTQ'd LM)
+# ---------------------------------------------------------------------------
+
+def _lane_causal_mask(cfg: ModelConfig, n: int):
+    """Cleartext attention structure for the lane forward (numpy bool;
+    masks are public, and masked pairs are excluded from the combining
+    sums).  Shares the causal/window predicate with ``_build_mask``."""
+    import numpy as np
+
+    from repro_torch.core.attention import structural_mask_predicate
+
+    a = cfg.attention
+    m = structural_mask_predicate(a.causal, a.sliding_window,
+                                  np.arange(n)[:, None],
+                                  np.arange(n)[None, :])
+    return None if m is None else m[None, None]
+
+
+def _lane_attention_kwargs(mech, qlm):
+    """Integer-domain hyper-parameters for a mechanism's lane_fn, filtered
+    by its signature (mechanisms accept different shift sets)."""
+    import inspect
+
+    full = {
+        "gamma_shift": qlm.gamma_shift,
+        "alpha_q": qlm.alpha_q,
+        "signed": bool(mech.param_overrides.get("signed", False)),
+        "normalize": qlm.cfg.attention.normalize,
+        "scale_shift": qlm.scale_shift,
+        "frac_bits": qlm.ptq.softmax_frac,
+        "exp_clip": qlm.ptq.exp_clip,
+    }
+    accepted = inspect.signature(mech.lane_fn).parameters
+    return {k: v for k, v in full.items() if k in accepted}
+
+
+def apply_block_lane(qblock: dict, qlm, lane, x, *, mask=None,
+                     layer_tag: str = "L0"):
+    """One pre-norm block on a lane: norm → attention (via the mechanism
+    registry's lane_fn) → residual → norm → MLP → residual.  Costs land
+    in per-sublayer scopes on the ``fhe_sim`` lane."""
+    from repro_torch.core.mechanism import (get_mechanism,
+                                            resolve_mechanism_name)
+    from repro_torch.nn.lane_layers import lane_linear, lane_mlp, lane_norm
+    from repro_torch.quant.int_attention import lane_attention_heads
+
+    cfg, ptq = qlm.cfg, qlm.ptq
+    a = cfg.attention
+    sub_mean = cfg.norm == "layernorm"
+    mech = get_mechanism(resolve_mechanism_name(a))
+    if mech.lane_fn is None:
+        raise ValueError(f"mechanism {mech.name!r} has no lane_fn — "
+                         "it cannot run on integer/encrypted lanes")
+
+    with lane.scope(f"{layer_tag}.ln1"):
+        h = lane_norm(lane, x, qblock["ln1"], ptq=ptq,
+                      subtract_mean=sub_mean)
+    b, n = lane.shape(h)[0], lane.shape(h)[1]
+    with lane.scope(f"{layer_tag}.qkv_proj"):
+        q = lane.reshape(lane_linear(lane, h, qblock["wq"], ptq=ptq),
+                         (b, n, a.num_heads, a.head_dim))
+        k = lane.reshape(lane_linear(lane, h, qblock["wk"], ptq=ptq),
+                         (b, n, a.num_kv_heads, a.head_dim))
+        v = lane.reshape(lane_linear(lane, h, qblock["wv"], ptq=ptq),
+                         (b, n, a.num_kv_heads, a.head_dim))
+    with lane.scope(f"{layer_tag}.attn"):
+        o = lane_attention_heads(lane, mech.lane_fn, q, k, v, mask=mask,
+                                 **_lane_attention_kwargs(mech, qlm))
+    with lane.scope(f"{layer_tag}.out_proj"):
+        o = lane_linear(lane, lane.reshape(
+            o, (b, n, a.num_heads * a.head_dim)), qblock["wo"], ptq=ptq)
+        x = lane.add(x, o)
+    with lane.scope(f"{layer_tag}.ln2"):
+        h2 = lane_norm(lane, x, qblock["ln2"], ptq=ptq,
+                       subtract_mean=sub_mean)
+    with lane.scope(f"{layer_tag}.mlp"):
+        act = "gelu" if cfg.mlp == "mlp_gelu" else "relu"
+        f = lane_mlp(lane, h2, qblock["wi"], qblock["wo_mlp"], ptq=ptq,
+                     activation=act)
+        x = lane.add(x, f)
+    return x
+
+
+def lm_forward_lane(qlm, lane, tokens):
+    """End-to-end lane forward of a PTQ'd LM: tokens (b, s) cleartext
+    (numpy or a tensor) → logits handle (b, s, V) on ``lane``'s device.
+
+    On ``fhe_sim`` this is the paper's headline scenario — the whole
+    block runs under the TFHE cost model, bit-exact with the ``int``
+    lane, with per-layer PBS/add/cmul/bit-width scopes accumulated on
+    ``lane.ctx`` (``python -m repro_torch.launch.fhe``).
+    """
+    from repro_torch.nn.lane_layers import lane_embed, lane_logits
+
+    cfg = qlm.cfg
+    with lane.scope("embed"):
+        x = lane_embed(lane, qlm.embed, tokens)
+    mask = _lane_causal_mask(cfg, lane.shape(x)[1])
+    for i, qblock in enumerate(qlm.blocks):
+        x = apply_block_lane(qblock, qlm, lane, x, mask=mask,
+                             layer_tag=f"L{i}")
+    with lane.scope("head"):
+        return lane_logits(lane, x, qlm.final_norm, qlm.lm_head,
+                           ptq=qlm.ptq,
+                           subtract_mean=cfg.norm == "layernorm")
+
+
 def fused_gather_applies(cfg: ModelConfig, kv, n_q: int) -> bool:
     """Would :func:`lm_step` hoist the all-layer page gather for this paged
     state?  True exactly when the per-layer planner would pick the gather

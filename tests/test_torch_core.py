@@ -211,7 +211,9 @@ def test_cuda_decode_plans_the_kernel_and_unported_backends_raise():
     single-query decode and the blockwise flash kernels (``pallas``) for a
     training forward at n_q * n_k >= 2^20, for both families; ``blocked``
     runs (tests/test_torch_blocked.py holds it against the reference);
-    ``int`` and ``fhe_sim`` still raise, naming their ROADMAP items."""
+    ``int`` and ``fhe_sim``, which raised until the lanes were ported, run
+    on integer inputs and return int32 (tests/test_torch_quant_fhe.py
+    holds them against the reference)."""
     cfg = tatt.AttentionConfig(mechanism="inhibitor", num_heads=9,
                                num_kv_heads=3, head_dim=64)
     decode = tmech.AttnShapes(batch=8, n_q=1, n_k=512, num_heads=9,
@@ -237,9 +239,9 @@ def test_cuda_decode_plans_the_kernel_and_unported_backends_raise():
         tmech.ExecutionPlan("inhibitor", "blocked", "t"), q, q[:, :, :3],
         q[:, :, :3], params=params, structural=tmech.Structural())
     assert out.shape == q.shape and bool(torch.isfinite(out).all())
-    for backend, item in (("int", "ROADMAP queue 1 item 2"),
-                          ("fhe_sim", "ROADMAP queue 1 item 2")):
-        with pytest.raises(NotImplementedError, match=item):
-            tmech.execute_plan(
-                tmech.ExecutionPlan("inhibitor", backend, "t"), q,
-                q[:, :, :3], q[:, :, :3], params=params)
+    qi = torch.arange(4 * 9 * 64, dtype=torch.int32).reshape(1, 4, 9, 64)
+    for backend in ("int", "fhe_sim"):
+        out = tmech.execute_plan(
+            tmech.ExecutionPlan("inhibitor", backend, "t"), qi % 17,
+            qi[:, :, :3] % 13, qi[:, :, :3] % 11, params=params)
+        assert out.shape == q.shape and out.dtype == torch.int32

@@ -1,6 +1,7 @@
 """Import guard for the PyTorch port: ``src/repro_torch`` and
 ``chip_smoke.py`` import neither JAX nor the JAX package ``repro``, and
-importing the port's serving path leaves ``jax`` out of ``sys.modules``."""
+importing the port's serving, RWKV training, and lanes / quantization /
+FHE paths leaves ``jax`` out of ``sys.modules``."""
 
 import re
 import subprocess
@@ -45,6 +46,19 @@ def test_importing_the_rwkv_train_path_loads_no_jax():
             "import repro_torch.models.rwkv, repro_torch.kernels.rwkv6, "
             "repro_torch.launch.train, repro_torch.launch.profile, "
             "repro_torch.models.registry; "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')); print(bad); "
+            "sys.exit(1 if bad else 0)")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_importing_the_lanes_and_fhe_stack_loads_no_jax():
+    code = ("import sys; sys.path.insert(0, 'src'); "
+            "import repro_torch.core.lanes, repro_torch.quant, "
+            "repro_torch.fhe, repro_torch.launch.fhe, "
+            "repro_torch.nn.lane_layers; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(bad); "
             "sys.exit(1 if bad else 0)")
