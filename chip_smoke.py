@@ -21,10 +21,22 @@ Phases, each printing one JSON line; any failure exits non-zero:
                that trace.
   4. serve   — smollm-135m@inhibitor, then smollm-135m (dot-product), at
                full width (bf16 compute, seeded random init) through the
-               paged engine: 8 requests, 128-token prompts, 32 new tokens.
-               Each arm's launch counts are zeroed just before it is
-               driven and read just after: its kernel must launch decode
-               ticks x 30 times and its plain version never.
+               paged engine (max_batch 8, max_len 512, page 16, prefix
+               cache on, warm-up "serve": every proven decode and prefill
+               bucket tuned and captured as a CUDA graph at construction):
+               8 requests, 128-token prompts, 32 new tokens.  Each arm's
+               launch counts are zeroed just before it is driven and read
+               just after: its kernel must launch decode ticks x 30 times
+               (= replays x captured: every tick is a graph replay, no
+               step is built while serving) and its plain version never;
+               the steps built stay within the proven retrace budget
+               (6 decode, 6 prefill buckets); every decode bucket's paged
+               choice is "timed"; the greedy tokens equal the same
+               engine's steps run eagerly, never captured.  Printed: tick
+               p50, ITL, TTFT, tok/s, and one decode-only tick's device
+               µs and idle share from a torch.profiler range.  Then the
+               serve launcher with --trace-out and --log-json (4 requests,
+               inhibitor arm): its trace must validate.
   5. decode_paths — one full-width paged decode step through the kernel
                and through the forced gather backend; logits must agree.
   6. flash_parity — each blockwise flash kernel (training forward)
@@ -108,16 +120,21 @@ Then the ``kernels`` summary line, the ``nvidia-smi`` line and, last,
     python3 chip_smoke.py --only parity [--src OTHER/src]
     python3 chip_smoke.py --only wkv_parity [--src OTHER/src]
     python3 chip_smoke.py --only lanes
+    python3 chip_smoke.py --only serve [--src OTHER/src]
 
-run phases 1, 2 and 3 (or 9, or 13) alone, against the package under
+run phases 1, 2 and 3 (or 9, or 13, or 4) alone, against the package under
 ``--src`` (by default this checkout's): another commit's kernels checked
 and timed by this script's phase.  Against another package, phase 3 records the
-launch grids without holding them to the split design.
+launch grids without holding them to the split design, and phase 4
+serves that package's engine as it is (another commit's eager ticks,
+say) and takes only its walls and its profiled tick.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import gc
 import json
 import math
 import os
@@ -201,60 +218,71 @@ DEVICE_WORK_CALLS = ("Launch", "Memcpy", "Memset")
 DEVICE_RECORDS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
+def traced_records(run, pad: int, label: str):
+    """The device records of ``run()`` in a torch.profiler trace: ``run``
+    goes inside a recorded range after ``pad`` tiny fills, and only the
+    records whose correlation ids match a runtime call made inside that
+    range count (a graph replay's kernels carry its launch's id).  Returns
+    (records, the range's (start, end) in µs, the runtime calls that left
+    no record)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    fill = torch.zeros(1, device="cuda")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(pad):
+            fill.zero_()
+        torch.cuda.synchronize()
+        with record_function(label):
+            run()
+            torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    span = [(e["ts"], e["ts"] + e["dur"]) for e in events
+            if e.get("name") == label and e.get("cat") == "user_annotation"]
+    check(len(span) == 1, f"{len(span)} {label} ranges in the trace")
+    lo, hi = span[0]
+    calls = {e["args"]["correlation"] for e in events
+             if e.get("cat") in ("cuda_runtime", "cuda_driver")
+             and "correlation" in e.get("args", {})
+             and lo <= e["ts"] <= hi
+             and any(w in e.get("name", "") for w in DEVICE_WORK_CALLS)}
+    records = [e for e in events if e.get("cat") in DEVICE_RECORDS
+               and e.get("args", {}).get("correlation") in calls]
+    lost = calls - {e["args"]["correlation"] for e in records}
+    return records, (lo, hi), len(lost)
+
+
 def device_us(fn, n: int, grids: bool = False, attempts: int = 3) -> dict:
     """Device time per call of fn(i) without the host: the device records
     (kernels, copies, fills) of n calls in a torch.profiler trace, summed
     and divided by n, with the records per call, the mean per record and,
     with ``grids``, each kernel's launch grids as the trace recorded them.
 
-    The n calls run inside a recorded range, and only the records whose
-    correlation ids match a runtime call made inside that range count.
-    On the H100 the trace drops the first records of a session, more the
-    longer the process has run (a handful after a few minutes), so the
-    range follows ``pad`` tiny fills; a trace in which any call of the range
-    lost its record is taken again with four times the pad, and after
-    ``attempts`` such traces the phase fails."""
+    The n calls run inside one ``traced_records`` range.  On the H100 the
+    trace drops the first records of a session, more the longer the
+    process has run (a handful after a few minutes), so the range follows
+    ``pad`` tiny fills; a trace in which any call of the range lost its
+    record is taken again with four times the pad, and after ``attempts``
+    such traces the phase fails."""
     import torch
-    from torch.profiler import ProfilerActivity, profile, record_function
 
     for i in range(3):
         fn(i)
     torch.cuda.synchronize()
-    fill = torch.zeros(1, device="cuda")
     pad = 1000
     for attempt in range(1, attempts + 1):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(pad):
-                fill.zero_()
-            torch.cuda.synchronize()
-            with record_function("device_us"):
-                for i in range(n):
-                    fn(i)
-            torch.cuda.synchronize()
-        with tempfile.TemporaryDirectory() as tmp:
-            path = os.path.join(tmp, "trace.json")
-            prof.export_chrome_trace(path)
-            with open(path) as f:
-                events = json.load(f)["traceEvents"]
-        span = [(e["ts"], e["ts"] + e["dur"]) for e in events
-                if e.get("name") == "device_us"
-                and e.get("cat") == "user_annotation"]
-        check(len(span) == 1, f"{len(span)} device_us ranges in the trace")
-        lo, hi = span[0]
-        calls = {e["args"]["correlation"] for e in events
-                 if e.get("cat") in ("cuda_runtime", "cuda_driver")
-                 and "correlation" in e.get("args", {})
-                 and lo <= e["ts"] <= hi
-                 and any(w in e.get("name", "") for w in DEVICE_WORK_CALLS)}
-        records = [e for e in events if e.get("cat") in DEVICE_RECORDS
-                   and e.get("args", {}).get("correlation") in calls]
-        lost = len(calls) - len(records)
+        records, _, lost = traced_records(
+            lambda: [fn(i) for i in range(n)], pad, "device_us")
         if records and lost == 0:
             break
-        check(attempt < attempts, f"the profiler trace lost {lost} of the "
-              f"{len(calls)} device records of the timed calls in each of "
-              f"{attempts} traces (last pad {pad} fills)")
+        check(attempt < attempts, f"the profiler trace lost {lost} device "
+              f"records of the timed calls in each of {attempts} traces "
+              f"(last pad {pad} fills)")
         pad *= 4
     total = sum(float(e["dur"]) for e in records)
     out = {"us": total / n, "kernels_per_call": len(records) / n,
@@ -512,31 +540,93 @@ def phase_parity(torch, kpaged, check_grids: bool = True):
     return results, timings
 
 
-def phase_serve(torch, kops, arch: str):
+SERVE_ENGINE = dict(max_batch=8, max_len=512, page_size=16, prefix_cache=True)
+SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = 8, 128, 32
+# in a second wave of the same traffic (after the timed one), the
+# decode-only tick whose device time is traced (then the next, when the
+# trace lost a record)
+SERVE_PROFILED_TICK = 8
+
+
+def tick_device(tick, pad: int) -> dict:
+    """Device time and idle share of one call of ``tick``
+    (``traced_records``): ``busy_us`` is the union of its records'
+    intervals, ``idle_share`` 1 - busy / the range's host span (the
+    profiler slows the host), ``lost`` the runtime calls with no record."""
+    records, (lo, hi), lost = traced_records(tick, pad, "serve_tick")
+    busy, end = 0.0, -math.inf
+    for a, b in sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                       for e in records):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return {"device_us": sum(float(e["dur"]) for e in records),
+            "busy_us": busy, "range_us": hi - lo,
+            "idle_share": 1.0 - busy / (hi - lo),
+            "kernels": sum(e["cat"] == "kernel" for e in records),
+            "lost": lost}
+
+
+def serve_requests(Request, vocab: int, on_token=None, wave: int = 0):
     import numpy as np
 
+    rng = np.random.default_rng(wave)
+    return [Request(wave * SERVE_REQUESTS + i,
+                    rng.integers(0, vocab, (SERVE_PROMPT,)),
+                    max_new_tokens=SERVE_NEW, on_token=on_token)
+            for i in range(SERVE_REQUESTS)]
+
+
+def profile_tick(eng, Request, vocab: int) -> list:
+    """Serve a second wave of the phase's traffic and trace one of its
+    decode-only ticks with ``tick_device`` (the next one again, with four
+    times the pad, when the trace lost a record; three at most)."""
+    for r in serve_requests(Request, vocab, wave=1):
+        eng.submit(r)
+    profiled, decode_only, pad = [], 0, 1000
+    while eng.active or eng.admitting or len(eng.scheduler):
+        if (decode_only >= SERVE_PROFILED_TICK and not eng.admitting
+                and not len(eng.scheduler) and len(profiled) < 3
+                and (not profiled or profiled[-1]["lost"])):
+            profiled.append(tick_device(eng.step, pad))
+            pad *= 4
+            continue
+        chunks = eng.counters["prefill_chunks"]
+        eng.step()
+        decode_only += eng.counters["prefill_chunks"] == chunks
+    return profiled
+
+
+def phase_serve(torch, kops, arch: str):
+    """Phase 4 on one arm.  With this checkout's package the engine
+    warms every proven bucket (warm-up "serve": each step tuned and
+    captured) and serves through CUDA-graph replays; against another
+    package (``--src``) whose engine has no warm-up it serves as that
+    package does, and only the common numbers are taken."""
     from repro_torch.configs import get_config
     from repro_torch.models.registry import get_model
     from repro_torch.serve.engine import Engine, EngineConfig, Request
 
+    graphs = "warmup" in {f.name for f in dataclasses.fields(EngineConfig)}
     cfg = get_config(arch)
     api = get_model(cfg)
     t0 = time.perf_counter()
     params = api.init(torch.Generator().manual_seed(0), device="cuda")
     init_s = time.perf_counter() - t0
-    eng = Engine(api, params, EngineConfig(max_batch=8, max_len=512,
-                                           page_size=16, prefix_cache=True),
-                 device="cuda")
+    ecfg = dict(SERVE_ENGINE, **({"warmup": "serve"} if graphs else {}))
+    t0 = time.perf_counter()
+    eng = Engine(api, params, EngineConfig(**ecfg), device="cuda")
+    torch.cuda.synchronize()
+    construct_s = time.perf_counter() - t0
     check(eng.paged and eng.decode_plan.backend == "paged_pallas",
           f"{arch}: decode plan is {eng.decode_plan}")
-    rng = np.random.default_rng(0)
+    built = (eng.decode_compiles, eng.prefill_compiles)
     first_token = {}                 # request id -> wall time of token 1
 
     def on_token(req, tok):
         first_token.setdefault(req.request_id, time.perf_counter())
 
-    reqs = [Request(i, rng.integers(0, cfg.vocab_size, (128,)),
-                    max_new_tokens=32, on_token=on_token) for i in range(8)]
+    reqs = serve_requests(Request, cfg.vocab_size, on_token)
     submitted = {}
     for r in reqs:
         eng.submit(r)
@@ -561,32 +651,153 @@ def phase_serve(torch, kops, arch: str):
     stats = eng.stats()
     kernel = ("paged_inhibitor" if cfg.attention.mechanism.startswith(
         "inhibitor") else "paged_attention")
-    other = ({"paged_inhibitor", "paged_attention"} - {kernel}).pop()
     ticks = stats["decode_ticks"]
-    check(all(r.output is not None and len(r.output) == 32 for r in reqs),
-          f"{arch}: not every request finished with 32 tokens")
+    check(all(r.output is not None and len(r.output) == SERVE_NEW
+              for r in reqs),
+          f"{arch}: not every request finished with {SERVE_NEW} tokens")
     check(counts[kernel] == ticks * cfg.num_layers,
           f"{arch}: {kernel} launched {counts[kernel]} times, expected "
           f"{ticks} ticks x {cfg.num_layers} layers")
     check(all(n == 0 for name, n in counts.items() if name != kernel),
           f"{arch}: unexpected launches {counts}")
     gen_tokens = stats["generated_tokens"]
-    out = {"phase": "serve", "arch": arch, "init_s": init_s,
-           "requests": len(reqs), "prompt_len": 128, "new_tokens": 32,
-           "generated_tokens": gen_tokens, "wall_s": wall,
-           "tok_per_s": gen_tokens / wall, "ticks": len(tick_ms),
-           "decode_ticks": ticks, "prefill_chunks": stats["prefill_chunks"],
+    profiled = profile_tick(eng, Request, cfg.vocab_size)
+    tick = profiled[-1] if profiled else None
+    out = {"phase": "serve", "arch": arch, "graphs": graphs,
+           "init_s": init_s, "construct_s": construct_s,
+           "requests": len(reqs), "prompt_len": SERVE_PROMPT,
+           "new_tokens": SERVE_NEW, "generated_tokens": gen_tokens,
+           "wall_s": wall, "tok_per_s": gen_tokens / wall,
+           "ticks": len(tick_ms), "decode_ticks": ticks,
+           "prefill_chunks": stats["prefill_chunks"],
            "decode_tick_ms_p50": statistics.median(decode_only_ms),
            "decode_only_ticks": len(decode_only_ms),
            "ttft_ms_p50": statistics.median(
                (first_token[i] - submitted[i]) * 1e3 for i in submitted),
            "itl_ms_p50": stats["itl_ms_p50"], "launches": counts,
+           "profiled_tick": tick, "profile_attempts": len(profiled),
+           # the profiled tick's device time against the unprofiled
+           # decode-only tick p50 (the profiler slows the host)
+           "idle_share_at_p50": (
+               None if tick is None or tick["lost"] else
+               1.0 - tick["device_us"] * 1e-3 / statistics.median(
+                   decode_only_ms)),
            "high_water_pages": stats["high_water_pages"],
            "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    if graphs:
+        out.update(serve_graph_checks(kops, arch, cfg, api, params, eng,
+                                      stats, reqs, built, counts, kernel,
+                                      Engine, EngineConfig, Request, ecfg))
     emit(out)
+    # the engine and its steps' bodies refer to each other: collect the
+    # cycle so its graphs and pools go before the next phase
     del eng, params
+    gc.collect()
     torch.cuda.empty_cache()
     return kernel, counts[kernel], out
+
+
+def serve_graph_checks(kops, arch, cfg, api, params, eng, stats, reqs, built,
+                       counts, kernel, Engine, EngineConfig, Request,
+                       ecfg) -> dict:
+    """The graph checks of phase 4, on ``stats`` read after the timed
+    wave: every tick a replay of a step built at construction, launches
+    = replays x captured = ticks x layers, the step counts within the
+    proven budget, every decode bucket's paged choice timed, and the
+    tokens equal to the same engine's steps run eagerly (never captured)
+    on the card, with the registry's tuned choices."""
+    from repro_torch.analysis.serve_static import enumerate_decode_buckets
+    from repro_torch.core.mechanism import (kernel_family,
+                                            resolve_mechanism_name)
+
+    g = stats["graphs"]
+    budget = stats["retrace_budget"]
+    ticks = stats["decode_ticks"]
+    check((eng.decode_compiles, eng.prefill_compiles) == built,
+          f"{arch}: steps built while serving: {built} at construction, "
+          f"{(eng.decode_compiles, eng.prefill_compiles)} after")
+    check(g["decode_replays"] == ticks,
+          f"{arch}: {g['decode_replays']} decode replays for {ticks} ticks")
+    check(g["captures"] == eng.decode_compiles + eng.prefill_compiles,
+          f"{arch}: {g['captures']} captures for "
+          f"{eng.decode_compiles + eng.prefill_compiles} steps")
+    replayed = g["replayed_launches"].get(kernel, 0)
+    check(replayed == counts[kernel] == ticks * cfg.num_layers,
+          f"{arch}: replays x captured = {replayed}, counted "
+          f"{counts[kernel]}, ticks x layers = {ticks * cfg.num_layers}")
+    check(eng.decode_compiles <= budget["decode_proven"]
+          and eng.prefill_compiles <= budget["prefill_proven"],
+          f"{arch}: steps {eng.decode_compiles} / {eng.prefill_compiles} "
+          f"over the proven {budget}")
+    a = cfg.attention
+    family = kernel_family(resolve_mechanism_name(a))
+    widths = enumerate_decode_buckets(
+        max_len=eng.cfg.max_len, page_size=eng.cfg.page_size,
+        pages_per_slot=eng.alloc.pages_per_slot)
+    choices = {}
+    for hw in widths:
+        d = kops.registry.decisions.get(
+            ("paged", family, hw, eng.cfg.page_size, a.num_heads,
+             a.num_kv_heads, a.head_dim))
+        check(d is not None and d["source"] == "timed",
+              f"{arch}: decode bucket {hw}: registry decision {d}")
+        choices[hw] = d["choice"].pages_per_step
+
+    class NeverCaptured(Engine):
+        """The same engine, its steps run eagerly every time."""
+
+        def _capture(self, step):
+            return None
+
+    t0 = time.perf_counter()
+    ref = NeverCaptured(api, params, EngineConfig(**ecfg), device="cuda")
+    ref_reqs = serve_requests(Request, cfg.vocab_size)
+    for r in ref_reqs:
+        ref.submit(r)
+    ref.run_to_completion()
+    eager_s = time.perf_counter() - t0
+    check(ref.stats()["graphs"]["captures"] == 0, f"{arch}: eager ref "
+          "captured a graph")
+    same = [r.output for r in ref_reqs] == [r.output for r in reqs]
+    check(same, f"{arch}: graphed tokens differ from the eager steps'")
+    del ref
+    return {"steps": {"decode": eng.decode_compiles,
+                      "prefill": eng.prefill_compiles,
+                      "decode_proven": budget["decode_proven"],
+                      "prefill_proven": budget["prefill_proven"]},
+            "graph_stats": g, "pages_per_step": choices,
+            "tokens_equal_eager_steps": same, "eager_ref_s": eager_s}
+
+
+def phase_serve_trace(torch):
+    """The serve launcher at full width with --trace-out and --log-json:
+    it must exit 0 and its trace must pass the port's validator."""
+    import io
+
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.serve.telemetry import validate_chrome_trace
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        lines = io.StringIO()
+        with contextlib.redirect_stdout(lines):
+            rc = launch_serve.main([
+                "--arch", "smollm-135m@inhibitor", "--full", "--device",
+                "cuda", "--requests", "4", "--max-batch", "4",
+                "--max-len", "256", "--prompt-len", "40",
+                "--new-tokens", "8", "--trace-out", path, "--log-json"])
+        check(rc == 0, f"serve launcher exited {rc}")
+        with open(path) as f:
+            doc = json.load(f)
+    v = validate_chrome_trace(doc)
+    check(v["ok"], f"serve launcher trace invalid: {v['errors'][:5]}")
+    ticks = [json.loads(ln) for ln in lines.getvalue().splitlines()
+             if ln.startswith("{")]
+    check(ticks and ticks[-1]["finished_total"] == 4,
+          f"--log-json lines: {ticks[-1:]}")
+    emit({"phase": "serve_trace", "summary": v["summary"],
+          "log_json_lines": len(ticks),
+          "decode_plan": doc["otherData"]["meta"].get("decode_plan")})
 
 
 def decode_paths(torch, cfg, params, lengths, gen, device: str = "cuda"):
@@ -1719,7 +1930,8 @@ def main() -> int:
                     help="the directory holding repro_torch (default: the "
                     "checkout's src/), e.g. another commit's, to time its "
                     "kernels with this script's phases")
-    ap.add_argument("--only", choices=["parity", "wkv_parity", "lanes"],
+    ap.add_argument("--only", choices=["parity", "wkv_parity", "lanes",
+                                       "serve"],
                     default=None,
                     help="run the device and build phases and this one, "
                     "then end")
@@ -1763,6 +1975,11 @@ def main() -> int:
                 args.src.resolve() == SRC.resolve()))
         elif args.only == "lanes":
             phase_lanes(torch, kops)
+        elif args.only == "serve":
+            for arch in ("smollm-135m@inhibitor", "smollm-135m"):
+                phase_serve(torch, kops, arch)
+            if args.src.resolve() == SRC.resolve():
+                phase_serve_trace(torch)
         else:
             phase_wkv_parity(torch)
         print(smi, flush=True)
@@ -1781,6 +1998,7 @@ def main() -> int:
     for arch in ("smollm-135m@inhibitor", "smollm-135m"):
         kernel, n, _ = phase_serve(torch, kops, arch)
         launches[kernel] = n
+    phase_serve_trace(torch)
     phase_decode_paths(torch)
     t_phase["serve"] = time.perf_counter() - t0
     t0 = time.perf_counter()

@@ -20,17 +20,27 @@ Port of :mod:`repro.kernels.ops`:
     autograd of :func:`repro_torch.nn.ssm.wkv6_chunked_vjp`; with a
     carried state the exact scan.
   * :class:`KernelChoice` / :data:`CANDIDATES` / :class:`KernelRegistry`
-    — the launch configuration per (family, shape), an explicit override
-    winning, else the family's default, cached per shape and recorded in
-    ``registry.decisions`` with its source (``"override"`` /
-    ``"default"``).  Timed autotuning of the candidates on the card is
-    later work.
+    — the launch configuration per (family, shape), recorded in
+    ``registry.decisions`` with its source: an explicit override wins
+    (``"override"``); on the card the paged kernels' candidates are timed
+    (``"timed"``: one warm call, then the best of 3 by CUDA events, with
+    concrete operands and outside a CUDA-graph capture) and the winner is
+    cached per shape; without a timer the family default is used and not
+    cached (``"default-trace"`` on the card, ``"default-cpu"`` on the
+    CPU, where each wrapper runs its plain version).  Candidates are
+    timed in their declared order (the reference ranks them first with
+    its cost model, which is not ported).  Timing launches do not count
+    in :func:`counts`.
+  * :func:`counts` / :func:`add_counts` — each kernel's launches and each
+    plain version's calls; a CUDA-graph replay adds the launches its
+    capture recorded (``serve.engine``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -103,51 +113,129 @@ class KernelRegistry:
         self.decisions.clear()
 
     def choose(self, family: str, shape_key: tuple, platform: str,
-               override: Optional[KernelChoice] = None) -> KernelChoice:
+               override: Optional[KernelChoice] = None,
+               timer: Optional[Callable[[KernelChoice], float]] = None,
+               ) -> KernelChoice:
         """Resolve the launch configuration for ``family`` at ``shape_key``
-        on ``platform``: a non-empty ``override`` wins (its ``None``
-        fields filled from the cached choice), else the cached choice,
-        else the family default."""
+        on ``platform``.
+
+        A non-empty ``override`` wins, its ``None`` fields filled from the
+        tuned choice when there is one, else the default.  Else a tuned
+        choice for the shape is returned.  Else, with a ``timer`` (one
+        candidate -> seconds), every candidate is timed in the declared
+        order, a candidate the kernel refuses (``ValueError``) dropping
+        out, and the fastest is cached and recorded as ``"timed"``.
+        Without a timer the default is returned and NOT cached, so a later
+        call with concrete operands can still tune the shape."""
+        candidates = CANDIDATES[family]
+        default = candidates[0]
         key = (family,) + shape_key
-        base = self.tuned.setdefault(key, CANDIDATES[family][0])
         if override is not None and not override.empty:
-            choice, source = override.merge_onto(base), "override"
-        else:
-            choice, source = base, "default"
+            merged = override.merge_onto(self.tuned.get(key, default))
+            self._record(family, key, merged, "override", platform)
+            return merged
+        hit = self.tuned.get(key)
+        if hit is not None:
+            return hit           # its decision was recorded when tuned
+        if timer is None:
+            if key not in self.decisions:
+                self._record(family, key, default, "default-cpu"
+                             if platform == "cpu" else "default-trace",
+                             platform)
+            return default
+        choice, best = default, float("inf")
+        for cand in candidates:
+            try:
+                t = timer(cand)
+            except ValueError:   # refused by the wrapper's checks
+                continue
+            if t < best:
+                choice, best = cand, t
+        self.tuned[key] = choice
+        self._record(family, key, choice, "timed", platform)
+        return choice
+
+    def _record(self, family: str, key: tuple, choice: KernelChoice,
+                source: str, platform: str) -> None:
         self.decisions[key] = {
             "choice": choice, "source": source, "platform": platform,
             "native": platform in NATIVE_PLATFORMS.get(family, ())}
-        return choice
 
 
 registry = KernelRegistry()
 
 
+@contextlib.contextmanager
+def _uncounted():
+    """Launches inside the block (timing runs) leave :func:`counts`
+    as they were."""
+    before = counts()
+    try:
+        yield
+    finally:
+        after = counts()
+        add_counts({k: before[k] - after[k] for k in after})
+
+
+def _timer(run: Callable[[KernelChoice], torch.Tensor]):
+    """Seconds of one candidate on the card: one warm call, then the best
+    of 3 calls, each between two CUDA events on the current stream."""
+    def time_one(choice: KernelChoice) -> float:
+        with _uncounted():
+            run(choice)
+            best = float("inf")
+            for _ in range(3):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                run(choice)
+                end.record()
+                end.synchronize()
+                best = min(best, start.elapsed_time(end) * 1e-3)
+        return best
+    return time_one
+
+
 def _paged_choice(family_key: str, q, k_pool, block_tables,
-                  override: Optional[KernelChoice]) -> KernelChoice:
+                  override: Optional[KernelChoice], run) -> KernelChoice:
+    """The paged kernels' choice: timed on the card with concrete
+    operands, never inside a CUDA-graph capture (timing synchronizes;
+    the capture replays the choice its eager first run tuned)."""
     shape_key = (family_key, block_tables.shape[1], k_pool.shape[1],
                  q.shape[2], k_pool.shape[2], q.shape[3])
-    return registry.choose("paged", shape_key, q.device.type, override)
+    timer = None
+    if ((override is None or override.empty) and q.is_cuda
+            and not torch.cuda.is_current_stream_capturing()):
+        timer = _timer(run)
+    return registry.choose("paged", shape_key, q.device.type, override,
+                           timer)
 
 
 def paged_flash_inhibitor(q, k_pool, v_pool, block_tables, lengths, *,
                           score_scale=None, score_shift=0.5, signed=True,
                           normalize=True, window=None, choice=None):
     """Block-table-native paged inhibitor decode (inference only)."""
-    c = _paged_choice("inhibitor", q, k_pool, block_tables, choice)
-    return kpaged.paged_flash_inhibitor_fwd(
-        q, k_pool, v_pool, block_tables, lengths, score_scale=score_scale,
-        score_shift=score_shift, signed=signed, normalize=normalize,
-        window=window, pages_per_step=c.pages_per_step)
+    def run(c: KernelChoice):
+        return kpaged.paged_flash_inhibitor_fwd(
+            q, k_pool, v_pool, block_tables, lengths,
+            score_scale=score_scale, score_shift=score_shift, signed=signed,
+            normalize=normalize, window=window,
+            pages_per_step=c.pages_per_step)
+
+    return run(_paged_choice("inhibitor", q, k_pool, block_tables, choice,
+                             run))
 
 
 def paged_flash_attention(q, k_pool, v_pool, block_tables, lengths, *,
                           score_scale=None, window=None, choice=None):
     """Block-table-native paged Softmax decode (inference only)."""
-    c = _paged_choice("flash", q, k_pool, block_tables, choice)
-    return kpaged.paged_flash_attention_fwd(
-        q, k_pool, v_pool, block_tables, lengths, score_scale=score_scale,
-        window=window, pages_per_step=c.pages_per_step)
+    def run(c: KernelChoice):
+        return kpaged.paged_flash_attention_fwd(
+            q, k_pool, v_pool, block_tables, lengths,
+            score_scale=score_scale, window=window,
+            pages_per_step=c.pages_per_step)
+
+    return run(_paged_choice("flash", q, k_pool, block_tables, choice, run))
 
 
 # ---------------------------------------------------------------------------
@@ -307,25 +395,36 @@ def wkv6(r, k, v, w, u, state=None, *, chunk: int = kwkv6.DEFAULT_CHUNK):
 # launch / plain-call counts of every kernel
 # ---------------------------------------------------------------------------
 
+#: counts() key -> (function, attribute) holding it
+_COUNTERS = {
+    "paged_inhibitor": (kpaged.paged_flash_inhibitor_fwd, "launches"),
+    "paged_attention": (kpaged.paged_flash_attention_fwd, "launches"),
+    "paged_inhibitor_plain": (kpaged.paged_flash_inhibitor_plain, "calls"),
+    "paged_attention_plain": (kpaged.paged_flash_attention_plain, "calls"),
+    "flash_inhibitor": (kinhibitor.flash_inhibitor_fwd, "launches"),
+    "flash_attention": (kflash.flash_attention_fwd, "launches"),
+    "flash_inhibitor_plain": (kinhibitor.flash_inhibitor_plain, "calls"),
+    "flash_attention_plain": (kflash.flash_attention_plain, "calls"),
+    "wkv6": (kwkv6.wkv6_chunked, "launches"),
+    "wkv6_plain": (kwkv6.wkv6_chunked_plain, "calls"),
+}
+
+
 def reset_counts() -> None:
     """Zero every kernel's launch count and every plain version's call
     count."""
-    kpaged.reset_counts()
-    kinhibitor.flash_inhibitor_fwd.launches = 0
-    kflash.flash_attention_fwd.launches = 0
-    kinhibitor.flash_inhibitor_plain.calls = 0
-    kflash.flash_attention_plain.calls = 0
-    kwkv6.wkv6_chunked.launches = 0
-    kwkv6.wkv6_chunked_plain.calls = 0
+    for fn, attr in _COUNTERS.values():
+        setattr(fn, attr, 0)
 
 
 def counts() -> dict:
-    return {
-        **kpaged.counts(),
-        "flash_inhibitor": kinhibitor.flash_inhibitor_fwd.launches,
-        "flash_attention": kflash.flash_attention_fwd.launches,
-        "flash_inhibitor_plain": kinhibitor.flash_inhibitor_plain.calls,
-        "flash_attention_plain": kflash.flash_attention_plain.calls,
-        "wkv6": kwkv6.wkv6_chunked.launches,
-        "wkv6_plain": kwkv6.wkv6_chunked_plain.calls,
-    }
+    return {name: getattr(fn, attr) for name, (fn, attr) in
+            _COUNTERS.items()}
+
+
+def add_counts(delta: Dict[str, int]) -> None:
+    """Add ``delta`` (a :func:`counts`-keyed dict) to the counts: a
+    CUDA-graph replay adds the launches its capture recorded."""
+    for name, n in delta.items():
+        fn, attr = _COUNTERS[name]
+        setattr(fn, attr, getattr(fn, attr) + n)

@@ -11,6 +11,14 @@ throughput, the paged-cache accounting and the prefix-cache counters.
 ``--shared-prefix N`` gives every prompt a common N-token prefix;
 ``--tick-budget N`` interleaves chunked prefill with decode ticks.
 ``--metrics-json PATH`` writes the engine's counters and histograms.
+
+Observability: ``--trace-out trace.json`` records the span timeline
+(request lifecycles, tick phases, kernel/plan provenance) as Chrome
+trace-event JSON — load it at ui.perfetto.dev, or validate and summarize
+it with ``python -m repro_torch.serve.telemetry trace.json``.
+``--log-json`` prints one JSON line of tick counters per engine tick and
+arms the flight recorder, whose dump path is printed when the engine
+aborts (no progress, the compile-budget check).
 """
 
 from __future__ import annotations
@@ -18,6 +26,7 @@ from __future__ import annotations
 import argparse
 import json
 import logging
+import sys
 import time
 
 import numpy as np
@@ -60,9 +69,16 @@ def main(argv=None) -> int:
                     help="temperature sampling instead of greedy decode")
     ap.add_argument("--temperature", type=float, default=1.0)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--trace-out", default=None,
+                    help="write a Chrome trace-event JSON timeline here "
+                         "(validate with python -m "
+                         "repro_torch.serve.telemetry PATH)")
     ap.add_argument("--metrics-json", default=None,
                     help="write the engine metrics registry (counters + "
                          "bounded histograms) plus stats() here")
+    ap.add_argument("--log-json", action="store_true",
+                    help="one JSON line of tick counters per engine tick on "
+                         "stdout; also arms the crash flight recorder")
     args = ap.parse_args(argv)
 
     logging.basicConfig(level=logging.INFO)
@@ -72,6 +88,16 @@ def main(argv=None) -> int:
     from repro_torch.device import resolve_device
     from repro_torch.models.registry import get_model
     from repro_torch.serve.engine import Engine, EngineConfig, Request
+    from repro_torch.serve.telemetry import TelemetryConfig, write_trace
+
+    # telemetry is opt-in: the full span trace when a trace sink is given,
+    # the flight-recorder ring alone under --log-json, else none (the
+    # engine's hooks are is-None guarded: off means no events at all)
+    telemetry = None
+    if args.trace_out:
+        telemetry = TelemetryConfig(trace=True)
+    elif args.log_json:
+        telemetry = TelemetryConfig(trace=False)
 
     device = resolve_device(args.device)
     name = args.arch if not args.attention else f"{args.arch}@{args.attention}"
@@ -91,7 +117,8 @@ def main(argv=None) -> int:
                               prefix_cache=args.prefix_cache,
                               scheduler=args.scheduler,
                               greedy=not args.sample,
-                              temperature=args.temperature),
+                              temperature=args.temperature,
+                              telemetry=telemetry),
                  seed=args.seed, device=device)
 
     rng = np.random.default_rng(args.seed)
@@ -104,14 +131,40 @@ def main(argv=None) -> int:
                             (plen - shared_len,)).astype(np.int32)
         eng.submit(Request(i, np.concatenate([shared, tail]),
                            max_new_tokens=args.new_tokens))
-    done = eng.run_to_completion()
+    on_tick = None
+    if args.log_json:
+        def on_tick(e, finished):
+            # one line per tick, stable keys: counter reads only
+            print(json.dumps({
+                "tick": e._tick, "active": len(e.active),
+                "admitting": len(e.admitting),
+                "queued": len(e.scheduler), "finished": len(finished),
+                "finished_total": e.counters["finished_requests"],
+                "generated_tokens": e.counters["generated_tokens"],
+                "prefill_tokens": e.counters["prefill_tokens"],
+                "table_uploads": e.counters["table_uploads"],
+                "paused_prefills": e.counters["paused_prefills"],
+            }, sort_keys=True), flush=True)
+    try:
+        done = eng.run_to_completion(on_tick=on_tick)
+    except RuntimeError as err:
+        # _dump_on_error wrote the flight recorder and put its path in
+        # the message; restate it for log scrapers
+        log.error("engine aborted: %s", err)
+        if "[flight recorder:" in str(err):
+            path = str(err).rsplit("[flight recorder: ", 1)[1].rstrip("]")
+            print(f"FLIGHT RECORDER: {path}", file=sys.stderr)
+        return 1
     dt = time.perf_counter() - t0
     total_tokens = sum(len(r.output) for r in done)
     log.info("served %d requests, %d tokens in %.2fs (%.1f tok/s) on %s",
              len(done), total_tokens, dt, total_tokens / dt, device)
-    log.info("step shapes: prefill %d (buckets: %s), decode %d",
-             eng.prefill_compiles, sorted(eng._prefill_buckets),
-             eng.decode_compiles)
+    budget = eng.retrace_budget()
+    log.info("static steps: prefill %d/%d proven (buckets: %s), decode "
+             "%d/%d; graphs %s", eng.prefill_compiles,
+             budget["prefill_proven"], sorted(eng._prefill_steps),
+             eng.decode_compiles, budget["decode_proven"],
+             eng.graph_stats())
     if eng.paged:
         log.info("page pool: high-water %d / %d pages (page_size=%d)",
                  eng.alloc.high_water_pages, eng.alloc.num_pages - 1,
@@ -130,6 +183,11 @@ def main(argv=None) -> int:
              stats["queued_ticks_p99"], stats["paused_prefills"])
     for r in done[:3]:
         log.info("req %d -> %s...", r.request_id, r.output[:8])
+    if args.trace_out:
+        write_trace(eng.tel, args.trace_out)
+        log.info("trace: wrote %s (%d events); validate with `python -m "
+                 "repro_torch.serve.telemetry %s`", args.trace_out,
+                 len(eng.tel.events), args.trace_out)
     if args.metrics_json:
         with open(args.metrics_json, "w") as f:
             json.dump({"stats": stats, "metrics": eng.metrics.snapshot()},

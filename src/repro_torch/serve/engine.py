@@ -1,6 +1,6 @@
 """Batched serving engine with continuous batching.
 
-Port of :mod:`repro.serve.engine`, run eagerly in PyTorch:
+Port of :mod:`repro.serve.engine`:
 
   * A fixed pool of ``max_batch`` slots backs one layer-stacked KV cache
     with per-slot cursors.  The cache is **paged** by default: KV rows
@@ -22,14 +22,36 @@ Port of :mod:`repro.serve.engine`, run eagerly in PyTorch:
   * Finished requests feed a shared-prefix radix index
     (``serve.prefix.PrefixIndex``); admission mounts the longest cached
     page-aligned prefix and pages are copy-on-write (an in-place page
-    copy on the device).
+    copy on the device, outside any graph).
   * Host block tables are authoritative; the device mirror is refreshed
     in one batched upload per tick when dirty.
 
-Compared with the reference: there is no jit, so ``prefill_compiles`` /
-``decode_compiles`` report the distinct step shapes seen; the proven
-retrace budget, warmup and the span tracer are later work
-(``Engine.tel`` is always None).
+**Static steps (the reference's jit per bucket).**  Each decode table
+width ``hw`` (one step for contiguous slots) and each prefill chunk
+width ``cb`` gets one :class:`_StaticStep`: static input buffers (the
+decode token batch; a prefill chunk's tokens, table row and cursor),
+a body that runs ``api.step`` on the engine's state and writes its
+outputs in place (the new cursors into the state's length tensor, the
+logits it needs into a static output), and on ``cuda`` a
+``torch.cuda.CUDAGraph`` captured from the body after its first, eager
+run — the real tick, during which the kernel registry times the paged
+kernels' launch candidates (timing synchronizes, so it never runs inside
+a capture).  Later ticks at the bucket replay the graph; all graphs
+share one memory pool.  On the CPU the same step runs its body each
+time, so capture is the only difference between the card and the CPU.
+The state's tensors are the engine's for its life: every edit
+(cursors, tables, page copies, KV writes) lands in place.  Sampling
+stays outside the graph (argmax or multinomial on the static logits),
+and a failed capture or replay raises: there is no eager fallback.
+
+``prefill_compiles`` / ``decode_compiles`` count the static steps built;
+``EngineConfig.warmup`` ("decode" / "serve") builds the enumerated
+buckets at construction (with the tables zeroed, so warm-up writes land
+on the trash page, and the cursors restored), and the drain checks the
+counts against the proven retrace budget
+(``repro_torch.analysis.serve_static``).  ``EngineConfig.telemetry``
+turns on the span tracer and flight recorder (``serve.telemetry``); off,
+``Engine.tel`` is None and every hook is one ``is not None`` test.
 """
 
 from __future__ import annotations
@@ -44,12 +66,14 @@ import torch
 
 from repro_torch.core.attention import KVCache, PagedKVCache
 from repro_torch.device import resolve_device
+from repro_torch.kernels import ops as kops
 from repro_torch.models.registry import ModelApi
 from repro_torch.models.transformer import LayerState
 from repro_torch.serve.kvcache import PagedAllocator, SlotAllocator
 from repro_torch.serve.prefix import PrefixIndex
 from repro_torch.serve.scheduler import make_scheduler
-from repro_torch.serve.telemetry import MetricsRegistry
+from repro_torch.serve.telemetry import (MetricsRegistry, dump_flight,
+                                         make_tracer)
 
 log = logging.getLogger("repro_torch.serve")
 
@@ -108,6 +132,14 @@ class EngineConfig:
                                    # one tick may execute; None: whole-
                                    # prompt admission
     scheduler: Any = "fifo"        # admission policy name or Scheduler
+    telemetry: Any = None          # None/False: no tracer; True/"on":
+                                   # span trace + flight ring; "flight":
+                                   # ring only; or a TelemetryConfig /
+                                   # Tracer (serve.telemetry.make_tracer)
+    warmup: str = "none"           # "decode": build (on cuda: capture)
+                                   # every proven decode bucket at
+                                   # construction; "serve": the prefill
+                                   # chunk buckets too
 
 
 def _next_pow2(n: int) -> int:
@@ -149,11 +181,56 @@ def decode_table_width(longest: int, *, page_size: int,
     return min(pages_per_slot, _next_pow2(max(need, 1)))
 
 
+class _StaticStep:
+    """One static step of a bucket (``kind`` "decode" or "prefill",
+    ``width`` its table width, "contiguous", or its chunk width).
+
+    ``body`` reads the static input buffers set by the engine (``tokens``;
+    for a prefill chunk also ``cursor`` and ``table`` or ``slot``), runs
+    ``api.step`` and writes in place: the state's KV rows and cursors, and
+    the logits the engine reads into ``out``.  The first call runs the
+    body eagerly, then hands the step to ``capture`` (the engine's, on
+    ``cuda``), which records ``graph`` and ``captured`` (the kernel
+    launches the capture recorded); every later call replays the graph and
+    adds ``captured`` to the kernel counts.  Without ``capture`` (the CPU)
+    every call runs the body."""
+
+    def __init__(self, kind: str, width, body: Callable[[], None],
+                 capture: Optional[Callable[["_StaticStep"], None]]):
+        self.kind = kind
+        self.width = width
+        self.body = body
+        self.capture = capture
+        self.tokens: Optional[torch.Tensor] = None
+        self.cursor: Optional[torch.Tensor] = None
+        self.table: Optional[torch.Tensor] = None
+        self.slot: Optional[torch.Tensor] = None
+        self.out: Optional[torch.Tensor] = None
+        self.graph = None
+        self.captured: Dict[str, int] = {}
+        self.runs = 0              # eager runs of the body
+        self.replays = 0
+
+    def __call__(self) -> None:
+        if self.graph is not None:
+            self.graph.replay()
+            self.replays += 1
+            kops.add_counts(self.captured)
+            return
+        self.body()
+        self.runs += 1
+        if self.capture is not None:
+            self.capture(self)
+
+
 class Engine:
     def __init__(self, api: ModelApi, params, cfg: EngineConfig, *,
                  seed: int = 0, device=None):
         if cfg.allocator not in ("paged", "contiguous"):
             raise ValueError(f"unknown allocator {cfg.allocator!r}")
+        if cfg.warmup not in ("none", "decode", "serve"):
+            raise ValueError(f"unknown warmup policy {cfg.warmup!r} "
+                             f"(expected 'none', 'decode' or 'serve')")
         want = resolve_device(device)
         self.device = params["embed"]["table"].device
         if self.device.type != want.type or (
@@ -202,7 +279,7 @@ class Engine:
         self.prefix: Optional[PrefixIndex] = None
         if self.paged and cfg.prefix_cache:
             self.prefix = PrefixIndex(self.alloc)
-            self.alloc.attach_reclaimer(self.prefix.evict)
+            self.alloc.attach_reclaimer(self._reclaim_pages)
         self.scheduler = make_scheduler(cfg.scheduler)
         self.active: Dict[int, Request] = {}     # slot -> request
         self.admitting: Dict[int, _PartialPrefill] = {}
@@ -225,36 +302,114 @@ class Engine:
         self._progressed = False
         self._lat = {k: self.metrics.histogram(k)
                      for k in ("ttft_ms", "itl_ms", "queued_ticks")}
-        self.tel = None                  # span tracer: not ported yet
+        # span tracer + flight recorder, or None: every hook below is one
+        # attribute load and an is-None test, and the emit path makes no
+        # host<->device transfer (analysis.serve_static
+        # .audit_telemetry_file)
+        self.tel = make_tracer(cfg.telemetry)
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         self.decode_plan = self._plan_decode()
         log.info("engine decode %s [max_batch=%d max_len=%d alloc=%s "
                  "device=%s]", self.decode_plan.trace_line(), cfg.max_batch,
                  cfg.max_len, "paged" if self.paged else "contiguous",
                  self.device)
-        self._prefill_buckets: set = set()       # chunk widths run
-        self._decode_shapes: set = set()         # decode table widths run
+        if self.tel is not None:
+            self.tel.set_meta("engine", {
+                "family": api.cfg.family, "max_batch": cfg.max_batch,
+                "max_len": cfg.max_len,
+                "allocator": "paged" if self.paged else "contiguous",
+                "page_size": cfg.page_size,
+                "prefill_chunk": self.cfg.prefill_chunk,
+                "tick_budget": cfg.tick_budget,
+                "prefix_cache": self.prefix is not None,
+                "device": str(self.device)})
+            self.tel.set_meta("decode_plan", {
+                "mechanism": self.decode_plan.mechanism,
+                "backend": self.decode_plan.backend,
+                "reason": self.decode_plan.reason})
+        # the static steps, one per bucket: their count is the live
+        # compile count, checked against the proven retrace budget at
+        # drain (measured > proven = soundness bug)
+        self._decode_steps: Dict[Any, _StaticStep] = {}
+        self._prefill_steps: Dict[int, _StaticStep] = {}
+        self._graph_pool = None
         self._tables_dirty = False
+        self._retrace_budget_cache: Optional[Dict[str, Any]] = None
+        if self.cfg.warmup in ("decode", "serve"):
+            self._warmup_decode()
+        if self.cfg.warmup == "serve":
+            self._warmup_prefill()
 
     # ---- planning / introspection ----
     @property
+    def queue(self):
+        """The scheduler, under the reference's older attribute name
+        (len() / truthiness: requests waiting for admission)."""
+        return self.scheduler
+
+    @property
     def prefill_compiles(self) -> int:
-        """Distinct prefill step shapes run (bounded by the bucket count)."""
-        return len(self._prefill_buckets)
+        """Static prefill steps built, one per chunk width (bounded by the
+        bucket count, not by the distinct prompt lengths)."""
+        return len(self._prefill_steps)
 
     @property
     def decode_compiles(self) -> int:
-        """Distinct decode step shapes run (the clamped table-width
-        buckets under paging, 1 for contiguous slots)."""
-        return len(self._decode_shapes)
+        """Static decode steps built: one per clamped table-width bucket
+        under paging (at most log2(pages_per_slot)+1), 1 for contiguous
+        slots."""
+        return len(self._decode_steps)
+
+    def graph_stats(self) -> Dict[str, Any]:
+        """Captures, replays and eager runs of the static steps, and the
+        kernel launches the replays made (replays × captured)."""
+        steps = list(self._decode_steps.values()) + list(
+            self._prefill_steps.values())
+        launches: Dict[str, int] = {}
+        for st in steps:
+            for name, n in st.captured.items():
+                launches[name] = launches.get(name, 0) + n * st.replays
+        return {
+            "captures": sum(st.graph is not None for st in steps),
+            "replays": sum(st.replays for st in steps),
+            "eager_runs": sum(st.runs for st in steps),
+            "decode_replays": sum(st.replays for st in
+                                  self._decode_steps.values()),
+            "replayed_launches": launches,
+        }
+
+    def retrace_budget(self) -> Dict[str, Any]:
+        """Proven compile budget for this engine's config, as derived by
+        the static analyzer (``repro_torch.analysis.serve_static``).  The
+        live ``prefill_compiles`` / ``decode_compiles`` must never exceed
+        the proven counts."""
+        if self._retrace_budget_cache is None:
+            from repro_torch.analysis.serve_static import retrace_budget
+
+            b = retrace_budget(
+                bucketed=True, paged=self.paged,
+                max_len=self.cfg.max_len,
+                prefill_chunk=self.cfg.prefill_chunk,
+                page_size=self.cfg.page_size,
+                pages_per_slot=(self.alloc.pages_per_slot
+                                if self.paged else None),
+                prefix_cache=self.prefix is not None)
+            self._retrace_budget_cache = {
+                "prefill_proven": b["prefill"]["proven"],
+                "decode_proven": b["decode"]["proven"],
+                "chunk_resume_closed": b["chunk_resume"]["closed"],
+                "within_declared": b["within_budget"]}
+        return dict(self._retrace_budget_cache)
 
     def stats(self) -> Dict[str, Any]:
         """Serving counters: prefix-cache effectiveness, copy-on-write
-        activity, cache churn, step-shape counts and latency percentiles
-        (bounded reservoir histograms)."""
+        activity, cache churn, compile and graph accounting and latency
+        percentiles (bounded reservoir histograms)."""
         s: Dict[str, Any] = dict(self.counters)
         s["prefill_compiles"] = self.prefill_compiles
         s["decode_compiles"] = self.decode_compiles
+        s["retrace_budget"] = self.retrace_budget()
+        s["graphs"] = self.graph_stats()
         s["scheduler"] = getattr(self.scheduler, "name",
                                  type(self.scheduler).__name__)
         if self.prefix is not None:
@@ -274,6 +429,14 @@ class Engine:
             s[f"{k}_p99"] = h.percentile(99)
         s["latency_samples"] = {k: h.count for k, h in self._lat.items()}
         return s
+
+    def _reclaim_pages(self, need: int) -> int:
+        """Allocator reclaim hook: LRU-evict cached prefix pages, and put
+        the eviction on the tick timeline when tracing."""
+        freed = self.prefix.evict(need)
+        if self.tel is not None and freed:
+            self.tel.instant("eviction", need_pages=need, freed_pages=freed)
+        return freed
 
     def _paged_eligible(self):
         """(ok, why_not) for backing this model's decode with the pool."""
@@ -319,9 +482,10 @@ class Engine:
                 "hoisted out of the layer loop")
         return plan
 
-    # ---- steps ----
+    # ---- static steps ----
     def _select(self, logits: torch.Tensor) -> torch.Tensor:
-        """(n, V) logits -> (n,) int32 next tokens (greedy or sampled)."""
+        """(n, V) logits -> (n,) int32 next tokens (greedy or sampled),
+        outside any graph."""
         if self.cfg.greedy:
             return logits.argmax(-1).to(torch.int32)
         t = max(self.cfg.temperature, 1e-6)
@@ -329,40 +493,168 @@ class Engine:
         return torch.multinomial(probs, 1, generator=self._gen)[:, 0].to(
             torch.int32)
 
-    def _decode_step(self, tokens, states):
-        logits, new_states = self.api.step(self.params, tokens, states, None)
-        return self._select(logits[:, -1]), new_states
+    def _capture(self, step: _StaticStep) -> None:
+        """Capture ``step``'s body into a CUDA graph in the engine's shared
+        pool.  The body ran eagerly just before (the kernel library is
+        built and the paged kernels tuned), and a capture executes
+        nothing, so no KV row is written and no cursor advances twice.
+        The wrappers' counts bumped while capturing are taken back: the
+        launches happen at each replay."""
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph()
+        before = kops.counts()
+        with torch.cuda.graph(graph, pool=self._graph_pool):
+            step.body()
+        after = kops.counts()
+        step.captured = {k: after[k] - before[k] for k in after
+                         if after[k] != before[k]}
+        kops.add_counts({k: -n for k, n in step.captured.items()})
+        step.graph = graph
 
-    def _prefill_chunk(self, tokens, states, last_idx: int):
-        """One single-row prefill chunk: tokens (1, cb) into a batch-1
-        state view; ``last_idx`` points at the final *real* token (bucket
-        padding sits after it, causally invisible to it)."""
-        logits, new_states = self.api.step(self.params, tokens, states, None)
-        return self._select(logits[0, last_idx][None])[0], new_states
+    def _build_step(self, kind: str, width) -> _StaticStep:
+        """A new static step for a decode table width (or "contiguous")
+        or a prefill chunk width, with its static input buffers."""
+        dev = self.device
+        i32 = dict(dtype=torch.int32, device=dev)
+        capture = self._capture if dev.type == "cuda" else None
+        if kind == "decode":
+            step = _StaticStep(kind, width, lambda: self._decode_body(step),
+                               capture)
+            step.tokens = torch.zeros((self.cfg.max_batch, 1), **i32)
+        else:
+            step = _StaticStep(kind, width,
+                               lambda: self._prefill_body(step), capture)
+            step.tokens = torch.zeros((1, width), **i32)
+            step.cursor = torch.zeros((1,), **i32)
+            if self.paged:
+                step.table = torch.zeros(
+                    (1, self.alloc.pages_per_slot), **i32)
+            else:
+                step.slot = torch.zeros((1,), dtype=torch.int64, device=dev)
+        return step
 
-    # ---- batch-1 state views (single-row prefill) ----
-    def _slot_view(self, slot: int) -> LayerState:
+    def _write_out(self, step: _StaticStep, logits: torch.Tensor) -> None:
+        if step.out is None:       # the first run is eager, never captured
+            step.out = torch.empty_like(logits)
+        step.out.copy_(logits)
+
+    def _decode_body(self, step: _StaticStep) -> None:
+        """Decode tick over the whole batch: the static token batch, the
+        engine's state (its block tables clamped to the bucket's width)."""
         kv = self.states.kv
-        if isinstance(kv, PagedKVCache):
-            # pools are shared across slots — only table/cursor narrow
-            return LayerState(kv=PagedKVCache(
-                kv.k, kv.v, kv.block_tables[slot:slot + 1],
-                kv.length[slot:slot + 1]))
-        # views into the slot's rows: the prefill writes land in place
-        return LayerState(kv=KVCache(kv.k[:, slot:slot + 1],
-                                     kv.v[:, slot:slot + 1],
-                                     kv.length[slot:slot + 1]))
+        states_in = self.states
+        if self.paged:
+            states_in = LayerState(kv=kv._replace(
+                block_tables=kv.block_tables[:, :step.width].contiguous()))
+        with torch.no_grad():
+            logits, new = self.api.step(self.params, step.tokens, states_in,
+                                        None)
+        kv.length.copy_(new.kv.length)
+        self._write_out(step, logits[:, -1])
 
-    def _merge_view(self, slot: int, view: LayerState):
-        """Splice the view's cursor back (its KV writes already landed in
-        the shared storage)."""
-        self.states.kv.length[slot] = view.kv.length[0]
+    def _prefill_body(self, step: _StaticStep) -> None:
+        """One single-row prefill chunk: the static chunk tokens into a
+        batch-1 view at the static cursor.  Paged: the pools are shared
+        and written in place, the view's table is the static row.
+        Contiguous: the slot's rows are gathered by the static slot index
+        and scattered back after the step."""
+        kv = self.states.kv
+        if self.paged:
+            view = PagedKVCache(kv.k, kv.v, step.table, step.cursor)
+        else:
+            view = KVCache(kv.k.index_select(1, step.slot),
+                           kv.v.index_select(1, step.slot), step.cursor)
+        with torch.no_grad():
+            logits, new = self.api.step(self.params, step.tokens,
+                                        LayerState(kv=view), None)
+        if not self.paged:
+            kv.k.index_copy_(1, step.slot, view.k)
+            kv.v.index_copy_(1, step.slot, view.v)
+        step.cursor.copy_(new.kv.length)
+        self._write_out(step, logits)
 
-    @staticmethod
-    def _set_view_cursor(view: LayerState, value: int) -> LayerState:
-        kv = view.kv
-        return LayerState(kv=kv._replace(
-            length=torch.full_like(kv.length, value)))
+    def _decode_step_for(self, width) -> _StaticStep:
+        step = self._decode_steps.get(width)
+        if step is None:
+            step = self._decode_steps[width] = self._build_step("decode",
+                                                                width)
+        return step
+
+    def _prefill_step_for(self, width: int) -> _StaticStep:
+        step = self._prefill_steps.get(width)
+        if step is None:
+            step = self._prefill_steps[width] = self._build_step("prefill",
+                                                                 width)
+        return step
+
+    def _warmup_decode(self) -> None:
+        """Build (on cuda: tune and capture) the decode step of every
+        proven table-width bucket at construction, so no serving tick
+        builds one.  The tables are zeroed (every write lands on the trash
+        page 0) and the cursors restored after each bucket's eager run."""
+        from repro_torch.analysis.serve_static import enumerate_decode_buckets
+
+        kv = self.states.kv
+        lengths = kv.length.clone()
+        widths: List[Any] = ["contiguous"]
+        if self.paged:
+            tables = kv.block_tables.clone()
+            kv.block_tables.zero_()
+            widths = enumerate_decode_buckets(
+                max_len=self.cfg.max_len, page_size=self.cfg.page_size,
+                pages_per_slot=self.alloc.pages_per_slot)
+        for hw in widths:
+            step = self._decode_step_for(hw)
+            if step.runs == 0:
+                step.tokens.zero_()
+                step()
+                kv.length.copy_(lengths)
+        if self.paged:
+            kv.block_tables.copy_(tables)
+
+    def _warmup_prefill(self) -> None:
+        """Build the proven prefill chunk buckets at construction (warmup
+        "serve"), each run once eagerly at slot 0, cursor 0, on a zeroed
+        table row (paged writes land on the trash page) and captured on
+        cuda; the cursors are restored after."""
+        from repro_torch.analysis.serve_static import (
+            enumerate_prefill_buckets)
+
+        lengths = self.states.kv.length.clone()
+        for cb in enumerate_prefill_buckets(
+                max_len=self.cfg.max_len,
+                prefill_chunk=self.cfg.prefill_chunk, bucketed=True,
+                page_size=self.cfg.page_size if self.paged else None,
+                prefix_cache=self.prefix is not None):
+            step = self._prefill_step_for(cb)
+            if step.runs == 0:
+                step.tokens.zero_()
+                step.cursor.zero_()
+                if self.paged:
+                    step.table.zero_()
+                else:
+                    step.slot.zero_()
+                step()
+        self.states.kv.length.copy_(lengths)
+
+    def _kernel_provenance(self) -> Dict[str, Any]:
+        """JSON-safe kernel/plan provenance for trace attribution: the
+        planner's backend and reason, whether the paged kernels run
+        natively here, and which launch configuration each registry shape
+        took and why.  Called only when tracing, at bucket rate."""
+        out: Dict[str, Any] = {
+            "backend": self.decode_plan.backend,
+            "plan_reason": self.decode_plan.reason,
+            "native": self.device.type in kops.NATIVE_PLATFORMS["paged"],
+        }
+        if kops.registry.decisions:
+            out["decisions"] = {
+                str(k): {"choice": str(v.get("choice")),
+                         "source": v.get("source"),
+                         "native": v.get("native")}
+                for k, v in kops.registry.decisions.items()}
+        return out
 
     # ---- prefill scheduling ----
     def _prefill_schedule(self, prompt_len: int,
@@ -388,27 +680,39 @@ class Engine:
     def _exec_chunks(self, slot: int, part: _PartialPrefill, upto: int,
                      now: float) -> Optional[Request]:
         """Run schedule chunks ``[part.next_chunk, upto)`` through the
-        single-row prefill.  Between ticks the slot's cursor is pinned to
+        static prefill steps.  Between ticks the slot's cursor is pinned to
         the resume point ``pos``.  Returns the request when the batch
         completed the schedule and its first token was terminal."""
         req = part.req
         prompt = np.asarray(req.prompt, np.int32)
         L = len(prompt)
-        part.paused = False
-        view = self._slot_view(slot)
-        nxt = None
+        tr = self.tel
+        lo = part.next_chunk
+        if part.paused:
+            part.paused = False
+            if tr is not None:
+                tr.request_resumed(req.request_id, part.pos)
+        # the chunk-batch X span starts AFTER the resumed instant: the X
+        # event is emitted at its start timestamp
+        t0 = tr.now() if tr is not None else 0.0
+        kv = self.states.kv
+        step, last = None, 0
         last_i = len(part.schedule) - 1
         for i in range(part.next_chunk, upto):
             start, cb = part.schedule[i]
             real = min(start + cb, L) - start
             toks = np.zeros((1, cb), np.int32)
             toks[0, :real] = prompt[start:start + real]
-            view = self._set_view_cursor(view, start)
             last = L - 1 - start if i == last_i else real - 1
-            self._prefill_buckets.add(cb)
+            step = self._prefill_step_for(cb)
+            step.tokens.copy_(torch.from_numpy(toks))  # sync: required — prompt-chunk upload (admission rate, not per tick)
+            step.cursor.fill_(start)
+            if self.paged:
+                step.table.copy_(kv.block_tables[slot:slot + 1])
+            else:
+                step.slot.fill_(slot)
             self.counters["prefill_chunks"] += 1
-            nxt, view = self._prefill_chunk(
-                torch.from_numpy(toks).to(self.device), view, last)
+            step()
             # each schedule entry covers exactly min(chunk, L - pos) new
             # tokens (left-shifted windows rewrite, they don't advance)
             part.pos = min(part.pos + self.cfg.prefill_chunk, L)
@@ -416,15 +720,18 @@ class Engine:
         part.next_chunk = upto
         self._progressed = True
         done = upto == len(part.schedule)
-        view = self._set_view_cursor(view, L if done else part.pos)
-        self._merge_view(slot, view)
+        self._set_cursor(slot, L if done else part.pos)
         self.alloc.slots[slot].length = part.pos
+        if tr is not None:
+            tr.request_chunks(req.request_id, t0, lo, upto, part.pos,
+                              len(part.schedule))
         if not done:
             log.debug("request %d prefilled to %d/%d tokens (chunk %d/%d)",
                       req.request_id, part.pos, L, part.next_chunk,
                       len(part.schedule))
             return None
-        part.last_tok = int(nxt)
+        nxt = self._select(step.out[0, last][None])[0]
+        part.last_tok = int(nxt)  # sync: required — prefill's first token feeds host-side finish/stream logic
         return self._complete_admission(slot, now)
 
     # ---- public API ----
@@ -458,6 +765,9 @@ class Engine:
         req._tick_submit = self._tick
         self._arrival += 1
         self.scheduler.add(req)
+        if self.tel is not None:
+            self.tel.request_submit(req.request_id, plen,
+                                    req.max_new_tokens, req.priority)
 
     def _prefix_credit(self, req: Request) -> Tuple[int, List[int]]:
         """(tokens, pages) of the longest usable cached prefix: page-aligned,
@@ -476,17 +786,20 @@ class Engine:
         kv = self.states.kv
         kv.k[:, new] = kv.k[:, old]
         kv.v[:, new] = kv.v[:, old]
+        if self.tel is not None:
+            self.tel.instant("cow_fork", old_page=old, new_page=new)
 
     def _flush_tables(self, where: str = "decode"):
         """Mirror the host block tables into the device state in one
         batched host->device copy, when any row changed."""
         if not (self.paged and self._tables_dirty):
             return
-        self.states.kv.block_tables.copy_(
-            torch.from_numpy(self.alloc.block_tables))
+        self.states.kv.block_tables.copy_(torch.from_numpy(self.alloc.block_tables))  # sync: required — the tick's one batched h2d block-table upload
         self._tables_dirty = False
         self.counters["table_uploads"] += 1
         self.counters[f"table_uploads_{where}"] += 1
+        if self.tel is not None:
+            self.tel.instant("table_upload", where=where)
 
     def _set_cursor(self, slot: int, value: int):
         """Device-side edit of one slot's cursor (no host transfer)."""
@@ -562,7 +875,7 @@ class Engine:
                       now: Optional[float] = None):
         """Record a generated token, stamp its latency sample, and fire
         the streaming callback."""
-        tok = int(tok)
+        tok = int(tok)  # sync: host — tok is a host int from the tick's one readback
         req.output.append(tok)
         self.counters["generated_tokens"] += 1
         if now is not None:
@@ -593,6 +906,8 @@ class Engine:
         part = self.admitting.pop(slot)
         req = part.req
         self.active[slot] = req
+        if self.tel is not None:
+            self.tel.request_decode(req.request_id, part.credit)
         self.alloc.slots[slot].length = len(req.prompt)
         self.counters["prefill_tokens"] += len(req.prompt) - part.credit
         if part.credit:
@@ -632,10 +947,14 @@ class Engine:
                     self._set_cursor(slot2, 0)
                     if self.paged:
                         self._tables_dirty = True
+                    if self.tel is not None:
+                        self.tel.request_restaged(req.request_id)
                     return self._advance_one(slot2, quota, spent, now)
                 self._prefill_stalled = True
                 part.paused = True
                 self.counters["paused_prefills"] += 1
+                if self.tel is not None:
+                    self.tel.request_paused(part.req.request_id, part.pos)
                 log.debug("request %d paused mid-prefill at %d/%d tokens "
                           "(page pool dry)", part.req.request_id, part.pos,
                           len(part.req.prompt))
@@ -660,6 +979,9 @@ class Engine:
             spent += cost
             if fin is not None:
                 finished.append(fin)
+        tr = self.tel
+        if tr is not None:
+            tr.begin("scheduler", queued=len(self.scheduler))
         while len(self.scheduler):
             req = self.scheduler.next(self)
             if req is None:
@@ -697,6 +1019,9 @@ class Engine:
             req.queued_ticks = max(0, self._tick - req._tick_submit - 1)
             self._lat["queued_ticks"].record(req.queued_ticks)
             self.admitting[slot] = part
+            if tr is not None:
+                tr.request_admitted(req.request_id, slot, part.credit,
+                                    len(part.schedule))
             self._progressed = True
             # reset the slot's cursor; a credit-mounted partial pins it at
             # the resume point right away, so its decode-tick garbage
@@ -709,6 +1034,8 @@ class Engine:
             spent += cost
             if fin is not None:
                 finished.append(fin)
+        if tr is not None:
+            tr.end("scheduler")
         return finished
 
     def cancel(self, request_id: int) -> bool:
@@ -718,12 +1045,16 @@ class Engine:
             if req.request_id == request_id:
                 self.scheduler.remove(req)
                 req.truncated = True
+                if self.tel is not None:
+                    self.tel.request_cancel(request_id, "queued")
                 return True
         for slot, part in list(self.admitting.items()):
             if part.req.request_id == request_id:
                 del self.admitting[slot]
                 self._unwind_slot(slot)
                 part.req.truncated = True
+                if self.tel is not None:
+                    self.tel.request_cancel(request_id, "prefill")
                 return True
         for slot, req in list(self.active.items()):
             if req.request_id == request_id:
@@ -735,6 +1066,11 @@ class Engine:
     def _finish(self, slot: int) -> Request:
         req = self.active.pop(slot)
         self.counters["finished_requests"] += 1
+        if self.tel is not None:
+            self.tel.request_finish(
+                req.request_id,
+                "truncated" if req.truncated else "finish",
+                len(req.output))
         if self.prefix is not None:
             # cache the finished sequence: every written KV row is valid
             rows = self.alloc.slots[slot].length
@@ -756,6 +1092,11 @@ class Engine:
         self._tick += 1
         self._progressed = False
         now = time.perf_counter()
+        tr = self.tel
+        if tr is not None:
+            tr.begin("tick", n=self._tick, active=len(self.active),
+                     admitting=len(self.admitting),
+                     queued=len(self.scheduler))
         finished: List[Request] = []
         for slot in list(self.active):
             req = self.active[slot]
@@ -764,33 +1105,36 @@ class Engine:
                         slot, self.alloc.slots[slot].length + 1)):
                 req.truncated = True
                 finished.append(self._finish(slot))
+        if tr is not None:
+            tr.begin("prefill_pass")
         quota = self.scheduler.prefill_quota(self, len(self.active))
         finished.extend(self._run_prefills(quota, now))
+        if tr is not None:
+            tr.end("prefill_pass")
         if not self.active:
+            if tr is not None:
+                tr.end("tick")
             return finished
         last = np.zeros((self.cfg.max_batch, 1), np.int32)
         for slot, req in self.active.items():
             last[slot, 0] = req.output[-1]
-        # the tick's one batched table upload, then clamp the decode
-        # tick's table width to the bucketed high-water page count (the
-        # kernel / gather then walks only pages a row can hold)
+        if tr is not None:
+            tr.begin("decode_step", batch=len(self.active))
+        # the tick's one batched table upload, then the decode step of the
+        # bucketed high-water table width (the kernel / gather then walks
+        # only pages a row can hold): built, run eagerly and captured at
+        # the bucket's first tick, replayed after
         self._flush_tables("decode")
-        last_dev = torch.from_numpy(last).to(self.device)
-        states_in, full_tables = self.states, None
-        if self.paged:
-            hw = self._decode_table_width()
-            kv = self.states.kv
-            full_tables = kv.block_tables
-            states_in = LayerState(kv=kv._replace(
-                block_tables=full_tables[:, :hw].contiguous()))
-            self._decode_shapes.add(hw)
-        else:
-            self._decode_shapes.add("contiguous")
-        nxt, new_states = self._decode_step(last_dev, states_in)
-        if full_tables is not None:
-            new_states = LayerState(kv=new_states.kv._replace(
-                block_tables=full_tables))
-        self.states = new_states
+        width = self._decode_table_width() if self.paged else "contiguous"
+        first = width not in self._decode_steps
+        step = self._decode_step_for(width)
+        step.tokens.copy_(torch.from_numpy(last))  # sync: required — the tick's last-token batch upload
+        step()
+        if first and self.paged and tr is not None:
+            # first tick at this table width: kernel/plan provenance (the
+            # launch configuration the registry just timed) on the trace
+            tr.instant("decode_bucket", cat="plan", table_width=width,
+                       **self._kernel_provenance())
         self.counters["decode_ticks"] += 1
         if self.admitting:
             # mid-prefill rows rode this tick as inactive rows: re-pin
@@ -798,7 +1142,9 @@ class Engine:
             for slot, part in self.admitting.items():
                 self._set_cursor(slot, part.pos)
         self._progressed = True
-        nxt = nxt.cpu().numpy()     # the tick's one device->host readback
+        nxt = self._select(step.out).tolist()  # sync: required — the tick's one d2h readback (next tokens drive host finish logic)
+        if tr is not None:
+            tr.end("decode_step")
         for slot in list(self.active):
             req = self.active[slot]
             self._append_token(req, nxt[slot], now)
@@ -807,6 +1153,8 @@ class Engine:
                     or (req.eos_id is not None
                         and req.output[-1] == req.eos_id)):
                 finished.append(self._finish(slot))
+        if tr is not None:
+            tr.end("tick")
         return finished
 
     def _decode_table_width(self) -> int:
@@ -822,7 +1170,10 @@ class Engine:
                           on_tick=None) -> List[Request]:
         """Drive ticks until the engine drains; raises when a tick can make
         no progress (no active slot, nothing finished or advanced, and an
-        admission backed off or a prefill stalled)."""
+        admission backed off or a prefill stalled).  ``on_tick(engine,
+        finished)`` runs after every tick (the launcher's ``--log-json``
+        hook).  At drain the compile counts are checked against the
+        proven budget."""
         done: List[Request] = []
         for _ in range(max_ticks):
             out = self.step()
@@ -839,12 +1190,38 @@ class Engine:
                 head_desc = (f"id={head.request_id}, "
                              f"prompt_len={len(head.prompt)}"
                              if head is not None else "deferred")
-                raise RuntimeError(
+                raise RuntimeError(self._dump_on_error(
                     f"engine cannot make progress: {len(self.scheduler)} "
                     f"request(s) queued (head: {head_desc}), "
                     f"{len(self.admitting)} mid-prefill, no active "
                     f"slots, and admission backed off or stalled"
                     + (f" [pages_in_use={self.alloc.pages_in_use}/"
                        f"{self.alloc.num_pages - 1}]" if self.paged else
-                       ""))
+                       "")))
+        self._check_compile_soundness()
         return done
+
+    def _dump_on_error(self, msg: str) -> str:
+        """Flight-recorder hook for engine error paths: dump the last K
+        events and append the dump path to the error message (telemetry
+        off: the message passes through untouched)."""
+        if self.tel is None or self.tel.ring is None:
+            return msg
+        path = dump_flight(self.tel, msg)
+        log.error("flight recorder dumped to %s", path)
+        return f"{msg} [flight recorder: {path}]"
+
+    def _check_compile_soundness(self) -> None:
+        """Measured-vs-proven compile check at drain: more static steps
+        than the proven retrace budget means the static enumeration
+        missed a reachable bucket — raise, with the flight recorder
+        dumped."""
+        b = self.retrace_budget()
+        pm, dm = self.prefill_compiles, self.decode_compiles
+        if pm <= b["prefill_proven"] and dm <= b["decode_proven"]:
+            return
+        raise RuntimeError(self._dump_on_error(
+            f"SOUNDNESS BUG: measured compiles exceed the proven retrace "
+            f"budget (prefill {pm}/{b['prefill_proven']}, decode "
+            f"{dm}/{b['decode_proven']}) — the static enumeration missed "
+            f"a reachable step bucket"))

@@ -360,7 +360,7 @@ def test_registry_records_decisions_and_rejects_other_key_tiles():
                                 choice=kops.KernelChoice(block_q=8))
     sources = {key[0]: d["source"] for key, d in
                kops.registry.decisions.items()}
-    assert sources == {"inhibitor": "default", "flash": "override"}
+    assert sources == {"inhibitor": "default-cpu", "flash": "override"}
     assert all(not d["native"] and d["platform"] == "cpu"
                for d in kops.registry.decisions.values())
     with pytest.raises(ValueError, match="block_k=128"):

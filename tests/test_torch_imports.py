@@ -27,10 +27,11 @@ def test_port_sources_import_no_jax_and_no_reference_package():
 
 
 def test_importing_the_serve_path_loads_no_jax():
-    """The serving path, and the ``blocked`` inhibitor backend its planner
-    may pick on the CPU."""
+    """The serving path, its telemetry and serve analyzer, and the
+    ``blocked`` inhibitor backend its planner may pick on the CPU."""
     code = ("import sys; sys.path.insert(0, 'src'); "
             "import repro_torch.launch.serve, repro_torch.serve.engine, "
+            "repro_torch.serve.telemetry, repro_torch.analysis, "
             "repro_torch.convert, repro_torch.kernels.ops, "
             "repro_torch.core.blocked; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "

@@ -184,7 +184,7 @@ def test_registry_default_override_and_native_platforms(rng):
     r = kops.KernelRegistry()
     key = ("inhibitor", 4, 8, 4, 2, 16)
     assert r.choose("paged", key, "cpu") == kops.CANDIDATES["paged"][0]
-    assert r.decisions[("paged",) + key]["source"] == "default"
+    assert r.decisions[("paged",) + key]["source"] == "default-cpu"
     assert r.decisions[("paged",) + key]["native"] is False
     got = r.choose("paged", key, "cuda", kops.KernelChoice(pages_per_step=2))
     assert got.pages_per_step == 2

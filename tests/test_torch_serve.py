@@ -7,8 +7,13 @@
 * Engine: greedy tokens from the port's engine equal the JAX package's
   sequential greedy decode (as conftest.py::greedy_ref, jitted) for both
   mechanisms, across paged/contiguous slots, whole/chunked (tick_budget)
-  admission and the prefix cache on/off, with shared prompt prefixes so
-  the cache actually mounts pages.  Greedy tokens are compared exactly.
+  admission, the prefix cache on/off and every warm-up policy, with
+  shared prompt prefixes so the cache actually mounts pages.  Greedy
+  tokens are compared exactly; the static steps built never exceed the
+  proven retrace budget (a "serve" warm-up builds exactly the proven
+  ones).  On the CPU each step runs its body eagerly: the graphs' replays
+  are held against the eager step on the card, in
+  tests/test_torch_serve_cuda.py.
 """
 
 import functools
@@ -272,15 +277,23 @@ def _reference(mech):
 @pytest.mark.parametrize("allocator", ["paged", "contiguous"])
 @pytest.mark.parametrize("tick_budget", [None, 8])
 @pytest.mark.parametrize("prefix_cache", [True, False])
+@pytest.mark.parametrize("warmup", ["none", "decode", "serve"])
 def test_engine_greedy_matches_jax_sequential_decode(mech, allocator,
                                                      tick_budget,
-                                                     prefix_cache):
+                                                     prefix_cache, warmup):
     tcfg, tp, ref = _reference(mech)
     eng = Engine(get_model(tcfg), tp,
                  EngineConfig(max_batch=2, max_len=64, allocator=allocator,
                               page_size=8, prefill_chunk=8,
                               tick_budget=tick_budget,
-                              prefix_cache=prefix_cache), device="cpu")
+                              prefix_cache=prefix_cache, warmup=warmup),
+                 device="cpu")
+    # warm-up leaves the state as it found it, and the state's tensors
+    # stay the engine's for its life (every edit lands in place)
+    state = list(eng.states.kv)
+    assert not state[-1].any()
+    if allocator == "paged":
+        assert not eng.states.kv.block_tables.any()
     reqs = [Request(i, p, max_new_tokens=N_NEW)
             for i, p in enumerate(_prompts())]
     for r in reqs:
@@ -288,6 +301,7 @@ def test_engine_greedy_matches_jax_sequential_decode(mech, allocator,
     done = eng.run_to_completion()
     assert len(done) == len(reqs)
     assert [r.output for r in reqs] == ref
+    assert all(a is b for a, b in zip(eng.states.kv, state))
     stats = eng.stats()
     hits = stats["prefix_hit_tokens"]
     assert (hits > 0) == (allocator == "paged" and prefix_cache)
@@ -295,6 +309,23 @@ def test_engine_greedy_matches_jax_sequential_decode(mech, allocator,
         assert stats["prefill_chunks"] > len(reqs)
     if allocator == "paged":
         assert stats["pages_in_use"] == stats["cached_pages"]
+    # compile counts: never above the proven budget; a warm engine built
+    # the whole proven ladder up front; the CPU captures no graph
+    b = stats["retrace_budget"]
+    assert stats["decode_compiles"] <= b["decode_proven"]
+    assert stats["prefill_compiles"] <= b["prefill_proven"]
+    if warmup != "none":
+        assert stats["decode_compiles"] == b["decode_proven"]
+    if warmup == "serve":
+        assert stats["prefill_compiles"] == b["prefill_proven"]
+    g = stats["graphs"]
+    assert g["captures"] == g["replays"] == 0
+    assert g["eager_runs"] == (stats["decode_ticks"]
+                               + stats["prefill_chunks"]
+                               + (stats["decode_compiles"]
+                                  if warmup != "none" else 0)
+                               + (stats["prefill_compiles"]
+                                  if warmup == "serve" else 0))
 
 
 def test_engine_eos_cancel_and_hard_stop():
