@@ -113,6 +113,34 @@ Phases, each printing one JSON line; any failure exits non-zero:
                protocol (each arm's int32 entry point at T 32..256, one
                head, d 16, 20 calls after warm-up), and the largest
                max|a|·max|b|·K ``exact_int_matmul`` checked, against 2^53.
+ 14. analysis — the static FHE circuit analyzer (interval lane, on the
+               host) on paper-tiny at its full config, PTQ'd from phase
+               13's parameters, for inhibitor, inhibitor_unsigned and
+               dotprod at seq 8 and 128, against the fhe_sim forward on
+               the card for three token seeds and all-zero tokens: per-
+               scope counts equal, widths dominated, the cross-checked
+               parameter selection passing, the static msg_bits no
+               smaller; zero cmuls proven (and measured) on both inhibitor
+               arms, cmul sites exactly at L0.attn on dotprod; LUTs
+               verified; a static report lowered by one bit at its worst
+               scope refused as unsound; no kernel launched.  Then the
+               CLI (``python -m repro_torch.analysis``) writes
+               build/ANALYSIS_fhe.json and exits 0.  Printed: the
+               analysis wall per arm and seq, the measured walls.
+ 15. resume — checkpoint and resume through the training loop:
+               smollm-135m at full width and depth, then
+               smollm-135m@inhibitor at depth 2, b 8 x 1024 of the seeded
+               LM stream: two uninterrupted 8-step runs, a run cut at
+               step 6 (async commits every 4 steps) and a rerun resumed
+               from its step-6 commit to 8, whose parameters and
+               optimizer state must equal the uninterrupted run's within
+               rtol 1e-5 / atol 1e-6, as must the two uninterrupted runs
+               (both measures printed); the arm's flash kernel launched
+               steps x layers x 2 times.
+               Then remat "dots" against "full" gradients at depth 2 for
+               both arms (within REMAT_TOL), each one's walls and peak
+               memory.  Printed: save and restore seconds, checkpoint
+               bytes.
 
 Then the ``kernels`` summary line, the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``.  TF32 is off for matmuls and cuDNN.
@@ -121,8 +149,10 @@ Then the ``kernels`` summary line, the ``nvidia-smi`` line and, last,
     python3 chip_smoke.py --only wkv_parity [--src OTHER/src]
     python3 chip_smoke.py --only lanes
     python3 chip_smoke.py --only serve [--src OTHER/src]
+    python3 chip_smoke.py --only analysis
+    python3 chip_smoke.py --only resume
 
-run phases 1, 2 and 3 (or 9, or 13, or 4) alone, against the package under
+run phases 1, 2 and 3 (or 9, or 13, or 4, or 14, or 15) alone, against the package under
 ``--src`` (by default this checkout's): another commit's kernels checked
 and timed by this script's phase.  Against another package, phase 3 records the
 launch grids without holding them to the split design, and phase 4
@@ -1920,6 +1950,343 @@ def phase_lanes(torch, kops):
     return out
 
 
+# ---------------------------------------------------------------------------
+# 14. analysis: the static FHE circuit analyzer against the fhe_sim lane
+# ---------------------------------------------------------------------------
+
+ANALYSIS_SEQS = (8, 128)
+ANALYSIS_TOKEN_SEEDS = (11, 12, 13)        # and all-zero tokens
+COUNTERS = ("pbs", "cmuls", "adds", "lit_muls")
+
+
+def analysis_case(torch, qlm, static, tokens) -> dict:
+    """One measured fhe_sim forward on the card against the static
+    report: counts equal per scope, widths dominated, the cross-checked
+    parameter selection passes, the static message width no smaller."""
+    from repro_torch.fhe import select_params_for_report
+
+    _, wall, lane = lane_forward(torch, qlm, "fhe_sim", tokens)
+    measured = lane.ctx.scope_report()
+    sp = static["per_scope"]
+    r = {"device": lane.device.type, "wall_s": wall,
+         "counts_equal": set(measured) == set(sp) and all(
+             s[c] == sp[k][c] for k, s in measured.items()
+             for c in COUNTERS),
+         "dominated": all(
+             s["max_bits_at_pbs"] <= sp[k]["max_bits_at_pbs"]
+             and s["max_bits_any"] <= sp[k]["max_bits_any"]
+             for k, s in measured.items() if k in sp),
+         "max_bits_at_pbs": lane.ctx.summary()["max_bits_at_pbs"],
+         "cmuls": lane.ctx.summary()["cmuls"]}
+    try:
+        sel = select_params_for_report(measured, static_report=sp)
+        r["measured_msg_bits"] = sel.msg_bits
+        r["cross_check"] = True
+    except ValueError as e:
+        r["cross_check"] = False
+        r["error"] = str(e)
+    r["ok"] = (r["device"] == "cuda" and r["counts_equal"]
+               and r["dominated"] and r["cross_check"]
+               and static["params"] is not None
+               and static["params"]["msg_bits"] >= r["measured_msg_bits"])
+    return r, measured
+
+
+def soundness_control(static, measured) -> bool:
+    """A static report with its worst scope lowered by one bit below the
+    measured width must be refused as unsound."""
+    from repro_torch.fhe import select_params_for_report
+
+    tampered = {k: dict(v) for k, v in static["per_scope"].items()}
+    worst = max(measured, key=lambda k: measured[k]["max_bits_at_pbs"])
+    tampered[worst]["max_bits_at_pbs"] = \
+        measured[worst]["max_bits_at_pbs"] - 1
+    try:
+        select_params_for_report(measured, static_report=tampered)
+    except ValueError as e:
+        return "SOUNDNESS" in str(e)
+    return False
+
+
+def phase_analysis(torch, kops):
+    """14. analysis — the static analyzer's proof on paper-tiny (host),
+    held against the measured fhe_sim forward on the card."""
+    import io
+
+    import numpy as np
+
+    from repro_torch.analysis import analyze_qlm
+    from repro_torch.analysis.__main__ import main as analysis_main
+    from repro_torch.configs import get_config
+    from repro_torch.launch.fhe import init_params
+    from repro_torch.quant.ptq import ptq_lm
+
+    kops.reset_counts()
+    cfg0 = get_config(LANE_ARCH)
+    params = init_params(cfg0, seed=0)
+    out = {"phase": "analysis", "arch": LANE_ARCH, "d_model": cfg0.d_model,
+           "seqs": list(ANALYSIS_SEQS),
+           "token_seeds": list(ANALYSIS_TOKEN_SEEDS) + ["zeros"],
+           "arms": {}}
+    failures = []
+    for mech in LANE_MECHS:
+        qlm = ptq_lm(params, cfg0.with_attention_kind(mech))
+        for s in ANALYSIS_SEQS:
+            t0 = time.perf_counter()
+            static = analyze_qlm(qlm, seq_len=s)
+            static_s = time.perf_counter() - t0
+            inputs = {f"seed {seed}": np.random.default_rng(seed).integers(
+                0, cfg0.vocab_size, (1, s)) for seed in ANALYSIS_TOKEN_SEEDS}
+            inputs["zeros"] = np.zeros((1, s), np.int64)
+            cases = {}
+            for label, toks in inputs.items():
+                cases[label], measured = analysis_case(torch, qlm, static,
+                                                       toks)
+            cmul_scopes = sorted({c["scope"] for c in static["cmul_sites"]})
+            r = {"static_wall_s": static_s,
+                 "static_max_bits_at_pbs":
+                     static["totals"]["max_bits_at_pbs"],
+                 "static_params": static["params"],
+                 "zero_cmul_proven": static["zero_cmul_proven"],
+                 "cmul_scopes": cmul_scopes,
+                 "lut_verified": static["lut_verification"]["verified"],
+                 "lut_saturating": static["lut_verification"][
+                     "n_saturating"],
+                 "soundness_control_refused": soundness_control(static,
+                                                                measured),
+                 "measured": cases}
+            arm_ok = (r["lut_verified"] and r["soundness_control_refused"]
+                      and all(c["ok"] for c in cases.values()))
+            if mech.startswith("inhibitor"):
+                arm_ok &= r["zero_cmul_proven"] and all(
+                    c["cmuls"] == 0 for c in cases.values())
+            else:
+                arm_ok &= cmul_scopes == ["L0.attn"]
+            if not arm_ok:
+                failures.append(f"{mech} seq {s}: {r}")
+            out["arms"][f"{mech}/{s}"] = r
+    # the CLI, as a user runs it: its own seeded init, both default arms
+    path = Path(__file__).resolve().parent / "build" / "ANALYSIS_fhe.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        rc = analysis_main(["--out", str(path)])
+    out["cli"] = {"rc": rc, "wall_s": time.perf_counter() - t0,
+                  "out": str(path.relative_to(path.parents[1])),
+                  "mechanisms": sorted(json.loads(path.read_text())[
+                      "mechanisms"])}
+    out["kernel_launches"] = kops.counts()
+    emit(out)
+    check(not failures, "analysis: " + "; ".join(failures))
+    check(rc == 0, f"analysis: the CLI exited {rc}:\n{log.getvalue()}")
+    check(all(n == 0 for n in out["kernel_launches"].values()),
+          f"analysis: a kernel launched {out['kernel_launches']}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 15. resume: checkpoint, resume and remat "dots" at full width
+# ---------------------------------------------------------------------------
+
+# (arch, depth): the dot-product arm at full depth, the inhibitor arm at 2
+RESUME_ARMS = (("smollm-135m", None), ("smollm-135m@inhibitor", 2))
+RESUME_STEPS, RESUME_CUT, RESUME_EVERY = 8, 6, 4
+# tests/test_train_loop.py::test_checkpoint_resume_exact's tolerance
+RESUME_RTOL, RESUME_ATOL = 1e-5, 1e-6
+# remat "dots" against "full": max over parameters of |g_dots - g_full| /
+# max |g_full| (the same operations on the same inputs; the saved matmul
+# outputs are the ones "full" recomputes)
+REMAT_TOL = 1e-5
+REMAT_REPS = 3
+
+
+def state_diff(ref, got) -> dict:
+    """The largest |got - ref| over the leaves, and whether every element
+    is within RESUME_ATOL + RESUME_RTOL |ref| (assert_allclose's rule)."""
+    max_abs, excess = 0.0, -math.inf
+    for a, b in zip(ref, got):
+        a, b = a.detach().double(), b.detach().double()
+        d = (b - a).abs()
+        max_abs = max(max_abs, d.max().item())
+        excess = max(excess, (d - RESUME_ATOL - RESUME_RTOL * a.abs())
+                     .max().item())
+    return {"max_abs_diff": max_abs, "ok": excess <= 0.0}
+
+
+@contextlib.contextmanager
+def timed_store(store, log: dict):
+    """Record the seconds of every checkpoint write and read."""
+    real = {name: getattr(store, name) for name in ("save", "restore")}
+
+    def wrap(name):
+        def timed(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return real[name](*a, **k)
+            finally:
+                log.setdefault(name + "_s", []).append(
+                    time.perf_counter() - t0)
+        return timed
+
+    for name in real:
+        setattr(store, name, wrap(name))
+    try:
+        yield
+    finally:
+        for name, fn in real.items():
+            setattr(store, name, fn)
+
+
+def resume_arm(torch, kops, arch: str, depth) -> dict:
+    """Uninterrupted runs against a run cut at RESUME_CUT (async commits
+    every RESUME_EVERY steps) and resumed to RESUME_STEPS."""
+    from repro_torch.checkpoint import (CheckpointConfig, committed_steps,
+                                        store)
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import PipelineConfig, lm_batch_at
+    from repro_torch.models.registry import get_model
+    from repro_torch.optim import AdamWConfig, warmup_cosine
+    from repro_torch.train.loop import TrainConfig, train
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config(arch)
+    if depth:
+        cfg = cfg.with_layers(depth)
+    api = get_model(cfg)
+    pipe = PipelineConfig(TRAIN_B, TRAIN_N, cfg.vocab_size, seed=0)
+    opt = AdamWConfig(lr=warmup_cosine(TRAIN_LR, 10, RESUME_STEPS))
+    steps_run = [0]
+
+    def run(total, ck=None):
+        t0 = time.perf_counter()
+        r = train(api, opt, TrainConfig(total_steps=total, seed=0,
+                                        checkpoint=ck),
+                  lambda step: lm_batch_at(pipe, step), device="cuda")
+        torch.cuda.synchronize()
+        steps_run[0] += len(r["history"])
+        return r, time.perf_counter() - t0
+
+    def leaves(r):
+        return tree_leaves((r["params"], r["opt_state"]))
+
+    kernel = train_kernel(cfg)
+    out = {"arch": arch, "kernel": kernel, "layers": cfg.num_layers,
+           "steps": RESUME_STEPS, "cut": RESUME_CUT, "every": RESUME_EVERY,
+           "rtol": RESUME_RTOL, "atol": RESUME_ATOL}
+    kops.reset_counts()
+    a, out["uninterrupted_s"] = run(RESUME_STEPS)
+    ref = [x.detach().clone() for x in leaves(a)]
+    del a
+    b, _ = run(RESUME_STEPS)
+    out["two_uninterrupted"] = state_diff(ref, leaves(b))
+    del b
+    io_log = {}
+    with tempfile.TemporaryDirectory() as root, timed_store(store, io_log):
+        ck = CheckpointConfig(root, every_steps=RESUME_EVERY, keep=2,
+                              async_save=True)
+        c, out["cut_s"] = run(RESUME_CUT, ck)
+        out["committed_after_cut"] = committed_steps(root)
+        del c
+        d, out["resumed_s"] = run(RESUME_STEPS, ck)
+        out["resumed_from"] = d["history"][0]["step"]
+        out["committed_after_resume"] = committed_steps(root)
+        out["resumed_vs_uninterrupted"] = state_diff(ref, leaves(d))
+        last = Path(root) / f"step_{RESUME_STEPS:08d}"
+        out["checkpoint_bytes"] = sum(f.stat().st_size
+                                      for f in last.iterdir())
+        del d
+    out.update(io_log)
+    del ref
+    torch.cuda.empty_cache()
+    counts = kops.counts()
+    out["launches"] = counts
+    out["steps_run"] = steps_run[0]
+    expected = steps_run[0] * cfg.num_layers * 2
+    out["ok"] = (out["two_uninterrupted"]["ok"]
+                 and out["resumed_vs_uninterrupted"]["ok"]
+                 and out["committed_after_cut"] == [RESUME_EVERY,
+                                                    RESUME_CUT]
+                 and out["committed_after_resume"] == [RESUME_CUT,
+                                                       RESUME_STEPS]
+                 and out["resumed_from"] == RESUME_CUT
+                 and counts[kernel] == expected
+                 and all(n == 0 for name, n in counts.items()
+                         if name != kernel))
+    return out
+
+
+def remat_arm(torch, kops, arch: str) -> dict:
+    """Remat "dots" against "full" at depth 2: one batch TRAIN_B x
+    TRAIN_N, the same parameters; gradients, step walls, peak memory."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import PipelineConfig, lm_batch_at
+    from repro_torch.models.registry import get_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train.step import init_train_state, make_grad_fn
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config(arch).with_layers(2)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in lm_batch_at(
+        PipelineConfig(TRAIN_B, TRAIN_N, cfg.vocab_size, seed=0), 0).items()}
+    kernel = train_kernel(cfg)
+    out, grads = {"arch": arch, "layers": 2, "reps": REMAT_REPS}, {}
+    for remat in ("full", "dots"):
+        api = get_model(dataclasses.replace(cfg, remat=remat))
+        params, _ = init_train_state(
+            api, AdamWConfig(), torch.Generator(device="cuda").manual_seed(0),
+            device="cuda")
+        grad_fn = make_grad_fn(api)
+        grad_fn(params, batch)                    # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        kops.reset_counts()
+        walls = []
+        for _ in range(REMAT_REPS):
+            t0 = time.perf_counter()
+            g, _ = grad_fn(params, batch)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        counts = kops.counts()
+        grads[remat] = tree_leaves(g)
+        out[remat] = {"grad_wall_ms": [w * 1e3 for w in walls],
+                      "grad_wall_ms_p50": statistics.median(walls) * 1e3,
+                      "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+                      "launches": counts,
+                      "launches_ok": counts[kernel] == REMAT_REPS * 2 * 2
+                      and all(n == 0 for name, n in counts.items()
+                              if name != kernel)}
+        del params, g
+    rel = max(((a.float() - b.float()).abs().max()
+               / a.float().abs().max().clamp_min(1e-30)).item()
+              for a, b in zip(grads["full"], grads["dots"]))
+    out["dots_vs_full_rel"] = rel
+    out["tol"] = REMAT_TOL
+    out["ok"] = (rel <= REMAT_TOL and out["full"]["launches_ok"]
+                 and out["dots"]["launches_ok"])
+    del grads
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_resume(torch, kops):
+    """15. resume — checkpoint and resume through the training loop at
+    full width, and remat "dots" against "full"."""
+    out = {"phase": "resume", "arms": {}, "remat": {}}
+    for arch, depth in RESUME_ARMS:
+        out["arms"][arch] = resume_arm(torch, kops, arch, depth)
+    for arch, _ in RESUME_ARMS:
+        out["remat"][arch] = remat_arm(torch, kops, arch)
+    emit(out)
+    for name, r in list(out["arms"].items()) + list(out["remat"].items()):
+        check(r["ok"], f"resume: {name}: {r}")
+    return {r["kernel"]: r["launches"][r["kernel"]]
+            for r in out["arms"].values()}
+
+
 def main() -> int:
     import argparse
 
@@ -1931,7 +2298,7 @@ def main() -> int:
                     "checkout's src/), e.g. another commit's, to time its "
                     "kernels with this script's phases")
     ap.add_argument("--only", choices=["parity", "wkv_parity", "lanes",
-                                       "serve"],
+                                       "serve", "analysis", "resume"],
                     default=None,
                     help="run the device and build phases and this one, "
                     "then end")
@@ -1975,6 +2342,10 @@ def main() -> int:
                 args.src.resolve() == SRC.resolve()))
         elif args.only == "lanes":
             phase_lanes(torch, kops)
+        elif args.only == "analysis":
+            phase_analysis(torch, kops)
+        elif args.only == "resume":
+            phase_resume(torch, kops)
         elif args.only == "serve":
             for arch in ("smollm-135m@inhibitor", "smollm-135m"):
                 phase_serve(torch, kops, arch)
@@ -2018,6 +2389,12 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_lanes(torch, kops)
     t_phase["lanes"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    phase_analysis(torch, kops)
+    t_phase["analysis"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    resume_launches = phase_resume(torch, kops)
+    t_phase["resume"] = time.perf_counter() - t0
 
     sources = {"paged": "src/repro_torch/csrc/paged_decode.cu",
                "flash": "src/repro_torch/csrc/flash_prefill.cu",
@@ -2044,6 +2421,10 @@ def main() -> int:
             "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"]})
+    # the flash kernels' other main path: the resume phase's training
+    for k in kernels:
+        if k["name"] in resume_launches:
+            k["launches_resume"] = resume_launches[k["name"]]
     # the WKV kernel's other main path: the full-depth eval forward
     kernels[-1]["launches_full_depth_forward"] = forward_launches
     kernels[-1].update(forward_ms=timings["wkv6"]["forward_ms"],

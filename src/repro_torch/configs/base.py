@@ -55,8 +55,8 @@ class ModelConfig:
     max_seq_len: int = 131072
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
-    # remat policy per block in training: "none" | "full" ("dots" and
-    # "offload" are not ported yet)
+    # remat policy per block in training: "none" | "full" | "dots" |
+    # "offload" ("offload" checkpoints nothing, as in the reference)
     remat: str = "full"
     source: str = ""
 

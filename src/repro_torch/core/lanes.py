@@ -539,13 +539,20 @@ _LANES = {"float": FloatLane, "int": IntLane, "fhe_sim": FheSimLane}
 
 def get_lane(name: str, ctx=None, device=None) -> Lane:
     """Lane factory: ``float`` | ``int`` | ``fhe_sim`` on ``device``
-    (default: the card).  ``fhe_sim`` accepts a shared
+    (default: the card), or the static analyzer's ``interval`` lane,
+    whose bounds are exact int64 on the host (a ``device`` other than the
+    CPU is refused).  ``fhe_sim`` and ``interval`` accept a shared
     :class:`~repro_torch.fhe.tfhe_sim.FheContext` for cross-layer cost
-    accumulation, and then runs on that context's device."""
+    accumulation; ``fhe_sim`` then runs on that context's device."""
     if name == "interval":
-        raise NotImplementedError(
-            "lane 'interval' is not ported to PyTorch yet (ROADMAP queue 1 "
-            "item 4: the analyzers)")
+        if device is not None and torch.device(device).type != "cpu":
+            raise ValueError(
+                f"the interval lane runs on the host, not on {device!r}: "
+                "its bounds are exact int64 up to 2^62, which no card "
+                "multiplies exactly")
+        # lazy: repro_torch.analysis imports this module
+        from repro_torch.analysis.interval_lane import IntervalLane
+        return IntervalLane(ctx)
     try:
         cls = _LANES[name]
     except KeyError:

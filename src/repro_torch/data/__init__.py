@@ -1,3 +1,4 @@
 """Synthetic data and the deterministic LM batch pipeline (numpy)."""
 
-from repro_torch.data.pipeline import PipelineConfig, lm_batch_at  # noqa: F401
+from repro_torch.data.pipeline import (  # noqa: F401
+    PipelineConfig, Prefetcher, lm_batch_at)

@@ -5,8 +5,10 @@ initialised model.
 
 Builds the model from a seeded ``torch.Generator`` on ``--device``
 (default ``cuda``; without a card it fails unless ``--device cpu`` is
-given), drives the engine with synthetic ragged prompt traffic and reports
-throughput, the paged-cache accounting and the prefix-cache counters.
+given), or loads its parameters from the newest commit under
+``--ckpt-dir`` (a ``launch.train --ckpt-dir`` run's), drives the engine
+with synthetic ragged prompt traffic and reports throughput, the
+paged-cache accounting and the prefix-cache counters.
 ``--allocator contiguous`` selects the dense per-slot baseline;
 ``--shared-prefix N`` gives every prompt a common N-token prefix;
 ``--tick-budget N`` interleaves chunked prefill with decode ticks.
@@ -39,6 +41,8 @@ def main(argv=None) -> int:
     ap.add_argument("--attention", default=None)
     ap.add_argument("--reduced", action="store_true", default=True)
     ap.add_argument("--full", dest="reduced", action="store_false")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="serve the parameters of the newest commit here")
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (default: cuda)")
     ap.add_argument("--requests", type=int, default=16)
@@ -106,6 +110,12 @@ def main(argv=None) -> int:
         cfg = cfg.reduced()
     api = get_model(cfg)
     params = api.init(torch.Generator().manual_seed(args.seed), device=device)
+    if args.ckpt_dir:
+        from repro_torch.checkpoint import restore
+
+        (params, _), step = restore(args.ckpt_dir, (params, None),
+                                    device=device)
+        log.info("params: step %d of %s", step, args.ckpt_dir)
     eng = Engine(api, params,
                  EngineConfig(max_batch=args.max_batch,
                               max_len=args.max_len,

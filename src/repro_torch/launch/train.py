@@ -14,11 +14,13 @@ names a dense config (``smollm-135m``, ``paper-tiny``) or the RWKV-6
 ``rwkv6-7b``; at full size the latter's 7.6 B float32 parameters with
 AdamW take 122 GB, beyond one 80 GB card, and its first 4 layers 23 GB.
 Flags and defaults are the reference launcher's; one
-device only: ``--data-parallel`` / ``--model-parallel`` other than 1 and
-``--ckpt-dir`` are not ported yet and raise.
+device only: ``--data-parallel`` / ``--model-parallel`` other than 1 are
+not ported yet and raise.  ``--ckpt-dir DIR`` commits a checkpoint every
+``--ckpt-every`` steps and at the end, and a rerun resumes from the newest
+commit under DIR (fault tolerance: auto-resume + restart supervision).
 
-Prints one JSON line: the losses, step wall p50, tokens per second and,
-on a card, the peak device memory.
+Prints one JSON line: the step it started from, the losses, step wall
+p50, tokens per second and, on a card, the peak device memory.
 """
 
 from __future__ import annotations
@@ -48,6 +50,7 @@ def run(argv=None) -> dict:
     ap.add_argument("--data-parallel", type=int, default=1)
     ap.add_argument("--model-parallel", type=int, default=1)
     ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--max-restarts", type=int, default=2)
@@ -59,15 +62,12 @@ def run(argv=None) -> dict:
         raise NotImplementedError(
             "--data-parallel / --model-parallel other than 1 are not ported "
             "to PyTorch yet (ROADMAP queue 1 item 7: distributed)")
-    if args.ckpt_dir is not None:
-        raise NotImplementedError(
-            "--ckpt-dir is not ported to PyTorch yet (ROADMAP queue 1 item "
-            "6: checkpoint/store.py + manager.py and resume)")
 
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(message)s")
     log = logging.getLogger("repro_torch.launch.train")
 
+    from repro_torch.checkpoint import CheckpointConfig
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import PipelineConfig, lm_batch_at
     from repro_torch.device import resolve_device
@@ -88,8 +88,12 @@ def run(argv=None) -> dict:
     pipe = PipelineConfig(global_batch=args.batch, seq_len=args.seq,
                           vocab_size=cfg.vocab_size, seed=args.seed)
     opt_cfg = AdamWConfig(lr=warmup_cosine(args.lr, 10, args.steps))
-    train_cfg = TrainConfig(total_steps=args.steps, seed=args.seed,
-                            microbatches=args.microbatches)
+    train_cfg = TrainConfig(
+        total_steps=args.steps, seed=args.seed,
+        microbatches=args.microbatches,
+        checkpoint=(CheckpointConfig(args.ckpt_dir,
+                                     every_steps=args.ckpt_every)
+                    if args.ckpt_dir else None))
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
 
@@ -112,6 +116,7 @@ def run(argv=None) -> dict:
         "device": str(device),
         "steps": args.steps, "batch": args.batch, "seq": args.seq,
         "microbatches": args.microbatches, "restarts": restarts,
+        "start_step": hist[0]["step"] if hist else args.steps,
         "losses": [h["loss"] for h in hist],
         "step_wall_s": [h["seconds"] for h in hist],
         "step_wall_ms_p50": p50 * 1e3,

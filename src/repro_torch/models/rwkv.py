@@ -15,9 +15,9 @@ attention planner's): the chunked kernel (``"pallas"``, the reference's
 name for its kernel backend) for training and prefill from a zero state,
 the exact scan (``"naive"``) for a carried decode state or when the
 caller turns the kernel off.  In training (grad mode, no state)
-``cfg.remat == "full"`` wraps each block in ``torch.utils.checkpoint``,
-as the dense family does: the block's forward, the WKV kernel included,
-runs again in the backward.
+``cfg.remat`` "full" or "dots" wraps each block in
+``torch.utils.checkpoint``, as the dense family does: the block's
+forward, the WKV kernel included, runs again in the backward.
 
 Decode state (:class:`RwkvLayerState`) is O(1) in the sequence length:
 per layer the (b, h, n, n) WKV state and the last token each mixer saw,
@@ -122,13 +122,11 @@ def _run_blocks(params, cfg: ModelConfig, x, states=None,
                 use_kernel: bool = True):
     """Apply every block in order.  Returns (x, stacked new states), the
     states None in training under remat."""
-    from repro_torch.models.transformer import _remat_blocks
+    from repro_torch.models.transformer import _remat_blocks, remat_block
 
     if _remat_blocks(cfg, states):
         for lp in params["blocks"]:
-            x = torch.utils.checkpoint.checkpoint(
-                _checkpointed_block, lp, cfg, x, use_kernel,
-                use_reentrant=False)
+            x = remat_block(cfg, _checkpointed_block, lp, cfg, x, use_kernel)
         return x, None
     new = []
     for layer, lp in enumerate(params["blocks"]):

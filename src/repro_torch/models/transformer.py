@@ -14,7 +14,13 @@ In training (a forward under grad mode with no cache) ``cfg.remat ==
 "full"`` wraps each block in ``torch.utils.checkpoint`` (non-reentrant),
 as the reference wraps its scan body in ``jax.checkpoint``: only the
 block inputs are kept, and each block's forward runs again in the
-backward.
+backward.  ``"dots"`` is the same checkpoint with a selective policy
+that keeps the outputs of the matmuls without batch dimensions
+(``aten.mm`` / ``aten.addmm``: the projections and the MLP), as
+``jax.checkpoint_policies.dots_with_no_batch_dims_saveable`` does, and
+recomputes the rest.  ``"offload"`` checkpoints nothing: the reference's
+scan has branches for ``"full"`` and ``"dots"`` only, so it runs
+``"offload"`` as ``"none"``.
 
 Decode state (:func:`init_states`) owns real per-layer storage, allocated
 with ``torch.zeros`` — never a broadcast view — because attention writes
@@ -26,6 +32,7 @@ cursor serve every layer.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple, Optional, Union
 
 import torch
@@ -126,15 +133,42 @@ def _layer_cache(kv, layer: int):
     return kv._replace(k=kv.k[layer], v=kv.v[layer])
 
 
+REMAT_POLICIES = ("none", "full", "dots", "offload")
+
+
 def _remat_blocks(cfg: ModelConfig, kv) -> bool:
-    """Checkpoint each block?  Only in training: grad mode, no cache."""
-    if kv is not None or not torch.is_grad_enabled() or cfg.remat == "none":
+    """Checkpoint each block?  Only in training (grad mode, no cache), and
+    only under remat "full" or "dots"."""
+    if cfg.remat not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat policy {cfg.remat!r}; known: "
+                         f"{REMAT_POLICIES}")
+    if kv is not None or not torch.is_grad_enabled():
         return False
-    if cfg.remat == "full":
-        return True
-    raise NotImplementedError(
-        f"remat={cfg.remat!r} is not ported to PyTorch yet (ROADMAP queue "
-        f"1 item 6: remat \"dots\" / \"offload\")")
+    return cfg.remat in ("full", "dots")
+
+
+#: the ops whose outputs remat "dots" keeps: matmuls without batch dims
+_DOTS_SAVEABLE = frozenset({torch.ops.aten.mm.default,
+                            torch.ops.aten.addmm.default})
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS_SAVEABLE
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_block(cfg: ModelConfig, fn, *args):
+    """``fn(*args)`` under the block checkpoint of ``cfg.remat`` ("full"
+    or "dots"; see :func:`_remat_blocks`)."""
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            torch.utils.checkpoint.create_selective_checkpoint_contexts,
+            _dots_policy)
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False,
+                                             **kw)
 
 
 def _checkpointed_block(lp, cfg: ModelConfig, x, positions):
@@ -146,9 +180,7 @@ def _run_blocks(params, cfg: ModelConfig, x, positions, kv=None):
     per-layer slices the blocks update in place.  Returns (x, kv')."""
     if _remat_blocks(cfg, kv):
         for lp in params["blocks"]:
-            x = torch.utils.checkpoint.checkpoint(
-                _checkpointed_block, lp, cfg, x, positions,
-                use_reentrant=False)
+            x = remat_block(cfg, _checkpointed_block, lp, cfg, x, positions)
         return x, None
     new_length = None
     for layer, lp in enumerate(params["blocks"]):

@@ -1,10 +1,11 @@
-"""Training loop: the train step under a straggler watchdog and a
-non-finite-loss check.
+"""Training loop: the train step + checkpoint manager + fault supervision.
 
-Port of :mod:`repro.train.loop` without the checkpoint manager (not
-ported yet: ROADMAP).  All state lives in (params, opt_state, step) and
-the data is a pure function of the step, so a restarted run replays the
-same stream.
+Port of :mod:`repro.train.loop`.  The loop is restart-pure: all state
+lives in (params, opt_state, step), the data is a pure function of the
+step, and the checkpoint manager commits atomically — so ``train()``
+after a crash resumes from the newest commit and replays the same
+stream.  A resumed run loads the commit into the freshly initialised
+state in place (the parameters stay leaf tensors that require grad).
 """
 
 from __future__ import annotations
@@ -18,11 +19,13 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import CheckpointConfig, CheckpointManager
 from repro_torch.device import resolve_device
 from repro_torch.distributed.fault import StepFailure, StepWatchdog
 from repro_torch.models.registry import ModelApi
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.train.step import init_train_state, make_train_step
+from repro_torch.tree import tree_leaves
 
 log = logging.getLogger("repro_torch.train")
 
@@ -33,27 +36,52 @@ class TrainConfig:
     log_every: int = 10
     seed: int = 0
     microbatches: int = 1
+    checkpoint: Optional[CheckpointConfig] = None
     fail_on_nan: bool = True
+
+
+@torch.no_grad()
+def _load_into(state, restored) -> None:
+    """Copy a restored tree into the live one, leaf for leaf."""
+    for dst, src in zip(tree_leaves(state), tree_leaves(restored)):
+        if dst.shape != src.shape or dst.dtype != src.dtype:
+            raise ValueError(f"checkpoint leaf {tuple(src.shape)} "
+                             f"{src.dtype} does not fit {tuple(dst.shape)} "
+                             f"{dst.dtype}")
+        dst.copy_(src)
 
 
 def train(api: ModelApi, opt_cfg: AdamWConfig, train_cfg: TrainConfig,
           batch_fn: Callable[[int], Dict[str, np.ndarray]], *,
           device=None, hooks: Optional[list] = None) -> dict:
     """Run the loop on ``device`` (default ``cuda``), from parameters drawn
-    there from ``train_cfg.seed``; returns {params, opt_state, history}.  Each history entry holds the step's loss and
-    its wall seconds (ending in the loss read, which waits for the
-    device)."""
+    there from ``train_cfg.seed`` or, when ``train_cfg.checkpoint`` holds
+    a commit, from the newest one; returns {params, opt_state, history}.
+    Each history entry holds the step's loss and its wall seconds (ending
+    in the loss read, which waits for the device).  With a checkpoint
+    config the loop saves every ``every_steps`` steps and at the end, and
+    waits for the last write before it returns."""
     dev = resolve_device(device)
     # parameters drawn on the training device: a CPU generator's one
     # sequential stream takes minutes for billions of parameters
     params, opt_state = init_train_state(
         api, opt_cfg, torch.Generator(device=dev).manual_seed(train_cfg.seed),
         device=dev)
+    mgr = (CheckpointManager(train_cfg.checkpoint)
+           if train_cfg.checkpoint else None)
+    start_step = saved = 0
+    if mgr is not None and mgr.latest_step() is not None:
+        restored, start_step = mgr.restore((params, opt_state),
+                                           device="cpu")
+        _load_into((params, opt_state), restored)
+        saved = start_step
+        log.info("resumed from step %d", start_step)
+
     step_fn = make_train_step(api, opt_cfg, train_cfg.microbatches)
     watchdog = StepWatchdog()
     history = []
 
-    for step in range(train_cfg.total_steps):
+    for step in range(start_step, train_cfg.total_steps):
         t0 = time.perf_counter()
         batch = {k: torch.from_numpy(v).to(dev)
                  for k, v in batch_fn(step).items()}
@@ -73,4 +101,12 @@ def train(api: ModelApi, opt_cfg: AdamWConfig, train_cfg: TrainConfig,
         if hooks:
             for h in hooks:
                 h(step, params, metrics)
+        if mgr is not None and mgr.maybe_save(step + 1, (params, opt_state)):
+            saved = step + 1
+
+    if mgr is not None:
+        # the final state, unless the cadence has just committed it
+        if saved != train_cfg.total_steps:
+            mgr.save(train_cfg.total_steps, (params, opt_state))
+        mgr.wait()
     return {"params": params, "opt_state": opt_state, "history": history}

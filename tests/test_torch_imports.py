@@ -66,3 +66,30 @@ def test_importing_the_lanes_and_fhe_stack_loads_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def _loads_no_jax(modules: str, extra: str = "") -> None:
+    code = ("import sys; sys.path.insert(0, 'src'); "
+            f"import {modules}; {extra}"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')); print(bad); "
+            "sys.exit(1 if bad else 0)")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_importing_the_static_analyzer_loads_no_jax():
+    """The interval domain and lane, the analyzer, its CLI and the lint,
+    and the interval lane through the lane factory."""
+    _loads_no_jax("repro_torch.analysis, repro_torch.analysis.__main__, "
+                  "repro_torch.analysis.lint, repro_torch.core.lanes",
+                  "repro_torch.core.lanes.get_lane('interval'); ")
+
+
+def test_importing_the_checkpoint_path_loads_no_jax():
+    """The checkpoint store and manager, the train loop and launchers
+    that resume from them, and the Prefetcher."""
+    _loads_no_jax("repro_torch.checkpoint, repro_torch.train.loop, "
+                  "repro_torch.launch.train_inhibitor_lm, "
+                  "repro_torch.data.pipeline")

@@ -8,9 +8,11 @@ where it has a counterpart:
     in float32, in the same order of operations);
 (g) ``python -m repro_torch.launch.train --device cpu`` runs and its loss
     falls;
-and, port only: remat "full" recomputes each block in the backward (the
-kernel wrapper runs twice per layer) without changing the gradients, the
-fault supervisor and watchdog, and the launcher's refusals.
+and, port only: remat "full" and "dots" recompute each block in the
+backward (the kernel wrapper runs twice per layer) without changing the
+gradients, "offload" checkpoints nothing (as the reference runs it), the
+fault supervisor and watchdog, and the launcher's refusals (and its
+``--ckpt-dir``, which it refused before the checkpoint store was ported).
 """
 
 import dataclasses
@@ -26,6 +28,7 @@ from repro.data import pipeline as jpipe
 from repro.data import synthetic as jsyn
 from repro.optim import adamw as jadamw
 from repro.optim import schedule as jsched
+from repro_torch.checkpoint import committed_steps
 from repro_torch.configs import get_config
 from repro_torch.data import pipeline as tpipe
 from repro_torch.data import synthetic as tsyn
@@ -138,7 +141,19 @@ def test_launcher_trains_on_the_cpu_and_its_loss_falls(capsys):
     (["--ckpt-dir", "x"], "checkpoint/store.py"),
     (["--data-parallel", "2"], "queue 1 item 7"),
     (["--model-parallel", "2"], "queue 1 item 7")])
-def test_launcher_refuses_what_is_not_ported(argv, match):
+def test_launcher_refuses_what_is_not_ported(argv, match, tmp_path):
+    if argv[0] == "--ckpt-dir":
+        # ported since (checkpoint/store.py): the flag trains, commits
+        # the final step and a rerun resumes from it with nothing to do
+        ck = str(tmp_path / argv[1])
+        out = launch_train.run(["--device", "cpu", "--steps", "1",
+                                "--ckpt-dir", ck])
+        assert out["start_step"] == 0 and len(out["losses"]) == 1
+        assert committed_steps(ck) == [1]
+        again = launch_train.run(["--device", "cpu", "--steps", "1",
+                                  "--ckpt-dir", ck])
+        assert again["start_step"] == 1 and again["losses"] == []
+        return
     with pytest.raises(NotImplementedError, match=match):
         launch_train.run(["--device", "cpu", "--steps", "1"] + argv)
 
@@ -160,7 +175,10 @@ def test_remat_full_recomputes_each_block_with_equal_gradients(mech):
         0, base.vocab_size, (2, 16)).astype(np.int32))
     batch = {"tokens": tokens, "labels": tokens.roll(-1, dims=1)}
     grads = {}
-    for remat in ("none", "full"):
+    # "dots" keeps the matmul outputs and recomputes the rest of the
+    # block, attention included; "offload" checkpoints nothing, as the
+    # reference runs it
+    for remat in ("none", "full", "dots", "offload"):
         cfg = dataclasses.replace(base, remat=remat)
         api = get_model(cfg)
         params, _ = init_train_state(api, tadamw.AdamWConfig(),
@@ -170,15 +188,37 @@ def test_remat_full_recomputes_each_block_with_equal_gradients(mech):
         grads[remat], _ = make_grad_fn(api)(params, batch)
         plain = ("flash_inhibitor_plain" if mech == "inhibitor"
                  else "flash_attention_plain")
-        per_layer = 2 if remat == "full" else 1
+        per_layer = 2 if remat in ("full", "dots") else 1
         assert kops.counts()[plain] == per_layer * cfg.num_layers
-    for a, b in zip(tree_leaves(grads["full"]), tree_leaves(grads["none"])):
-        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
-    with pytest.raises(NotImplementedError, match="dots"):
-        api = get_model(dataclasses.replace(base, remat="dots"))
+    for remat in ("none", "dots", "offload"):
+        for a, b in zip(tree_leaves(grads["full"]),
+                        tree_leaves(grads[remat])):
+            torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
+    with pytest.raises(ValueError, match="unknown remat"):
+        api = get_model(dataclasses.replace(base, remat="dot"))
         make_grad_fn(api)(init_train_state(
             api, tadamw.AdamWConfig(), torch.Generator().manual_seed(0),
             device="cpu")[0], batch)
+
+
+def test_remat_dots_keeps_rwkv_gradients():
+    """The RWKV-6 family under remat "dots" and "full": the gradients of
+    the unchecked forward, to float32 rounding."""
+    base = get_config("rwkv6-7b").reduced()
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, base.vocab_size, (2, 12)).astype(np.int32))
+    batch = {"tokens": tokens, "labels": tokens.roll(-1, dims=1)}
+    grads = {}
+    for remat in ("none", "full", "dots"):
+        api = get_model(dataclasses.replace(base, remat=remat))
+        params, _ = init_train_state(api, tadamw.AdamWConfig(),
+                                     torch.Generator().manual_seed(0),
+                                     device="cpu")
+        grads[remat], _ = make_grad_fn(api)(params, batch)
+    for remat in ("full", "dots"):
+        for a, b in zip(tree_leaves(grads["none"]),
+                        tree_leaves(grads[remat])):
+            torch.testing.assert_close(b, a, rtol=1e-6, atol=1e-7)
 
 
 def test_run_supervised_restarts_on_step_failure_only():
