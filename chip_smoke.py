@@ -141,6 +141,32 @@ Phases, each printing one JSON line; any failure exits non-zero:
                both arms (within REMAT_TOL), each one's walls and peak
                memory.  Printed: save and restore seconds, checkpoint
                bytes.
+ 16. serve_rwkv — rwkv6-7b at full width and depth (32 layers, phase
+               12's last-seed parameters) served through the engine:
+               contiguous slots, max_batch 4, max_len 256, warm-up
+               "decode" (its one decode step captured at construction); 4
+               requests of 64 random prompt tokens, 16 new tokens each.
+               Counts zeroed just before, read just after: no kernel
+               launched and no plain chunked WKV call (the exact scan, as
+               the reference); every decode tick a replay; the steps
+               within the proven budget (which marks the family
+               unbucketed); the greedy tokens equal to the same engine's
+               with graphs off and to each request alone through an eager
+               ``lm_step`` loop (first-token logits within 5% of the
+               largest); a second wave whose first request repeats the
+               first prompt in the recycled slot 0 reproduces its tokens.
+               Printed beside the card's name and power limit: tick p50,
+               ITL, TTFT, tok/s, a second-wave tick's device time and
+               idle share, the tick's floor (every weight read once) and
+               peak memory.
+ 17. serve_analysis — the static serve analyzer on the host:
+               ``analyze_serve`` for smollm-135m at phase 4's geometry
+               (both allocators proven, signatures verified, 0 host syncs
+               in the steps), the reduced rwkv6-7b rejected (prefill
+               proven > declared), ``cross_check_bench`` over phases 4
+               and 16's live engines; for information, the decode tick's
+               static ``est_s`` beside phase 4's device time, and the
+               launch overhead behind the cost model's ``dispatch_s``.
 
 Then the ``kernels`` summary line, the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``.  TF32 is off for matmuls and cuDNN.
@@ -151,8 +177,11 @@ Then the ``kernels`` summary line, the ``nvidia-smi`` line and, last,
     python3 chip_smoke.py --only serve [--src OTHER/src]
     python3 chip_smoke.py --only analysis
     python3 chip_smoke.py --only resume
+    python3 chip_smoke.py --only serve_rwkv
+    python3 chip_smoke.py --only serve_analysis
 
-run phases 1, 2 and 3 (or 9, or 13, or 4, or 14, or 15) alone, against the package under
+run phases 1, 2 and 3 (or 9, or 13, or 4, or 14, or 15, or 16, or 4
+and 17) alone, against the package under
 ``--src`` (by default this checkout's): another commit's kernels checked
 and timed by this script's phase.  Against another package, phase 3 records the
 launch grids without holding them to the split design, and phase 4
@@ -607,11 +636,12 @@ def serve_requests(Request, vocab: int, on_token=None, wave: int = 0):
             for i in range(SERVE_REQUESTS)]
 
 
-def profile_tick(eng, Request, vocab: int) -> list:
-    """Serve a second wave of the phase's traffic and trace one of its
-    decode-only ticks with ``tick_device`` (the next one again, with four
-    times the pad, when the trace lost a record; three at most)."""
-    for r in serve_requests(Request, vocab, wave=1):
+def profile_tick(eng, reqs) -> list:
+    """Serve a second wave of the phase's traffic (``reqs``) and trace one
+    of its decode-only ticks with ``tick_device`` (the next one again,
+    with four times the pad, when the trace lost a record; three at
+    most)."""
+    for r in reqs:
         eng.submit(r)
     profiled, decode_only, pad = [], 0, 1000
     while eng.active or eng.admitting or len(eng.scheduler):
@@ -691,7 +721,8 @@ def phase_serve(torch, kops, arch: str):
     check(all(n == 0 for name, n in counts.items() if name != kernel),
           f"{arch}: unexpected launches {counts}")
     gen_tokens = stats["generated_tokens"]
-    profiled = profile_tick(eng, Request, cfg.vocab_size)
+    profiled = profile_tick(eng, serve_requests(Request, cfg.vocab_size,
+                                                wave=1))
     tick = profiled[-1] if profiled else None
     out = {"phase": "serve", "arch": arch, "graphs": graphs,
            "init_s": init_s, "construct_s": construct_s,
@@ -713,7 +744,13 @@ def phase_serve(torch, kops, arch: str):
                1.0 - tick["device_us"] * 1e-3 / statistics.median(
                    decode_only_ms)),
            "high_water_pages": stats["high_water_pages"],
-           "max_memory_allocated": torch.cuda.max_memory_allocated()}
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "prefill_compiles": eng.prefill_compiles,
+           "decode_compiles": eng.decode_compiles}
+    from repro_torch.analysis import serve_static
+    if hasattr(serve_static, "engine_desc"):
+        # the serve analysis cross-checks these counts against the proof
+        out["engine"] = serve_static.engine_desc(eng)
     if graphs:
         out.update(serve_graph_checks(kops, arch, cfg, api, params, eng,
                                       stats, reqs, built, counts, kernel,
@@ -1699,6 +1736,8 @@ def phase_rwkv_forward(torch, kops):
             ctl = get_model(cfg32).forward(params, {"tokens": tokens}).float()
             run["float32"]["control_max_abs_err"] = (
                 ctl - scan32).abs().max().item()
+            for blk in params["blocks"]:            # the true V again
+                blk["time_mix"]["value"]["kernel"].neg_()
             # the largest ratio the free-running check holds to
             # RWKV_FREE_RATIO (plus RWKV_BLOCK_REL)
             r32 = run["float32"]
@@ -1708,6 +1747,7 @@ def phase_rwkv_forward(torch, kops):
                 default=None)
             del ctl, scan32
         out[f"seed_{seed}"] = run
+        kept = params
         del params, tokens
         torch.cuda.empty_cache()
     emit(out)
@@ -1729,7 +1769,395 @@ def phase_rwkv_forward(torch, kops):
               "the scan further than the plain chunked version does")
         check(r["control_max_abs_err"] > r["tol"],
               f"{RWKV} {label}: V-negated control within tol")
-    return counts["wkv6"], out
+    # the last seed's parameters, served by phase 16
+    return counts["wkv6"], out, kept
+
+
+# ---------------------------------------------------------------------------
+# 16. serve_rwkv: rwkv6-7b served through the engine at full width and depth
+# ---------------------------------------------------------------------------
+
+# contiguous slots (the family has no KV cache); the decode step captured
+# as a CUDA graph at construction (warm-up "decode"); prompts prefill in
+# exact-length chunks of 32, eagerly
+RWKV_SERVE_ENGINE = dict(max_batch=4, max_len=256, allocator="contiguous",
+                         warmup="decode")
+RWKV_SERVE_REQUESTS, RWKV_SERVE_PROMPT, RWKV_SERVE_NEW = 4, 64, 16
+# the first token's logits, the engine's against the eager lm_step loop's
+# (the same operations on the same shapes, so 0.0 is expected): within 5%
+# of the loop's largest logit, phase 12's logits tolerance
+RWKV_SERVE_LOGIT_REL = 0.05
+
+
+def rwkv_requests(Request, vocab: int, wave: int, on_token=None) -> list:
+    import numpy as np
+
+    rng = np.random.default_rng(100 + wave)
+    return [Request(wave * RWKV_SERVE_REQUESTS + i,
+                    rng.integers(0, vocab, (RWKV_SERVE_PROMPT,)),
+                    max_new_tokens=RWKV_SERVE_NEW, on_token=on_token)
+            for i in range(RWKV_SERVE_REQUESTS)]
+
+
+def rwkv_eager_tokens(torch, api, params, prompt, row: int, ecfg) -> tuple:
+    """One request alone through an eager ``lm_step`` loop, as the engine
+    runs it: the prompt in chunks of the engine's prefill width on a
+    batch-1 state, then one token a step in row ``row`` of a
+    ``max_batch``-row state whose other rows hold zero tokens and state.
+    Returns (tokens, the first token's logits)."""
+    chunk, b = ecfg.prefill_chunk, ecfg.max_batch
+    with torch.no_grad():
+        one = api.init_states(1, ecfg.max_len, device="cuda")
+        toks = torch.from_numpy(prompt.astype("int32")).cuda()[None]
+        for s in range(0, toks.shape[1], chunk):
+            logits, one = api.step(params, toks[:, s:s + chunk], one)
+        first = logits[0, -1]
+        out = [int(first.argmax())]
+        st = api.init_states(b, ecfg.max_len, device="cuda")
+        for x, y in zip(st, one):
+            x[:, row] = y[:, 0]
+        step = torch.zeros((b, 1), dtype=torch.int32, device="cuda")
+        while len(out) < RWKV_SERVE_NEW:
+            step[row, 0] = out[-1]
+            logits, st = api.step(params, step, st)
+            out.append(int(logits[row, -1].argmax()))
+    return out, first.float()
+
+
+def phase_serve_rwkv(torch, kops, smi: str, params=None) -> dict:
+    """16. rwkv6-7b (32 layers, d 4096, 64 WKV heads of 64, vocab 65536;
+    float32 parameters, bf16 compute) through the engine at full width
+    and depth: phase 12's parameters when given (its last seed), else
+    the same draw.  The engine (``RWKV_SERVE_ENGINE``) serves 4 requests
+    of 64 random prompt tokens, 16 new tokens each; the counts are zeroed
+    just before and read just after.  Checks: every decode tick a replay
+    of the one decode graph captured at construction; the steps built
+    within ``retrace_budget``'s proof (which marks the family
+    unbucketed); no kernel launched and no plain chunked WKV call (the
+    exact scan, as the reference); the greedy tokens equal to the same
+    engine's with graphs off, and to each request alone through an eager
+    ``lm_step`` loop, its first token's logits within
+    RWKV_SERVE_LOGIT_REL of the loop's largest; a second wave whose first
+    request repeats the first wave's first prompt in the recycled slot 0
+    reproduces its tokens (the admission's state reset).  Printed beside
+    the card's name and power limit: TTFT, ITL and tick p50, tok/s, a
+    second-wave decode tick's device time and idle share, the decode
+    tick's floor (every weight read once) and peak memory."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import get_model
+    from repro_torch.serve.engine import Engine, EngineConfig, Request
+
+    cfg = get_config(RWKV)
+    api = get_model(cfg)
+    t0 = time.perf_counter()
+    if params is None:
+        params = api.init(torch.Generator(device="cuda").manual_seed(
+            RWKV_FORWARD_SEEDS[-1]), device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+
+    class Recording(Engine):
+        """The engine, recording each prefill's first-token logits (the
+        (1, V) rows its sampler is handed, outside any graph)."""
+
+        def __init__(self, *args, **kw):
+            self.first_logits = []
+            super().__init__(*args, **kw)
+
+        def _select(self, logits):
+            if logits.shape[0] == 1:
+                self.first_logits.append(logits[0].float().clone())
+            return super()._select(logits)
+
+    class NeverCaptured(Engine):
+        """The same engine, its steps run eagerly every time."""
+
+        def _capture(self, step):
+            return None
+
+    ecfg = EngineConfig(**RWKV_SERVE_ENGINE)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = Recording(api, params, ecfg, device="cuda")
+    torch.cuda.synchronize()
+    construct_s = time.perf_counter() - t0
+    check(eng.decode_plan is None and not eng.paged and eng.prefix is None
+          and not eng._bucketed, f"{RWKV}: engine is {eng.paged=} "
+          f"{eng.decode_plan=} {eng._bucketed=}")
+    check(eng.decode_compiles == 1
+          and eng.stats()["graphs"]["captures"] == 1,
+          f"{RWKV}: {eng.graph_stats()} after warm-up")
+    first_token = {}
+
+    def on_token(req, tok):
+        first_token.setdefault(req.request_id, time.perf_counter())
+
+    reqs = rwkv_requests(Request, cfg.vocab_size, 0, on_token)
+    submitted = {}
+    for r in reqs:
+        eng.submit(r)
+        submitted[r.request_id] = time.perf_counter()
+    kops.reset_counts()
+    tick_ms, decode_only_ms = [], []
+    t0 = time.perf_counter()
+    while eng.active or eng.admitting or len(eng.scheduler):
+        chunks = eng.counters["prefill_chunks"]
+        ts = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - ts) * 1e3
+        tick_ms.append(dt)
+        if eng.counters["prefill_chunks"] == chunks:
+            decode_only_ms.append(dt)
+        check(len(tick_ms) < 200, f"{RWKV}: engine did not drain")
+    wall = time.perf_counter() - t0
+    counts = kops.counts()
+    stats = eng.stats()
+    g, budget = stats["graphs"], stats["retrace_budget"]
+    ticks = stats["decode_ticks"]
+    outputs = [r.output for r in reqs]
+    check(all(o is not None and len(o) == RWKV_SERVE_NEW for o in outputs),
+          f"{RWKV}: not every request finished with {RWKV_SERVE_NEW} tokens")
+    check(all(n == 0 for n in counts.values()),
+          f"{RWKV}: the serving path launched {counts} (wkv6 must not run)")
+    check(g["decode_replays"] == ticks and g["captures"] == 1
+          and eng._decode_steps["contiguous"].runs == 1,
+          f"{RWKV}: {g} for {ticks} decode ticks (every tick a replay of "
+          "the graph captured at construction)")
+    check(eng.decode_compiles <= budget["decode_proven"]
+          and eng.prefill_compiles <= budget["prefill_proven"]
+          and not budget["within_declared"],
+          f"{RWKV}: steps {eng.decode_compiles} / {eng.prefill_compiles} "
+          f"against {budget}")
+    # the graphs off: the same engine class, its steps run eagerly
+    t0 = time.perf_counter()
+    ref = NeverCaptured(api, params, ecfg, device="cuda")
+    ref_reqs = rwkv_requests(Request, cfg.vocab_size, 0)
+    for r in ref_reqs:
+        ref.submit(r)
+    ref.run_to_completion()
+    eager_engine_s = time.perf_counter() - t0
+    check(ref.stats()["graphs"]["captures"] == 0,
+          f"{RWKV}: the eager engine captured a graph")
+    same_eager = [r.output for r in ref_reqs] == outputs
+    del ref
+    # each request alone through an eager lm_step loop
+    t0 = time.perf_counter()
+    alone, logit_err, logit_scale = [], [], []
+    for i, r in enumerate(reqs):
+        toks, first = rwkv_eager_tokens(torch, api, params, r.prompt, i, ecfg)
+        alone.append(toks)
+        logit_err.append((eng.first_logits[i] - first).abs().max().item())
+        logit_scale.append(first.abs().max().item())
+    eager_loop_s = time.perf_counter() - t0
+    same_alone = alone == outputs
+    logits_ok = all(e <= RWKV_SERVE_LOGIT_REL * m
+                    for e, m in zip(logit_err, logit_scale))
+    # second wave: request 0's prompt again, first, so it takes slot 0
+    # again after another request's state was reset out of it; its
+    # decode ticks are profiled
+    wave = rwkv_requests(Request, cfg.vocab_size, 1)
+    wave[0] = Request(100, reqs[0].prompt.copy(),
+                      max_new_tokens=RWKV_SERVE_NEW)
+    profiled = profile_tick(eng, wave)
+    check(g["captures"] == eng.stats()["graphs"]["captures"],
+          f"{RWKV}: a graph was captured while serving")
+    recycled_same = wave[0].output == outputs[0]
+    tick = profiled[-1] if profiled else None
+    param_bytes = sum(t.numel() * t.element_size()
+                      for t in _leaves(params))
+    # apply_dense casts each float32 kernel to bf16 per call: 4 more
+    # bytes an element moved than reading it once
+    cast_bytes = sum(t.numel() * 4 for t in _leaves(params, "kernel"))
+    gen_tokens = stats["generated_tokens"]
+    out = {"phase": "serve_rwkv", "arch": RWKV, "card": smi,
+           "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "engine": dict(RWKV_SERVE_ENGINE),
+           "prefill_chunk": eng.cfg.prefill_chunk,
+           "requests": len(reqs), "prompt_len": RWKV_SERVE_PROMPT,
+           "new_tokens": RWKV_SERVE_NEW, "init_s": init_s,
+           "construct_s": construct_s, "wall_s": wall,
+           "tok_per_s": gen_tokens / wall, "generated_tokens": gen_tokens,
+           "ticks": len(tick_ms), "decode_ticks": ticks,
+           "prefill_chunks": stats["prefill_chunks"],
+           "decode_tick_ms_p50": statistics.median(decode_only_ms),
+           "decode_only_ticks": len(decode_only_ms),
+           "ttft_ms_p50": statistics.median(
+               (first_token[i] - submitted[i]) * 1e3 for i in submitted),
+           "itl_ms_p50": stats["itl_ms_p50"], "launches": counts,
+           "graph_stats": g, "steps": {
+               "decode": eng.decode_compiles,
+               "prefill": eng.prefill_compiles,
+               "prefill_widths": sorted(eng._prefill_steps),
+               "decode_proven": budget["decode_proven"],
+               "prefill_proven": budget["prefill_proven"],
+               "within_declared": budget["within_declared"]},
+           "tokens_equal_eager_engine": same_eager,
+           "tokens_equal_eager_lm_step": same_alone,
+           "first_logits_max_abs_err": logit_err,
+           "first_logits_tol": [RWKV_SERVE_LOGIT_REL * m
+                                for m in logit_scale],
+           "recycled_slot_tokens_equal": recycled_same,
+           "eager_engine_s": eager_engine_s, "eager_loop_s": eager_loop_s,
+           "profiled_tick": tick, "profile_attempts": len(profiled),
+           "idle_share_at_p50": (
+               None if tick is None or tick["lost"] else
+               1.0 - tick["device_us"] * 1e-3 / statistics.median(
+                   decode_only_ms)),
+           "param_bytes": param_bytes,
+           # the tick's floor: every parameter read once
+           "tick_bound_ms": param_bytes / HBM_BYTES_PER_S * 1e3,
+           # what the tick moves with each matmul weight cast to bf16 per
+           # call (read 4, write 2, read 2 bytes an element)
+           "tick_cast_ms": (param_bytes + cast_bytes)
+           / HBM_BYTES_PER_S * 1e3,
+           "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    from repro_torch.analysis.serve_static import engine_desc
+    out["engine_desc"] = engine_desc(eng)
+    emit(out)
+    check(same_eager, f"{RWKV}: graphed tokens differ from the eager "
+          "engine's")
+    check(same_alone, f"{RWKV}: the engine's tokens differ from each "
+          "request alone through the eager lm_step loop")
+    check(logits_ok, f"{RWKV}: first-token logits {logit_err} over "
+          f"{RWKV_SERVE_LOGIT_REL} x {logit_scale}")
+    check(recycled_same, f"{RWKV}: a recycled slot's tokens differ from "
+          "a fresh slot's")
+    result = {"arch": RWKV, "engine": out["engine_desc"],
+              "prefill_compiles": eng.prefill_compiles,
+              "decode_compiles": eng.decode_compiles, "profiled_tick": tick}
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result
+
+
+def _leaves(tree, name=None):
+    """The tensors of a parameter tree (only those under key ``name``)."""
+    if isinstance(tree, dict):
+        return [t for k, v in tree.items()
+                for t in (_leaves(v) if k == name else _leaves(v, name))]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _leaves(v, name)]
+    return [tree] if name is None else []
+
+
+# ---------------------------------------------------------------------------
+# 17. serve_analysis: the static serve analyzer against the live engines
+# ---------------------------------------------------------------------------
+
+# the reduced rwkv6-7b rejection's engine (the reference test's)
+SERVE_ANALYSIS_REJECT = dict(max_batch=2, max_len=32, page_size=8,
+                             prefill_chunk=8)
+LAUNCH_KERNELS = 1000
+
+
+def launch_overhead(torch) -> dict:
+    """The cost model's ``dispatch_s`` on this card: LAUNCH_KERNELS
+    one-element kernels captured in one CUDA graph and replayed (device
+    time per kernel by CUDA events: the engine's ticks are such
+    replays), beside the same kernels launched eagerly (host included)."""
+    x = torch.zeros(1, device="cuda")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            x.add_(1)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(LAUNCH_KERNELS):
+            x.add_(1)
+    graph_ms = cuda_ms(lambda i: graph.replay(), 20)
+    eager_ms = cuda_ms(lambda i: [x.add_(1) for _ in range(LAUNCH_KERNELS)],
+                       5)
+    del graph
+    return {"kernels": LAUNCH_KERNELS,
+            "graph_s_per_kernel": graph_ms * 1e-3 / LAUNCH_KERNELS,
+            "eager_s_per_kernel": eager_ms * 1e-3 / LAUNCH_KERNELS}
+
+
+def phase_serve_analysis(torch, kops, smi: str, served: list) -> dict:
+    """17. The static serve analyzer (``analysis.serve_static``, on the
+    host; steps walked on meta tensors): ``analyze_serve`` at phase 4's
+    engine config for smollm-135m, both allocators: ok, every signature
+    verified, no host sync inside a step; the reduced rwkv6-7b rejected
+    (prefill proven > declared); ``cross_check_bench`` over the live
+    engines served before (``served``: each one's ``engine_desc`` and
+    step counts) ok; no kernel launched.  For information, no gate: the
+    decode tick's roofline ``est_s`` at the bucket phase 4's traffic
+    used, beside phase 4's measured device time of a tick, and the
+    launch overhead (``launch_overhead``) beside the cost model's
+    ``dispatch_s``."""
+    from repro_torch.analysis import costmodel
+    from repro_torch.analysis.serve_static import (analyze_serve,
+                                                   cross_check_bench,
+                                                   format_serve_report)
+    from repro_torch.serve.engine import decode_table_width
+
+    kops.reset_counts()
+    geom = {k: SERVE_ENGINE[k] for k in ("max_batch", "max_len",
+                                         "page_size")}
+    geom["prefill_chunk"] = 32
+    t0 = time.perf_counter()
+    doc = analyze_serve("smollm-135m", engine_kw=geom)
+    smollm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rej = analyze_serve(RWKV, reduced={}, engine_kw=SERVE_ANALYSIS_REJECT)
+    reject_s = time.perf_counter() - t0
+    bench = {s["arch"]: {"engine": s["engine"],
+                         "prefill_compiles": s["prefill_compiles"],
+                         "decode_compiles": s["decode_compiles"]}
+             for s in served}
+    cc = cross_check_bench(bench)
+    counts = kops.counts()
+    width = decode_table_width(SERVE_PROMPT + SERVE_NEW,
+                               page_size=SERVE_ENGINE["page_size"],
+                               pages_per_slot=SERVE_ENGINE["max_len"]
+                               // SERVE_ENGINE["page_size"])
+    arms = {}
+    for alloc, arm in doc["allocators"].items():
+        roof = arm["roofline"]
+        key = str(width) if alloc == "paged" else "full"
+        arms[alloc] = {
+            "ok": arm["ok"], "verified": arm["signatures"]["verified"],
+            "host_syncs": roof["jit_host_callbacks"],
+            "walked": roof["walked"],
+            "decode_buckets": len(roof["decode"]["per_bucket"]),
+            "decode_proven": arm["retrace"]["decode"]["proven"],
+            "tick": {"bucket": key,
+                     **{k: roof["decode"]["per_bucket"][key][k]
+                        for k in ("flops", "hbm_bytes", "est_s", "bound")}}}
+    measured = {s["arch"]: (s.get("profiled_tick") or {}).get("device_us")
+                for s in served}
+    overhead = launch_overhead(torch)
+    out = {"phase": "serve_analysis", "card": smi,
+           "engine_kw": geom, "smollm_wall_s": smollm_s,
+           "reject_wall_s": reject_s, "smollm_ok": doc["ok"], "arms": arms,
+           "reject": {"ok": rej["ok"], "prefill": {
+               a: {k: v["retrace"]["prefill"][k]
+                   for k in ("proven", "declared")}
+               for a, v in rej["allocators"].items()}},
+           "cross_check": cc, "measured_tick_device_us": measured,
+           "launch_overhead": overhead,
+           "cost_model_dispatch_s": costmodel.DEFAULT_PLATFORM.dispatch_s,
+           "kernel_launches": counts,
+           "report": format_serve_report(doc).splitlines()}
+    emit(out)
+    check(doc["ok"] and all(a["ok"] and a["verified"] and a["host_syncs"]
+                            == 0 and a["decode_buckets"] == a[
+                                "decode_proven"] for a in arms.values()),
+          f"serve_analysis: smollm-135m not proven: {arms}")
+    check(not rej["ok"] and all(
+        p["proven"] > p["declared"] for p in out["reject"]["prefill"]
+        .values()), f"serve_analysis: {RWKV} not rejected: {out['reject']}")
+    check(cc["ok"] and len(cc["checked"]) == len(served),
+          f"serve_analysis: cross-check {cc}")
+    check(all(n == 0 for n in counts.values()),
+          f"serve_analysis: a kernel launched {counts}")
+    return out
 
 
 LANE_ARCH = "paper-tiny"
@@ -2298,7 +2726,8 @@ def main() -> int:
                     "checkout's src/), e.g. another commit's, to time its "
                     "kernels with this script's phases")
     ap.add_argument("--only", choices=["parity", "wkv_parity", "lanes",
-                                       "serve", "analysis", "resume"],
+                                       "serve", "analysis", "resume",
+                                       "serve_rwkv", "serve_analysis"],
                     default=None,
                     help="run the device and build phases and this one, "
                     "then end")
@@ -2346,6 +2775,12 @@ def main() -> int:
             phase_analysis(torch, kops)
         elif args.only == "resume":
             phase_resume(torch, kops)
+        elif args.only == "serve_rwkv":
+            phase_serve_rwkv(torch, kops, smi)
+        elif args.only == "serve_analysis":
+            outs = [phase_serve(torch, kops, arch)[2]
+                    for arch in ("smollm-135m@inhibitor", "smollm-135m")]
+            phase_serve_analysis(torch, kops, smi, outs)
         elif args.only == "serve":
             for arch in ("smollm-135m@inhibitor", "smollm-135m"):
                 phase_serve(torch, kops, arch)
@@ -2365,10 +2800,12 @@ def main() -> int:
     timings.update(flash_timings)
     t_phase["parity"] = time.perf_counter() - t0
     launches = {}
+    serve_outs = []
     t0 = time.perf_counter()
     for arch in ("smollm-135m@inhibitor", "smollm-135m"):
-        kernel, n, _ = phase_serve(torch, kops, arch)
+        kernel, n, serve_out = phase_serve(torch, kops, arch)
         launches[kernel] = n
+        serve_outs.append(serve_out)
     phase_serve_trace(torch)
     phase_decode_paths(torch)
     t_phase["serve"] = time.perf_counter() - t0
@@ -2384,8 +2821,14 @@ def main() -> int:
     t0 = time.perf_counter()
     launches["wkv6"], _ = phase_rwkv_train(torch, kops)
     phase_rwkv_xcheck(torch, kops)
-    forward_launches, _ = phase_rwkv_forward(torch, kops)
+    forward_launches, _, rwkv_params = phase_rwkv_forward(torch, kops)
     t_phase["rwkv"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rwkv_serve = phase_serve_rwkv(torch, kops, smi, rwkv_params)
+    del rwkv_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase["serve_rwkv"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     phase_lanes(torch, kops)
     t_phase["lanes"] = time.perf_counter() - t0
@@ -2395,6 +2838,9 @@ def main() -> int:
     t0 = time.perf_counter()
     resume_launches = phase_resume(torch, kops)
     t_phase["resume"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    phase_serve_analysis(torch, kops, smi, serve_outs + [rwkv_serve])
+    t_phase["serve_analysis"] = time.perf_counter() - t0
 
     sources = {"paged": "src/repro_torch/csrc/paged_decode.cu",
                "flash": "src/repro_torch/csrc/flash_prefill.cu",

@@ -1,6 +1,7 @@
 """Static analysis of the port's serving hot path.
 
-Port of the first two passes of :mod:`repro.analysis.serve_static`:
+Port of :mod:`repro.analysis.serve_static`, its three passes over the
+engine's static steps and the tick path's host code:
 
 1. **Retrace-budget proof** — :func:`retrace_budget` enumerates every
    static step the engine can build from an ``EngineConfig`` (prefill
@@ -22,12 +23,26 @@ Port of the first two passes of :mod:`repro.analysis.serve_static`:
    surfaces (:func:`classify_sync_call`), each classed by its mandatory
    ``# sync: <required|eliminable|host> — <reason>`` tag.  A steady
    decode tick makes 2 h2d (the token batch, the block tables when
-   dirty) and 1 d2h (the next tokens); the telemetry emit path makes
-   none (:func:`audit_telemetry_file`).
+   dirty; 1 without a block table, as for the recurrent family) and 1
+   d2h (the next tokens); the telemetry emit path makes none
+   (:func:`audit_telemetry_file`).
 
-The reference's third pass (the static roofline), the signature check
-against a live engine and the analyzer CLI need ``jax.eval_shape`` and
-the jaxpr cost model; they are not ported yet.
+3. **Static roofline** — :func:`roofline_engine` walks each enumerated
+   decode and prefill step's body with :mod:`repro_torch.analysis.
+   costmodel` (aten operations on ``meta`` tensors) and reports FLOPs /
+   HBM-byte / transfer-byte budgets per tick and the host syncs inside
+   the steps.  :func:`verify_engine_signatures` builds the same bodies
+   on ``meta`` tensors (the reference's ``jax.eval_shape``: no device
+   work), proving each enumerated signature constructible;
+   :func:`cross_check_bench` holds measured step counts against the
+   proven bound re-derived from a recorded :func:`engine_desc`.
+
+On ``meta`` the planner plans the plain path (no kernel is native
+there), so the walk charges the plain version where the card launches
+a kernel; the roofline records which backend it walked.
+
+Entry point: ``python -m repro_torch.analysis.serve`` (``serve.py``),
+writing ``ANALYSIS_serve.json``.
 """
 
 from __future__ import annotations
@@ -37,12 +52,17 @@ import re
 from pathlib import Path
 from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Set, Tuple
 
+SCHEMA_VERSION = 2
+
 __all__ = [
     "retrace_budget", "enumerate_prefill_buckets",
     "enumerate_decode_buckets", "verify_chunk_resume",
+    "verify_engine_signatures",
     "audit_sync_sites", "sync_summary", "tick_path_functions",
     "classify_sync_call", "find_sync_tag", "audit_engine_file",
     "audit_telemetry_file", "TELEMETRY_SYNC_ROOTS", "PER_TICK_DECLARED",
+    "roofline_engine", "engine_desc", "analyze_serve", "cross_check_bench",
+    "format_serve_report",
 ]
 
 
@@ -202,6 +222,88 @@ def retrace_budget(*, bucketed: bool, paged: bool, max_len: int,
     }
 
 
+def _signature(*trees) -> str:
+    """Stable digest of the shapes and dtypes of every tensor in trees."""
+    import hashlib
+
+    from repro_torch.analysis.costmodel import _tensors
+
+    leaves = [(tuple(t.shape), str(t.dtype)) for t in _tensors(trees)]
+    return hashlib.sha256(repr(leaves).encode()).hexdigest()[:16]
+
+
+def _meta_twin(engine):
+    """A shallow copy of ``engine`` whose parameters and state are
+    ``meta`` tensors of the same shapes and dtypes, with no static step
+    built: its steps' bodies run without data or a card (the planner
+    plans the plain path on ``meta``), and the engine is untouched."""
+    import copy
+
+    import torch
+
+    from repro_torch.analysis.costmodel import to_meta
+
+    twin = copy.copy(engine)
+    twin.params = to_meta(engine.params)
+    twin.states = to_meta(engine.states)
+    twin.device = torch.device("meta")
+    twin._decode_steps, twin._prefill_steps = {}, {}
+    twin._graph_pool = None
+    return twin
+
+
+def _decode_backend(engine) -> str:
+    """The decode tick's backend as ``engine`` plans it on its device:
+    the attention plan's, or the WKV plan's for the recurrent family
+    (its decode carries a state: the exact scan)."""
+    if engine.decode_plan is not None:
+        return engine.decode_plan.backend
+    from repro_torch.models.rwkv import wkv_plan
+
+    return wkv_plan(use_kernel=False, carried_state=True).backend
+
+
+def _decode_widths(engine, budget: Dict[str, Any]) -> List[Any]:
+    return (list(budget["decode"]["buckets"]) if engine.paged
+            else ["contiguous"])
+
+
+def verify_engine_signatures(engine, budget: Dict[str, Any]
+                             ) -> Dict[str, Any]:
+    """Build every enumerated static step against a live engine and run
+    its body on ``meta`` tensors (the reference's ``jax.eval_shape``: no
+    compilation, no device work), proving each signature constructible
+    and recording a digest of its inputs' shapes and dtypes.  An
+    untraceable signature is a finding (``verified: False`` with the
+    error), not a crash."""
+    out: Dict[str, Any] = {"prefill": [], "decode": [], "verified": True}
+    try:
+        twin = _meta_twin(engine)
+        for cb in budget["prefill"]["buckets"]:
+            step = twin._build_step("prefill", cb)
+            step.body()
+            out["prefill"].append({
+                "width": cb, "signature": _signature(
+                    twin.params, step.tokens, step.cursor, step.table,
+                    step.slot, twin.states),
+                "out_shape": list(step.out.shape)})
+        for hw in _decode_widths(engine, budget):
+            step = twin._build_step("decode", hw)
+            step.body()
+            # the step reads the block tables clamped to its width
+            tables = (twin.states.kv.block_tables[:, :hw]
+                      if engine.paged else None)
+            out["decode"].append({
+                "table_width": hw if engine.paged else None,
+                "signature": _signature(twin.params, step.tokens,
+                                        twin.states, tables),
+                "out_shape": list(step.out.shape)})
+    except Exception as e:  # noqa: BLE001 — an untraceable signature is
+        out["verified"] = False       # a finding, not an analyzer crash
+        out["error"] = f"{type(e).__name__}: {e}"
+    return out
+
+
 # --------------------------------------------------------------------------
 # pass 2: host-sync audit (AST)
 # --------------------------------------------------------------------------
@@ -223,7 +325,7 @@ _TICK_FREQ = {
     "step": "tick", "run_to_completion": "tick", "_flush_tables": "tick",
     "_decode_table_width": "tick", "_select": "tick", "_run_decode": "tick",
     "_decode_step_for": "tick", "_set_cursor": "tick",
-    "decode_table_width": "tick",
+    "decode_table_width": "tick", "_prefill_quota": "tick",
     "_ensure_pages": "growth", "_reclaim_pages": "growth",
     "_run_prefills": "admission", "_advance_one": "admission",
     "_plan_chunks": "admission", "_batch_cost": "admission",
@@ -232,6 +334,7 @@ _TICK_FREQ = {
     "_unwind_slot": "admission", "_prefix_credit": "admission",
     "_prefill_schedule": "admission", "_prefill_extent": "admission",
     "_prefill_step_for": "admission", "prefill_schedule": "admission",
+    "_reset_slot": "admission",
     "_copy_page": "fork",
     "_finish": "finish", "_scrub_slot_device": "finish",
     "_append_token": "token",
@@ -479,3 +582,254 @@ def audit_telemetry_file(path: Optional[str] = None) -> Dict[str, Any]:
     src = Path(path).read_text(encoding="utf-8")
     sites = audit_sync_sites(src, _rel(path), roots=TELEMETRY_SYNC_ROOTS)
     return sync_summary(sites, declared=TELEMETRY_PER_TICK_DECLARED)
+
+
+# --------------------------------------------------------------------------
+# pass 3: static roofline
+# --------------------------------------------------------------------------
+
+def roofline_engine(engine, budget: Dict[str, Any],
+                    platform=None) -> Dict[str, Any]:
+    """Per-bucket FLOPs / HBM bytes / transfer bytes of the engine's
+    static steps, by walking each step's body on ``meta`` tensors
+    (:func:`repro_torch.analysis.costmodel.torch_costs`), plus the
+    per-tick host<->device transfer budget: the token batch in and the
+    block tables when paged (2 h2d, else 1), the next tokens out (1
+    d2h).  ``jit_host_callbacks`` counts the host syncs inside the
+    steps; ``walked`` says which decode backend the walk ran (the plain
+    path on ``meta``) beside the one the engine runs."""
+    from repro_torch.analysis import costmodel
+
+    platform = platform or costmodel.DEFAULT_PLATFORM
+    b, itemsize = engine.cfg.max_batch, 4
+    per_tick_h2d = b * itemsize                    # the token batch
+    if engine.paged:
+        per_tick_h2d += b * engine.alloc.pages_per_slot * itemsize
+    per_tick_d2h = b * itemsize                    # the next tokens
+    twin = _meta_twin(engine)
+    twin.decode_plan = twin._plan_decode()
+    out: Dict[str, Any] = {
+        "platform": platform.name,
+        "walked": {"device": "meta",
+                   "decode_backend": _decode_backend(twin),
+                   "engine_decode_backend": _decode_backend(engine)},
+        "transfers_per_tick": {
+            "h2d_bytes": per_tick_h2d, "d2h_bytes": per_tick_d2h,
+            "h2d_ops": 2 if engine.paged else 1, "d2h_ops": 1},
+        "decode": {"per_bucket": {}}, "prefill": {"per_bucket": {}},
+    }
+    transfer = float(per_tick_h2d + per_tick_d2h)
+    decode_entries = {}
+    for hw in _decode_widths(engine, budget):
+        step = twin._build_step("decode", hw)
+        costs = costmodel.torch_costs(step.body)
+        decode_entries[str(hw if engine.paged else "full")] = \
+            costmodel.roofline(costs, platform, transfer_bytes=transfer)
+    out["decode"]["per_bucket"] = decode_entries
+    if decode_entries:
+        out["decode"]["max"] = max(decode_entries.values(),
+                                   key=lambda e: e["hbm_bytes"])
+    prefill_entries = {}
+    for cb in budget["prefill"]["buckets"]:
+        step = twin._build_step("prefill", cb)
+        prefill_entries[str(cb)] = costmodel.roofline(
+            costmodel.torch_costs(step.body), platform,
+            transfer_bytes=float(cb * itemsize))
+    out["prefill"]["per_bucket"] = prefill_entries
+    if prefill_entries:
+        out["prefill"]["max"] = max(prefill_entries.values(),
+                                    key=lambda e: e["hbm_bytes"])
+    out["jit_host_callbacks"] = sum(
+        e["host_callbacks"] for e in
+        list(decode_entries.values()) + list(prefill_entries.values()))
+    return out
+
+
+# --------------------------------------------------------------------------
+# report assembly + measured-vs-proven cross-check
+# --------------------------------------------------------------------------
+
+def engine_desc(engine) -> Dict[str, Any]:
+    """The effective (post-clamp) engine configuration: what a bench
+    artifact records so :func:`cross_check_bench` can re-derive the
+    proven budget from the artifact alone (the reference's keys)."""
+    return {
+        "family": engine.api.cfg.family,
+        "allocator": "paged" if engine.paged else "contiguous",
+        "bucketed": engine._bucketed,
+        "max_batch": engine.cfg.max_batch,
+        "max_len": engine.cfg.max_len,
+        "page_size": engine.cfg.page_size,
+        "prefill_chunk": engine.cfg.prefill_chunk,
+        "pages_per_slot": (engine.alloc.pages_per_slot
+                           if engine.paged else None),
+        "prefix_cache": engine.prefix is not None,
+        # the token budget changes when chunks run, never their widths
+        # (verify_chunk_resume); warm-up builds no step outside the proof
+        "tick_budget": engine.cfg.tick_budget,
+        "warmup": engine.cfg.warmup,
+    }
+
+
+def analyze_serve(config_name: str, *,
+                  allocators: Sequence[str] = ("paged", "contiguous"),
+                  engine_kw: Optional[Dict[str, Any]] = None,
+                  reduced: Optional[Dict[str, Any]] = None,
+                  declared_budget: Optional[int] = None,
+                  seed: int = 0) -> Dict[str, Any]:
+    """Run the three passes for one model config; returns the
+    ``ANALYSIS_serve.json`` document (plain data, JSON-serialisable).
+
+    The engine is built on the host from the seeded parameters of the
+    port's own init: the analysis reads its configuration and walks its
+    steps on ``meta`` tensors, so no pass does device work."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import get_model
+    from repro_torch.serve.engine import Engine, EngineConfig
+
+    cfg = get_config(config_name.replace("_", "-"))
+    if reduced is not None:
+        cfg = cfg.reduced(**reduced)
+    api = get_model(cfg)
+    params = api.init(torch.Generator().manual_seed(seed), device="cpu")
+    engine_kw = dict(engine_kw or {})
+
+    doc: Dict[str, Any] = {
+        "schema": SCHEMA_VERSION,
+        "config": cfg.name,
+        "family": cfg.family,
+        "engine_kw": engine_kw,
+        "allocators": {},
+    }
+    ok = True
+    for alloc in allocators:
+        eng = Engine(api, params, EngineConfig(allocator=alloc, **engine_kw),
+                     device="cpu")
+        budget = retrace_budget(
+            bucketed=eng._bucketed, paged=eng.paged,
+            max_len=eng.cfg.max_len, prefill_chunk=eng.cfg.prefill_chunk,
+            page_size=eng.cfg.page_size,
+            pages_per_slot=eng.alloc.pages_per_slot if eng.paged else None,
+            prefix_cache=eng.prefix is not None, declared=declared_budget)
+        sigs = verify_engine_signatures(eng, budget)
+        roof = roofline_engine(eng, budget)
+        arm_ok = (budget["within_budget"] and sigs["verified"]
+                  and roof["jit_host_callbacks"] == 0)
+        doc["allocators"][alloc] = {
+            "engine": engine_desc(eng),
+            "retrace": budget,
+            "signatures": sigs,
+            "roofline": roof,
+            "ok": arm_ok,
+        }
+        ok = ok and arm_ok
+    audit = audit_engine_file()
+    doc["sync_audit"] = audit
+    # the telemetry emit path is audited under its own contract: the
+    # instrumentation adds no h2d / d2h to the tick
+    audit_tel = audit_telemetry_file()
+    doc["sync_audit_telemetry"] = audit_tel
+    doc["ok"] = ok and audit["ok"] and audit_tel["ok"]
+    return doc
+
+
+def cross_check_bench(bench_doc: Dict[str, Any]) -> Dict[str, Any]:
+    """Measured-vs-proven step counts over a bench artifact: each arm
+    records its effective engine config (``engine``, from
+    :func:`engine_desc`) and its live ``prefill_compiles`` /
+    ``decode_compiles``; the proven budget is re-derived from the
+    recorded config alone.  A measured count above the proven bound
+    means the enumeration missed a reachable step: a SOUNDNESS BUG,
+    reported loudly."""
+    arms: Dict[str, Any] = {}
+    ok = True
+    for name, arm in bench_doc.items():
+        if not isinstance(arm, dict) or "engine" not in arm:
+            continue
+        e = arm["engine"]
+        budget = retrace_budget(
+            bucketed=e["bucketed"], paged=e["allocator"] == "paged",
+            max_len=e["max_len"], prefill_chunk=e["prefill_chunk"],
+            page_size=e["page_size"], pages_per_slot=e.get("pages_per_slot"),
+            prefix_cache=e.get("prefix_cache", False))
+        checks = {
+            "prefill": {"measured": arm.get("prefill_compiles", 0),
+                        "proven": budget["prefill"]["proven"]},
+            "decode": {"measured": arm.get("decode_compiles", 0),
+                       "proven": budget["decode"]["proven"]},
+        }
+        failures = [
+            f"SOUNDNESS BUG: {name}.{k} measured {v['measured']} compiles "
+            f"> proven bound {v['proven']} — the static enumeration "
+            f"missed a reachable trace signature"
+            for k, v in checks.items() if v["measured"] > v["proven"]]
+        arms[name] = {"checks": checks, "failures": failures,
+                      "ok": not failures}
+        ok = ok and not failures
+    return {"ok": ok, "arms": arms, "checked": sorted(arms)}
+
+
+def format_serve_report(doc: Dict[str, Any]) -> str:
+    """Human-readable summary of an :func:`analyze_serve` document."""
+    lines = [f"serve static analysis: config={doc['config']} "
+             f"family={doc['family']}"]
+    for alloc, arm in doc["allocators"].items():
+        r = arm["retrace"]
+        lines.append(
+            f"  [{alloc}] compile set: prefill {r['prefill']['proven']}"
+            f"/{r['prefill']['declared']} buckets "
+            f"{r['prefill']['buckets']}, decode {r['decode']['proven']}"
+            f"/{r['decode']['declared']} "
+            f"({'within' if r['within_budget'] else 'OVER'} budget, "
+            f"total {r['proven_total']}/{r['declared_total']})")
+        cr = r.get("chunk_resume")
+        if cr:
+            lines.append(
+                f"  [{alloc}] chunk resume: {cr['resume_points']} resume "
+                f"points, suffix "
+                f"{'exact' if cr['suffix_exact'] else 'MISMATCH'}, "
+                f"new widths {cr['new_widths']} -> "
+                f"{'closed' if cr['closed'] else 'OPEN'}")
+        roof = arm["roofline"]
+        dmax = roof["decode"].get("max")
+        if dmax:
+            lines.append(
+                f"  [{alloc}] decode tick (widest bucket, walked "
+                f"{roof['walked']['decode_backend']} on meta): "
+                f"{dmax['flops']:.3g} FLOPs, {dmax['hbm_bytes']:.3g} "
+                f"HBM bytes, bound={dmax['bound']}, "
+                f"est {dmax['est_s'] * 1e6:.1f} us")
+        t = roof["transfers_per_tick"]
+        lines.append(
+            f"  [{alloc}] transfers/tick: {t['h2d_ops']} h2d "
+            f"({t['h2d_bytes']} B), {t['d2h_ops']} d2h "
+            f"({t['d2h_bytes']} B)")
+    audit = doc["sync_audit"]
+    lines.append(
+        f"  sync audit: {audit['n_sites']} sites, "
+        f"{len(audit['unallowlisted'])} untagged, per-tick "
+        f"h2d={audit['per_tick']['h2d']}/"
+        f"{audit['declared_per_tick']['h2d']} "
+        f"d2h={audit['per_tick']['d2h']}/"
+        f"{audit['declared_per_tick']['d2h']}, "
+        f"table uploads/tick={audit['block_table_uploads_per_tick']}")
+    tel = doc.get("sync_audit_telemetry")
+    if tel:
+        lines.append(
+            f"  telemetry audit: {tel['n_sites']} sites, "
+            f"{len(tel['unallowlisted'])} untagged, emit-path "
+            f"h2d={tel['per_tick']['h2d']}/"
+            f"{tel['declared_per_tick']['h2d']} "
+            f"d2h={tel['per_tick']['d2h']}/"
+            f"{tel['declared_per_tick']['d2h']} "
+            f"({'transfer-free' if tel['ok'] else 'VIOLATED'})")
+    if "cross_check" in doc:
+        cc = doc["cross_check"]
+        lines.append(f"  bench cross-check: arms={cc['checked']} "
+                     f"{'OK' if cc['ok'] else 'FAILED'}")
+        for arm in cc["arms"].values():
+            lines.extend(f"    {f}" for f in arm["failures"])
+    lines.append(f"  => {'OK' if doc['ok'] else 'FAILED'}")
+    return "\n".join(lines)

@@ -27,10 +27,13 @@ Port of :mod:`repro.kernels.ops`:
     concrete operands and outside a CUDA-graph capture) and the winner is
     cached per shape; without a timer the family default is used and not
     cached (``"default-trace"`` on the card, ``"default-cpu"`` on the
-    CPU, where each wrapper runs its plain version).  Candidates are
-    timed in their declared order (the reference ranks them first with
-    its cost model, which is not ported).  Timing launches do not count
-    in :func:`counts`.
+    CPU, where each wrapper runs its plain version).  Before timing, the
+    cost model's static priors (``analysis.costmodel.
+    rank_kernel_candidates``, recorded in ``registry.priors``) order the
+    candidates cheapest first, and a candidate priced ``inf`` (refused by
+    the kernel) is not timed unless every one is.  A cost-model error is
+    not caught: it raises out of ``choose``.  Timing launches do not
+    count in :func:`counts`.
   * :func:`counts` / :func:`add_counts` — each kernel's launches and each
     plain version's calls; a CUDA-graph replay adds the launches its
     capture recorded (``serve.engine``).
@@ -105,11 +108,15 @@ class KernelRegistry:
 
     def __init__(self):
         self.tuned: Dict[tuple, KernelChoice] = {}
+        # (family,) + shape_key -> [(KernelChoice, prior seconds), ...],
+        # cheapest first: the cost model's ranking of each timed shape
+        self.priors: Dict[tuple, list] = {}
         # (family,) + shape_key -> {"choice", "source", "platform", "native"}
         self.decisions: Dict[tuple, dict] = {}
 
     def reset(self) -> None:
         self.tuned.clear()
+        self.priors.clear()
         self.decisions.clear()
 
     def choose(self, family: str, shape_key: tuple, platform: str,
@@ -122,11 +129,13 @@ class KernelRegistry:
         A non-empty ``override`` wins, its ``None`` fields filled from the
         tuned choice when there is one, else the default.  Else a tuned
         choice for the shape is returned.  Else, with a ``timer`` (one
-        candidate -> seconds), every candidate is timed in the declared
-        order, a candidate the kernel refuses (``ValueError``) dropping
-        out, and the fastest is cached and recorded as ``"timed"``.
-        Without a timer the default is returned and NOT cached, so a later
-        call with concrete operands can still tune the shape."""
+        candidate -> seconds), the candidates are timed in the order of
+        their static priors (:meth:`_ranked`; those priced ``inf`` are
+        skipped unless all are), a candidate the kernel refuses
+        (``ValueError``) dropping out, and the fastest (on a tie, the
+        first timed) is cached and recorded as ``"timed"``.  Without a
+        timer the default is returned and NOT cached, so a later call
+        with concrete operands can still tune the shape."""
         candidates = CANDIDATES[family]
         default = candidates[0]
         key = (family,) + shape_key
@@ -143,8 +152,12 @@ class KernelRegistry:
                              if platform == "cpu" else "default-trace",
                              platform)
             return default
+        ranked = self._ranked(family, shape_key, candidates)
+        skip_inf = any(p != float("inf") for _, p in ranked)
         choice, best = default, float("inf")
-        for cand in candidates:
+        for cand, prior in ranked:
+            if skip_inf and prior == float("inf"):
+                continue
             try:
                 t = timer(cand)
             except ValueError:   # refused by the wrapper's checks
@@ -154,6 +167,16 @@ class KernelRegistry:
         self.tuned[key] = choice
         self._record(family, key, choice, "timed", platform)
         return choice
+
+    def _ranked(self, family: str, shape_key: tuple, candidates) -> list:
+        """The candidates with their static priors, cheapest first
+        (recorded in :attr:`priors`).  Unlike the reference, a cost-model
+        error is not turned into declared order: it raises."""
+        from repro_torch.analysis.costmodel import rank_kernel_candidates
+
+        ranked = rank_kernel_candidates(family, shape_key, candidates)
+        self.priors[(family,) + shape_key] = ranked
+        return ranked
 
     def _record(self, family: str, key: tuple, choice: KernelChoice,
                 source: str, platform: str) -> None:

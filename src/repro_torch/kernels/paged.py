@@ -96,6 +96,19 @@ def split_refusal(family: str, group: int, d: int) -> Optional[str]:
     return None
 
 
+#: warps per block of either split kernel (``kSplitWarps`` in the source)
+SPLIT_WARPS = 4
+
+
+def split_smem_bytes(family: str, group: int, d: int) -> int:
+    """Dynamic shared memory one block of the split kernel of ``family``
+    takes (``inhibitor_smem_bytes`` / ``attention_smem_bytes`` in
+    ``csrc/paged_decode.cu``): each warp's float32 sums of the group, and
+    the inhibitor's sum of v, or the Softmax's m and l."""
+    per_warp = (group + 1) * d if family == "inhibitor" else group * (2 + d)
+    return 4 * SPLIT_WARPS * per_warp
+
+
 def _decode_layout(q, k_pool, v_pool, block_tables, lengths):
     """Shape checks shared by both kernels; returns (batch, heads,
     kv_heads, d, page_size, table_width)."""

@@ -35,7 +35,7 @@ def get_model(cfg: ModelConfig) -> ModelApi:
     if cfg.family != "dense":
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported to PyTorch yet (ROADMAP "
-            f"queue 1 item 11)")
+            f"queue 1 item [5b])")
 
     def forward(params, batch):
         return tfm.lm_forward(params, cfg, batch["tokens"])

@@ -25,6 +25,15 @@ Port of :mod:`repro.serve.engine`:
     copy on the device, outside any graph).
   * Host block tables are authoritative; the device mirror is refreshed
     in one batched upload per tick when dirty.
+  * The attention-free ``ssm`` family (RWKV-6) has no KV cache: its
+    per-slot recurrent state (``models.rwkv.RwkvLayerState``) lives in
+    contiguous slots (``allocator="paged"`` is logged and downgraded),
+    with no prefix cache and no decode plan.  Its prompts prefill in
+    exact-length chunks through ``api.step`` with the slot's carried
+    state (pad tokens would enter the carry), whole at admission
+    (``tick_budget`` is logged as ignored), and decode runs ``lm_step``'s
+    exact scan: no kernel runs on this path, as in the reference.
+    Admission zeroes the slot's state rows in place.
 
 **Static steps (the reference's jit per bucket).**  Each decode table
 width ``hw`` (one step for contiguous slots) and each prefill chunk
@@ -39,6 +48,11 @@ kernels' launch candidates (timing synchronizes, so it never runs inside
 a capture).  Later ticks at the bucket replay the graph; all graphs
 share one memory pool.  On the CPU the same step runs its body each
 time, so capture is the only difference between the card and the CPU.
+A recurrent family's decode step (one signature, ``(max_batch, 1)``
+tokens over contiguous slots) is captured the same way; its prefill
+steps, one per exact chunk width, run eagerly on the card too (the
+widths form an unbounded set), and each still counts as one step built,
+as the reference's jit traces one per width.
 The state's tensors are the engine's for its life: every edit
 (cursors, tables, page copies, KV writes) lands in place.  Sampling
 stays outside the graph (argmax or multinomial on the static logits),
@@ -76,6 +90,13 @@ from repro_torch.serve.telemetry import (MetricsRegistry, dump_flight,
                                          make_tracer)
 
 log = logging.getLogger("repro_torch.serve")
+
+# families whose decode state is entirely cursor-guarded: KV rows beyond
+# the cursor are invalid by construction, so padded prefill buckets are
+# safe.  Recurrent carries (ssm / rwkv) would absorb pad tokens, so those
+# families prefill in exact-length chunks instead.
+_KV_FAMILIES = ("dense", "moe", "vlm")
+_PAGEABLE_FAMILIES = ("dense", "moe", "hybrid", "vlm")
 
 # eq=False: requests are identity objects (schedulers remove them from
 # queues by identity)
@@ -242,10 +263,11 @@ class Engine:
         self.cfg = dataclasses.replace(
             cfg, prefill_chunk=clamp_prefill_chunk(cfg.prefill_chunk,
                                                    cfg.max_len))
-        # the dense family's decode state is entirely cursor-guarded: KV
-        # rows beyond a cursor are invalid by construction, so prefill
-        # chunks pad to power-of-two buckets and every slot can be paged
-        self.paged = cfg.allocator == "paged"
+        fam = api.cfg.family
+        self.paged = cfg.allocator == "paged" and fam in _PAGEABLE_FAMILIES
+        if cfg.allocator == "paged" and not self.paged:
+            log.info("family %r has no pageable KV cache; using contiguous "
+                     "slots", fam)
         forced = getattr(api.cfg.attention, "backend", None)
         if forced == "paged_pallas":
             raise ValueError(
@@ -263,8 +285,10 @@ class Engine:
         if forced == "paged" and not self.paged:
             raise ValueError(
                 f"backend='paged' forced but the engine is backed by "
-                f"contiguous slots (allocator={cfg.allocator!r}) — it needs "
-                f"allocator='paged'")
+                f"contiguous slots (allocator={cfg.allocator!r}, family "
+                f"{fam!r}) — it needs allocator='paged' and a pageable "
+                f"family")
+        self._bucketed = fam in _KV_FAMILIES
         if self.paged:
             self.alloc = PagedAllocator(cfg.max_batch, cfg.max_len,
                                         cfg.page_size, cfg.num_pages)
@@ -276,16 +300,25 @@ class Engine:
             self.alloc = SlotAllocator(cfg.max_batch)
             self.states = api.init_states(cfg.max_batch, cfg.max_len,
                                           per_slot=True, device=self.device)
+        # shared-prefix radix cache over the paged pool, for KV-pure
+        # families only: a recurrent carry cannot skip the prefix compute
         self.prefix: Optional[PrefixIndex] = None
-        if self.paged and cfg.prefix_cache:
+        if self.paged and cfg.prefix_cache and fam in _KV_FAMILIES:
             self.prefix = PrefixIndex(self.alloc)
             self.alloc.attach_reclaimer(self._reclaim_pages)
+        elif cfg.prefix_cache and self.paged:
+            log.info("prefix cache unavailable for family %r (recurrent "
+                     "carries cannot skip prefill)", fam)
         self.scheduler = make_scheduler(cfg.scheduler)
         self.active: Dict[int, Request] = {}     # slot -> request
         self.admitting: Dict[int, _PartialPrefill] = {}
-        if cfg.tick_budget is not None and cfg.tick_budget < 1:
-            raise ValueError(f"tick_budget must be >= 1 (or None), got "
-                             f"{cfg.tick_budget}")
+        if cfg.tick_budget is not None:
+            if cfg.tick_budget < 1:
+                raise ValueError(f"tick_budget must be >= 1 (or None), got "
+                                 f"{cfg.tick_budget}")
+            if not self._bucketed:
+                log.info("family %r prefills exact-length whole prompts "
+                         "(recurrent carries); tick_budget ignored", fam)
         self.metrics = MetricsRegistry()
         self.metrics.counters.update({
             "prefix_hit_tokens": 0, "prefix_hit_requests": 0,
@@ -309,13 +342,14 @@ class Engine:
         self.tel = make_tracer(cfg.telemetry)
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         self.decode_plan = self._plan_decode()
-        log.info("engine decode %s [max_batch=%d max_len=%d alloc=%s "
-                 "device=%s]", self.decode_plan.trace_line(), cfg.max_batch,
-                 cfg.max_len, "paged" if self.paged else "contiguous",
-                 self.device)
+        if self.decode_plan is not None:
+            log.info("engine decode %s [max_batch=%d max_len=%d alloc=%s "
+                     "device=%s]", self.decode_plan.trace_line(),
+                     cfg.max_batch, cfg.max_len,
+                     "paged" if self.paged else "contiguous", self.device)
         if self.tel is not None:
             self.tel.set_meta("engine", {
-                "family": api.cfg.family, "max_batch": cfg.max_batch,
+                "family": fam, "max_batch": cfg.max_batch,
                 "max_len": cfg.max_len,
                 "allocator": "paged" if self.paged else "contiguous",
                 "page_size": cfg.page_size,
@@ -323,10 +357,11 @@ class Engine:
                 "tick_budget": cfg.tick_budget,
                 "prefix_cache": self.prefix is not None,
                 "device": str(self.device)})
-            self.tel.set_meta("decode_plan", {
-                "mechanism": self.decode_plan.mechanism,
-                "backend": self.decode_plan.backend,
-                "reason": self.decode_plan.reason})
+            if self.decode_plan is not None:
+                self.tel.set_meta("decode_plan", {
+                    "mechanism": self.decode_plan.mechanism,
+                    "backend": self.decode_plan.backend,
+                    "reason": self.decode_plan.reason})
         # the static steps, one per bucket: their count is the live
         # compile count, checked against the proven retrace budget at
         # drain (measured > proven = soundness bug)
@@ -387,7 +422,7 @@ class Engine:
             from repro_torch.analysis.serve_static import retrace_budget
 
             b = retrace_budget(
-                bucketed=True, paged=self.paged,
+                bucketed=self._bucketed, paged=self.paged,
                 max_len=self.cfg.max_len,
                 prefill_chunk=self.cfg.prefill_chunk,
                 page_size=self.cfg.page_size,
@@ -458,10 +493,13 @@ class Engine:
                                 get_mechanism(resolve_mechanism_name(acfg)))
 
     def _plan_decode(self):
-        """Inspectable attention plan for the steady-state decode tick."""
+        """Inspectable attention plan for the steady-state decode tick;
+        None for the attention-free family (rwkv)."""
         from repro_torch.core.mechanism import AttnShapes, plan_attention
 
         mcfg = self.api.cfg
+        if mcfg.family == "ssm":
+            return None
         acfg = mcfg.attention
         if self.paged:
             n_k = self.alloc.pages_per_slot * self.cfg.page_size
@@ -514,10 +552,13 @@ class Engine:
 
     def _build_step(self, kind: str, width) -> _StaticStep:
         """A new static step for a decode table width (or "contiguous")
-        or a prefill chunk width, with its static input buffers."""
+        or a prefill chunk width, with its static input buffers.  The
+        exact-length prefill widths of a recurrent family form an
+        unbounded set, so those steps run eagerly, never captured."""
         dev = self.device
         i32 = dict(dtype=torch.int32, device=dev)
-        capture = self._capture if dev.type == "cuda" else None
+        capture = self._capture if dev.type == "cuda" and (
+            kind == "decode" or self._bucketed) else None
         if kind == "decode":
             step = _StaticStep(kind, width, lambda: self._decode_body(step),
                                capture)
@@ -526,7 +567,8 @@ class Engine:
             step = _StaticStep(kind, width,
                                lambda: self._prefill_body(step), capture)
             step.tokens = torch.zeros((1, width), **i32)
-            step.cursor = torch.zeros((1,), **i32)
+            if self._bucketed:
+                step.cursor = torch.zeros((1,), **i32)
             if self.paged:
                 step.table = torch.zeros(
                     (1, self.alloc.pages_per_slot), **i32)
@@ -541,7 +583,16 @@ class Engine:
 
     def _decode_body(self, step: _StaticStep) -> None:
         """Decode tick over the whole batch: the static token batch, the
-        engine's state (its block tables clamped to the bucket's width)."""
+        engine's state (its block tables clamped to the bucket's width).
+        A recurrent state is copied back into the engine's own tensors."""
+        if not isinstance(self.states, LayerState):
+            with torch.no_grad():
+                logits, new = self.api.step(self.params, step.tokens,
+                                            self.states, None)
+            for dst, src in zip(self.states, new):
+                dst.copy_(src)
+            self._write_out(step, logits[:, -1])
+            return
         kv = self.states.kv
         states_in = self.states
         if self.paged:
@@ -558,7 +609,18 @@ class Engine:
         batch-1 view at the static cursor.  Paged: the pools are shared
         and written in place, the view's table is the static row.
         Contiguous: the slot's rows are gathered by the static slot index
-        and scattered back after the step."""
+        and scattered back after the step; a recurrent state the same way,
+        with no cursor (its chunks are exact-length)."""
+        if not isinstance(self.states, LayerState):
+            view = type(self.states)(*(x.index_select(1, step.slot)
+                                       for x in self.states))
+            with torch.no_grad():
+                logits, new = self.api.step(self.params, step.tokens, view,
+                                            None)
+            for dst, src in zip(self.states, new):
+                dst.index_copy_(1, step.slot, src.to(dst.dtype))
+            self._write_out(step, logits)
+            return
         kv = self.states.kv
         if self.paged:
             view = PagedKVCache(kv.k, kv.v, step.table, step.cursor)
@@ -588,17 +650,27 @@ class Engine:
                                                                  width)
         return step
 
+    def _warmup_state(self) -> List[torch.Tensor]:
+        """The state tensors a warm-up's eager runs change, to be
+        restored after: the cursors of a KV cache, every tensor of a
+        recurrent state."""
+        if isinstance(self.states, LayerState):
+            return [self.states.kv.length]
+        return list(self.states)
+
     def _warmup_decode(self) -> None:
         """Build (on cuda: tune and capture) the decode step of every
         proven table-width bucket at construction, so no serving tick
         builds one.  The tables are zeroed (every write lands on the trash
-        page 0) and the cursors restored after each bucket's eager run."""
+        page 0) and the cursors, or the recurrent state, restored after
+        each bucket's eager run."""
         from repro_torch.analysis.serve_static import enumerate_decode_buckets
 
-        kv = self.states.kv
-        lengths = kv.length.clone()
+        live = self._warmup_state()
+        saved = [x.clone() for x in live]
         widths: List[Any] = ["contiguous"]
         if self.paged:
+            kv = self.states.kv
             tables = kv.block_tables.clone()
             kv.block_tables.zero_()
             widths = enumerate_decode_buckets(
@@ -609,7 +681,8 @@ class Engine:
             if step.runs == 0:
                 step.tokens.zero_()
                 step()
-                kv.length.copy_(lengths)
+                for dst, src in zip(live, saved):
+                    dst.copy_(src)
         if self.paged:
             kv.block_tables.copy_(tables)
 
@@ -617,35 +690,41 @@ class Engine:
         """Build the proven prefill chunk buckets at construction (warmup
         "serve"), each run once eagerly at slot 0, cursor 0, on a zeroed
         table row (paged writes land on the trash page) and captured on
-        cuda; the cursors are restored after."""
+        cuda (a recurrent family's exact widths: built, not captured);
+        the cursors, or the recurrent state, are restored after."""
         from repro_torch.analysis.serve_static import (
             enumerate_prefill_buckets)
 
-        lengths = self.states.kv.length.clone()
+        live = self._warmup_state()
+        saved = [x.clone() for x in live]
         for cb in enumerate_prefill_buckets(
                 max_len=self.cfg.max_len,
-                prefill_chunk=self.cfg.prefill_chunk, bucketed=True,
+                prefill_chunk=self.cfg.prefill_chunk,
+                bucketed=self._bucketed,
                 page_size=self.cfg.page_size if self.paged else None,
                 prefix_cache=self.prefix is not None):
             step = self._prefill_step_for(cb)
             if step.runs == 0:
                 step.tokens.zero_()
-                step.cursor.zero_()
+                if step.cursor is not None:
+                    step.cursor.zero_()
                 if self.paged:
                     step.table.zero_()
                 else:
                     step.slot.zero_()
                 step()
-        self.states.kv.length.copy_(lengths)
+        for dst, src in zip(live, saved):
+            dst.copy_(src)
 
     def _kernel_provenance(self) -> Dict[str, Any]:
         """JSON-safe kernel/plan provenance for trace attribution: the
         planner's backend and reason, whether the paged kernels run
         natively here, and which launch configuration each registry shape
         took and why.  Called only when tracing, at bucket rate."""
+        plan = self.decode_plan
         out: Dict[str, Any] = {
-            "backend": self.decode_plan.backend,
-            "plan_reason": self.decode_plan.reason,
+            "backend": plan.backend if plan is not None else None,
+            "plan_reason": plan.reason if plan is not None else None,
             "native": self.device.type in kops.NATIVE_PLATFORMS["paged"],
         }
         if kops.registry.decisions:
@@ -660,8 +739,8 @@ class Engine:
     def _prefill_schedule(self, prompt_len: int,
                           start: int = 0) -> List[Tuple[int, int]]:
         return prefill_schedule(prompt_len, chunk=self.cfg.prefill_chunk,
-                                max_len=self.cfg.max_len, bucketed=True,
-                                start=start)
+                                max_len=self.cfg.max_len,
+                                bucketed=self._bucketed, start=start)
 
     def _prefill_extent(self, prompt_len: int) -> int:
         return max((s + c for s, c in self._prefill_schedule(prompt_len)),
@@ -695,7 +774,6 @@ class Engine:
         # the chunk-batch X span starts AFTER the resumed instant: the X
         # event is emitted at its start timestamp
         t0 = tr.now() if tr is not None else 0.0
-        kv = self.states.kv
         step, last = None, 0
         last_i = len(part.schedule) - 1
         for i in range(part.next_chunk, upto):
@@ -706,9 +784,10 @@ class Engine:
             last = L - 1 - start if i == last_i else real - 1
             step = self._prefill_step_for(cb)
             step.tokens.copy_(torch.from_numpy(toks))  # sync: required — prompt-chunk upload (admission rate, not per tick)
-            step.cursor.fill_(start)
+            if self._bucketed:
+                step.cursor.fill_(start)
             if self.paged:
-                step.table.copy_(kv.block_tables[slot:slot + 1])
+                step.table.copy_(self.states.kv.block_tables[slot:slot + 1])
             else:
                 step.slot.fill_(slot)
             self.counters["prefill_chunks"] += 1
@@ -720,7 +799,8 @@ class Engine:
         part.next_chunk = upto
         self._progressed = True
         done = upto == len(part.schedule)
-        self._set_cursor(slot, L if done else part.pos)
+        if self._bucketed:
+            self._set_cursor(slot, L if done else part.pos)
         self.alloc.slots[slot].length = part.pos
         if tr is not None:
             tr.request_chunks(req.request_id, t0, lo, upto, part.pos,
@@ -805,6 +885,18 @@ class Engine:
         """Device-side edit of one slot's cursor (no host transfer)."""
         self.states.kv.length[slot] = value
 
+    def _reset_slot(self, slot: int, pos: int = 0):
+        """Reset one slot's decode state across all layers before a chunk
+        runs: the KV families pin the cursor at ``pos`` (rows past it are
+        invalid by construction); a recurrent family zeroes the slot's
+        rows of every state tensor, in place, so the decode graph's
+        replays keep reading the same storage."""
+        if isinstance(self.states, LayerState):
+            self._set_cursor(slot, pos)
+            return
+        for x in self.states:
+            x[:, slot].zero_()
+
     def _scrub_slot_device(self, slot: int):
         """Retire an inactive slot's device row: its cursor goes to 0 and
         its (host-zeroed) table row rides the next flush, so the row's
@@ -853,6 +945,15 @@ class Engine:
                     self._tables_dirty = True
                     self.counters["forked_pages"] += 1
         return True
+
+    def _prefill_quota(self) -> Optional[int]:
+        """This tick's chunked-prefill token quota (None: unbounded), from
+        the scheduler's token-budget policy.  A recurrent family prefills
+        whole prompts: its carries would absorb the interleaved ticks' pad
+        garbage, so the budget paces the KV families only."""
+        if not self._bucketed:
+            return None
+        return self.scheduler.prefill_quota(self, len(self.active))
 
     def _plan_chunks(self, part: _PartialPrefill, quota: Optional[int],
                      spent: int) -> int:
@@ -944,7 +1045,7 @@ class Engine:
                     slot2 = self.alloc.claim(req.request_id)
                     self.admitting[slot2] = _PartialPrefill(
                         req=req, schedule=self._stage_slot(slot2, req, 0, []))
-                    self._set_cursor(slot2, 0)
+                    self._reset_slot(slot2)
                     if self.paged:
                         self._tables_dirty = True
                     if self.tel is not None:
@@ -1023,10 +1124,10 @@ class Engine:
                 tr.request_admitted(req.request_id, slot, part.credit,
                                     len(part.schedule))
             self._progressed = True
-            # reset the slot's cursor; a credit-mounted partial pins it at
-            # the resume point right away, so its decode-tick garbage
-            # write lands past the mount, never on a shared page
-            self._set_cursor(slot, part.pos)
+            # reset the slot's state; a credit-mounted partial pins its
+            # cursor at the resume point right away, so its decode-tick
+            # garbage write lands past the mount, never on a shared page
+            self._reset_slot(slot, part.pos)
             if self.paged:
                 self._tables_dirty = True
             cost, fin = self._advance_one(slot, quota, spent, now,
@@ -1107,8 +1208,7 @@ class Engine:
                 finished.append(self._finish(slot))
         if tr is not None:
             tr.begin("prefill_pass")
-        quota = self.scheduler.prefill_quota(self, len(self.active))
-        finished.extend(self._run_prefills(quota, now))
+        finished.extend(self._run_prefills(self._prefill_quota(), now))
         if tr is not None:
             tr.end("prefill_pass")
         if not self.active:
@@ -1136,7 +1236,7 @@ class Engine:
             tr.instant("decode_bucket", cat="plan", table_width=width,
                        **self._kernel_provenance())
         self.counters["decode_ticks"] += 1
-        if self.admitting:
+        if self.admitting and self._bucketed:
             # mid-prefill rows rode this tick as inactive rows: re-pin
             # their cursors at the resume point
             for slot, part in self.admitting.items():

@@ -93,3 +93,14 @@ def test_importing_the_checkpoint_path_loads_no_jax():
     _loads_no_jax("repro_torch.checkpoint, repro_torch.train.loop, "
                   "repro_torch.launch.train_inhibitor_lm, "
                   "repro_torch.data.pipeline")
+
+
+def test_importing_and_running_the_serve_analyzer_loads_no_jax():
+    """The cost model, the serve analyzer's CLI, and one analysis of the
+    reduced rwkv6-7b engine (built, its steps walked on meta tensors)."""
+    _loads_no_jax("repro_torch.analysis.costmodel, "
+                  "repro_torch.analysis.serve",
+                  "from repro_torch.analysis.serve_static import "
+                  "analyze_serve; analyze_serve('rwkv6-7b', reduced={}, "
+                  "engine_kw=dict(max_batch=2, max_len=16, page_size=8, "
+                  "prefill_chunk=4)); ")

@@ -7,9 +7,18 @@ engine's compile accounting, against the JAX package.
 * Pass 2: the host-sync audit over torch's transfer surfaces finds 2 h2d
   + 1 d2h a steady decode tick in the port's engine, rejects an untagged
   site, and finds no transfer on the telemetry emit path.
-* The engine: its ``retrace_budget()`` equals the reference engine's; a
-  compile count forced over the budget raises at drain.
-* The kernel registry's timed ``choose`` with an injected timer.
+* The engine: its ``retrace_budget()`` and ``engine_desc`` equal the
+  reference engine's; a compile count forced over the budget raises at
+  drain.
+* Pass 3 and the report: ``analyze_serve`` end to end on the reduced
+  smollm-135m (ok, every signature built on meta tensors, one roofline
+  entry per proven bucket, no host sync inside a step, JSON-
+  serialisable); the reduced rwkv6-7b rejected (prefill proven >
+  declared); the CLI's exit codes 0 / 1 and schema 2;
+  ``cross_check_bench`` equal to the reference's on the same dict
+  literals; an untraceable signature reported, not raised.
+* The kernel registry's timed ``choose`` with an injected timer, in the
+  cost model's prior order.
 """
 
 import ast
@@ -215,21 +224,26 @@ def test_registry_times_candidates_with_an_injected_timer():
         return seconds[c.pages_per_step]
 
     got = r.choose("paged", key, "cuda", timer=timer)
-    # declared order, the refused candidate dropped, the fastest kept
-    assert timed == [4, 1, 2, 8] and got.pages_per_step == 8
+    # the cost model's prior order (fewest splits first: the fewest
+    # partials to write and merge), the refused candidate dropped, the
+    # fastest kept
+    assert timed == [8, 4, 2, 1] and got.pages_per_step == 8
+    assert [c.pages_per_step for c, _ in r.priors[("paged",) + key]] == \
+        [8, 4, 2, 1]
     d = r.decisions[("paged",) + key]
     assert d["source"] == "timed" and d["native"] is True
     # cached per shape: no second timing
     assert r.choose("paged", key, "cuda", timer=timer) == got
-    assert timed == [4, 1, 2, 8]
+    assert timed == [8, 4, 2, 1]
     # an override merges onto the tuned choice
     over = r.choose("paged", key, "cuda",
                     kops.KernelChoice(block_q=64), timer=timer)
     assert over.pages_per_step == 8 and over.block_q == 64
-    # ties keep the earlier candidate; a launch error raises
+    # ties keep the earlier-timed candidate (the cheapest prior); a
+    # launch error raises
     r2 = kops.KernelRegistry()
     assert r2.choose("paged", key, "cuda",
-                     timer=lambda c: 1.0).pages_per_step == 4
+                     timer=lambda c: 1.0).pages_per_step == 8
 
     def broken(c):
         raise RuntimeError("paged_inhibitor_decode launch failed")
@@ -267,3 +281,163 @@ def test_paged_wrappers_on_the_cpu_take_the_default_and_count_plain_calls():
     kops.add_counts({"paged_inhibitor": 30})
     assert kops.counts()["paged_inhibitor"] == 30
     kops.reset_counts()
+
+
+# ---------------------------------------------------------------------------
+# pass 3 and the report: signatures, roofline, analyze_serve, the CLI
+# ---------------------------------------------------------------------------
+
+SMALL = dict(num_layers=2, d_model=32, d_ff=64, vocab_size=128)
+GEOM = dict(max_batch=2, max_len=32, page_size=8, prefill_chunk=8)
+
+
+def test_analyze_serve_end_to_end(tmp_path):
+    import json
+
+    doc = tstatic.analyze_serve("smollm-135m", reduced=SMALL,
+                                engine_kw=dict(GEOM))
+    assert doc["ok"] and doc["schema"] == 2 == tstatic.SCHEMA_VERSION
+    assert doc["family"] == "dense" and doc["engine_kw"] == GEOM
+    for alloc in ("paged", "contiguous"):
+        arm = doc["allocators"][alloc]
+        assert arm["ok"] and arm["retrace"]["within_budget"]
+        assert arm["signatures"]["verified"]
+        assert arm["roofline"]["jit_host_callbacks"] == 0
+        # one roofline entry per proven decode bucket and prefill width
+        dec = arm["roofline"]["decode"]["per_bucket"]
+        assert len(dec) == arm["retrace"]["decode"]["proven"]
+        assert (sorted(map(int, arm["roofline"]["prefill"]["per_bucket"]))
+                == arm["retrace"]["prefill"]["buckets"])
+        assert len(arm["signatures"]["decode"]) == len(dec)
+        # the walk took the plain path on meta; the engine plans its own
+        assert arm["roofline"]["walked"]["device"] == "meta"
+        t = arm["roofline"]["transfers_per_tick"]
+        assert (t["h2d_ops"], t["d2h_ops"]) == (
+            (2, 1) if alloc == "paged" else (1, 1))
+    # wider decode buckets read more bytes
+    pb = doc["allocators"]["paged"]["roofline"]["decode"]["per_bucket"]
+    assert pb["1"]["hbm_bytes"] < pb["2"]["hbm_bytes"] < pb["4"]["hbm_bytes"]
+    assert doc["sync_audit"]["ok"] and doc["sync_audit_telemetry"]["ok"]
+    (tmp_path / "a.json").write_text(json.dumps(doc))  # JSON-serialisable
+    text = tstatic.format_serve_report(doc)
+    assert "=> OK" in text and "table uploads/tick=1" in text
+
+
+def test_analyzer_rejects_the_unbucketed_family():
+    """rwkv (ssm family) prefills exact-width chunks: its step set grows
+    with the prompt lengths and must fail the budget proof."""
+    doc = tstatic.analyze_serve("rwkv6-7b", reduced={},
+                                engine_kw=dict(GEOM))
+    assert not doc["ok"] and doc["family"] == "ssm"
+    for arm in doc["allocators"].values():
+        assert arm["engine"]["allocator"] == "contiguous"
+        assert not arm["engine"]["bucketed"]
+        r = arm["retrace"]
+        assert not r["within_budget"]
+        assert r["prefill"]["proven"] == 8 > r["prefill"]["declared"] == 4
+        # every exact width is still a buildable, walkable signature
+        assert arm["signatures"]["verified"]
+        assert [s["width"] for s in arm["signatures"]["prefill"]] == \
+            list(range(1, 9))
+        roof = arm["roofline"]
+        assert roof["walked"]["decode_backend"] == "naive"
+        assert roof["transfers_per_tick"]["h2d_ops"] == 1
+        assert roof["jit_host_callbacks"] == 0
+
+
+def test_cli_exit_codes_and_schema(tmp_path):
+    import json
+
+    from repro_torch.analysis import serve as cli
+
+    out = tmp_path / "ANALYSIS_serve.json"
+    rc = cli.main(["--config", "smollm-135m", "--reduced",
+                   "--max-batch", "2", "--max-len", "32",
+                   "--page-size", "8", "--prefill-chunk", "8",
+                   "--out", str(out)])
+    assert rc == 0
+    doc = json.loads(out.read_text())
+    assert doc["ok"] and doc["schema"] == 2
+    rc = cli.main(["--config", "rwkv6-7b", "--reduced",
+                   "--max-batch", "2", "--max-len", "32",
+                   "--page-size", "8", "--prefill-chunk", "8",
+                   "--out", str(tmp_path / "rejected.json")])
+    assert rc == 1
+    assert not json.loads((tmp_path / "rejected.json").read_text())["ok"]
+    # a bench artifact whose measured count is over the proof fails it
+    bench = tmp_path / "bench.json"
+    bench.write_text(json.dumps({"paged": {
+        "engine": doc["allocators"]["paged"]["engine"],
+        "prefill_compiles": 99, "decode_compiles": 1}}))
+    rc = cli.main(["--config", "smollm-135m", "--reduced",
+                   "--max-batch", "2", "--max-len", "32",
+                   "--page-size", "8", "--prefill-chunk", "8",
+                   "--check-bench", str(bench), "--out", "-"])
+    assert rc == 1
+
+
+BENCH_ENGINE = {"family": "dense", "allocator": "paged", "bucketed": True,
+                "max_batch": 4, "max_len": 64, "page_size": 8,
+                "prefill_chunk": 8, "pages_per_slot": 8,
+                "prefix_cache": True}
+BENCH_DOCS = [
+    {"paged": {"engine": BENCH_ENGINE, "prefill_compiles": 3,
+               "decode_compiles": 4}},
+    {"paged": {"engine": BENCH_ENGINE, "prefill_compiles": 99,
+               "decode_compiles": 4}},
+    {"paged": {"engine": BENCH_ENGINE, "prefill_compiles": 4,
+               "decode_compiles": 5},
+     "contiguous": {"engine": dict(BENCH_ENGINE, allocator="contiguous",
+                                   pages_per_slot=None,
+                                   prefix_cache=False),
+                    "prefill_compiles": 4, "decode_compiles": 2},
+     "meta": {"note": "no engine: skipped"}, "wall_s": 1.5},
+    {"rwkv": {"engine": dict(BENCH_ENGINE, family="ssm", bucketed=False,
+                             allocator="contiguous", pages_per_slot=None,
+                             prefix_cache=False),
+              "prefill_compiles": 8, "decode_compiles": 1}},
+]
+
+
+@pytest.mark.parametrize("case", range(len(BENCH_DOCS)))
+def test_cross_check_bench_equals_the_reference(case):
+    doc = BENCH_DOCS[case]
+    got = tstatic.cross_check_bench(doc)
+    assert got == jstatic.cross_check_bench(doc)
+    assert got["ok"] == (case in (0, 3))
+    if not got["ok"]:
+        assert any("SOUNDNESS BUG" in f for arm in got["arms"].values()
+                   for f in arm["failures"])
+
+
+@pytest.mark.parametrize("allocator", ["paged", "contiguous"])
+@pytest.mark.parametrize("prefix_cache", [True, False])
+def test_engine_desc_equals_the_reference_engines(engines, allocator,
+                                                  prefix_cache):
+    kw = dict(GEOM, allocator=allocator, prefix_cache=prefix_cache,
+              tick_budget=6, warmup="decode")
+    assert (tstatic.engine_desc(engines("repro_torch", **kw))
+            == jstatic.engine_desc(engines("repro", **kw)))
+
+
+def test_an_untraceable_signature_is_a_finding(engines, monkeypatch):
+    eng = engines("repro_torch", **GEOM)
+    budget = tstatic.retrace_budget(
+        bucketed=True, paged=True, max_len=32, prefill_chunk=8,
+        page_size=8, pages_per_slot=eng.alloc.pages_per_slot,
+        prefix_cache=True)
+    good = tstatic.verify_engine_signatures(eng, budget)
+    assert good["verified"] and "error" not in good
+    assert [s["table_width"] for s in good["decode"]] == [1, 2, 4]
+    assert len({s["signature"] for s in good["decode"]}) == 3
+    # the live engine is untouched: no step built, state on the CPU
+    assert not eng._decode_steps and not eng._prefill_steps
+    assert eng.states.kv.k.device.type == "cpu"
+
+    def broken(self, step):
+        raise RuntimeError("shape mismatch in the decode body")
+
+    monkeypatch.setattr(tengine.Engine, "_decode_body", broken)
+    bad = tstatic.verify_engine_signatures(eng, budget)
+    assert not bad["verified"]
+    assert "shape mismatch" in bad["error"]
