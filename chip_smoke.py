@@ -14,11 +14,18 @@ Phases, each printing one JSON line; any failure exits non-zero:
                d=64, page 16, batch 8, table width 32, ragged lengths 1..512,
                two rows sharing pages, a poisoned trash page, a window
                case), both split kernels also at 5 and 8 query heads per
-               kv head, with kernel, plain, library and bound times, the
-               kernel's and the library's device time per call (CUDA
-               kernels in a torch.profiler trace, no host time) and each
-               split kernel's launch grid (splits and blocks) read from
-               that trace.
+               kv head and at the served families' shapes (signed and
+               unsigned inhibitor, Softmax): d 128 at group 1 (16 / 16
+               heads) and group 5 (40 / 8), d 64 at group 5 with a
+               1,024-key window over cursors up to 1,100; with kernel,
+               plain, library and bound times, the kernel's and the
+               library's device time per call (CUDA kernels in a
+               torch.profiler trace, no host time) and each split
+               kernel's launch grid (splits and blocks) read from that
+               trace; then both kernels timed the same way at
+               qwen2-moe-a2.7b's decode shape (batch 8, 16 / 16 heads, d
+               128, cursors 1..512) and hymba-1.5b's (batch 4, 25 / 5, d
+               64, window 1,024, table width 128).
   4. serve   — smollm-135m@inhibitor, then smollm-135m (dot-product), at
                full width (bf16 compute, seeded random init) through the
                paged engine (max_batch 8, max_len 512, page 16, prefix
@@ -167,6 +174,43 @@ Phases, each printing one JSON line; any failure exits non-zero:
                and 16's live engines; for information, the decode tick's
                static ``est_s`` beside phase 4's device time, and the
                launch overhead behind the cost model's ``dispatch_s``.
+ 18. serve_moe — qwen2-moe-a2.7b@inhibitor, then qwen2-moe-a2.7b, at full
+               width and depth (24 layers, 64 experts of 1408 top 4 and
+               a gated shared expert; 15.15 B float32 parameters drawn on
+               the card from a CUDA generator, bf16 compute; the
+               inhibitor arm's wq and wk scaled by 1/sqrt(128)) through
+               phase 4's engine and traffic (paged, max_batch 8,
+               max_len 512, page 16, prefix cache on, warm-up "serve"; 8
+               requests of 128 random tokens, 32 new each).  Counts
+               zeroed just before, read just after: the arm's kernel
+               launched decode ticks x 24 times, every other count 0;
+               every tick a replay; the steps within the proven budget;
+               every decode bucket's paged choice timed; the greedy
+               tokens equal to the same engine's steps run eagerly over
+               the same batches (MoE capacity ties a batch's rows
+               together); one full-width decode step through the kernel
+               within 5% of the forced gather backend's largest logit, a
+               V-zeroed control outside, at least 10% of layer 0's
+               inhibitor outputs non-zero; peak memory under the card's.
+               Printed beside the card's name and power limit: tick p50,
+               ITL, TTFT, tok/s, a second wave's profiled tick (device
+               time, idle share), the tick's floor (every weight read
+               once), peak memory and the MoE dropped fraction of the
+               eager run.  Each arm's parameters are freed after it.
+ 19. serve_hybrid — hymba-1.5b@inhibitor, then hymba-1.5b (32 layers,
+               attention with a 1,024-key window beside a Mamba branch),
+               the same way: paged, max_batch 4, max_len 2048, page 16,
+               prefill chunk 32, the prefix cache refused by the family,
+               warm-up "decode"; 4 requests (one of 1,100 tokens, whose
+               decode reads past the window, and three of 64), 16 new
+               each; launches = ticks x 32; tokens equal to the eager
+               engine's; a second wave whose first request repeats the
+               1,100-token prompt in the recycled slot 0 reproduces its
+               tokens; the KV pools, cursors, tables and the ssm / conv
+               carries keep their storage across the waves; the decode
+               step kernel against gather with the window biting.  The
+               first request's TTFT (35 eager chunks through the Mamba
+               loop) is printed on its own.
 
 Then the ``kernels`` summary line, the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``.  TF32 is off for matmuls and cuDNN.
@@ -179,9 +223,11 @@ Then the ``kernels`` summary line, the ``nvidia-smi`` line and, last,
     python3 chip_smoke.py --only resume
     python3 chip_smoke.py --only serve_rwkv
     python3 chip_smoke.py --only serve_analysis
+    python3 chip_smoke.py --only serve_moe
+    python3 chip_smoke.py --only serve_hybrid
 
 run phases 1, 2 and 3 (or 9, or 13, or 4, or 14, or 15, or 16, or 4
-and 17) alone, against the package under
+and 17, or 18, or 19) alone, against the package under
 ``--src`` (by default this checkout's): another commit's kernels checked
 and timed by this script's phase.  Against another package, phase 3 records the
 launch grids without holding them to the split design, and phase 4
@@ -203,6 +249,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from typing import Optional
 
 SRC = Path(__file__).resolve().parent / "src"
 
@@ -356,43 +403,71 @@ def device_us(fn, n: int, grids: bool = False, attempts: int = 3) -> dict:
     return out
 
 
+@dataclasses.dataclass(frozen=True)
+class PagedShape:
+    """A paged decode shape: query / kv heads, head_dim, batch, table
+    width in pages, the rows' cursors, two rows sharing their first
+    pages, and the attention window."""
+    heads: int = H
+    kv_heads: int = H_KV
+    d: int = D
+    batch: int = BATCH
+    width: int = WIDTH
+    lengths: tuple = tuple(LENGTHS)
+    shared_rows: Optional[tuple] = SHARED_ROWS
+    window: Optional[int] = None
+
+    @property
+    def qk_std(self) -> dict:
+        return {"paged_inhibitor": self.d ** -0.5, "paged_attention": 1.0}
+
+
+#: smollm-135m's decode shape (phase 4)
+SMOLLM_SHAPE = PagedShape()
+
+
 def make_pools(gen, dtype, layers: int = 1, poison: bool = True,
-               qk_std: float = 1.0, device: str = "cuda", heads: int = H):
-    """Ragged paged pools in the engine's layout: per-row non-contiguous
-    pages, trash page 0 for unmapped entries, rows 5/6 sharing their first
-    pages; q (``heads`` query heads) and k of stddev ``qk_std``, v unit
-    normal.  With ``poison``, the trash page and every row's tail past its
-    cursor hold ±1e9.  Returns q, k_pool, v_pool, tables, lengths."""
+               qk_std: float = 1.0, device: str = "cuda",
+               heads: Optional[int] = None,
+               shape: PagedShape = SMOLLM_SHAPE):
+    """Ragged paged pools in the engine's layout at ``shape``: per-row
+    non-contiguous pages, trash page 0 for unmapped entries, the shared
+    rows sharing their first pages; q (``heads`` query heads, default the
+    shape's) and k of stddev ``qk_std``, v unit normal.  With ``poison``,
+    the trash page and every row's tail past its cursor hold ±1e9.
+    Returns q, k_pool, v_pool, tables, lengths."""
     import torch
 
-    num_pages = BATCH * WIDTH + 1
-    shape = (layers, num_pages, PS, H_KV, D)
-    kp = (torch.randn(shape, generator=gen, device=device) * qk_std).to(dtype)
-    vp = torch.randn(shape, generator=gen, device=device).to(dtype)
+    num_pages = shape.batch * shape.width + 1
+    pool = (layers, num_pages, PS, shape.kv_heads, shape.d)
+    kp = (torch.randn(pool, generator=gen, device=device) * qk_std).to(dtype)
+    vp = torch.randn(pool, generator=gen, device=device).to(dtype)
     perm = (torch.randperm(num_pages - 1, generator=gen, device=device)
             + 1).tolist()
-    tables = torch.zeros((BATCH, WIDTH), dtype=torch.int32)
+    tables = torch.zeros((shape.batch, shape.width), dtype=torch.int32)
     nxt = 0
-    for row, ln in enumerate(LENGTHS):
+    for row, ln in enumerate(shape.lengths):
         used = -(-ln // PS)
         tables[row, :used] = torch.tensor(perm[nxt:nxt + used])
         nxt += used
-    a, b = SHARED_ROWS
-    tables[b, :SHARED_PAGES] = tables[a, :SHARED_PAGES]
+    if shape.shared_rows is not None:
+        a, b = shape.shared_rows
+        tables[b, :SHARED_PAGES] = tables[a, :SHARED_PAGES]
     if poison:
         kp[:, 0], vp[:, 0] = 1e9, -1e9
-    for row, ln in enumerate(LENGTHS):
+    for row, ln in enumerate(shape.lengths):
         tail = ln % PS
         if tail and poison:
             page = int(tables[row, ln // PS])
             kp[:, page, tail:], vp[:, page, tail:] = 1e9, -1e9
-    q = (torch.randn((BATCH, 1, heads, D), generator=gen, device=device)
-         * qk_std).to(dtype)
-    lengths = torch.tensor(LENGTHS, dtype=torch.int32, device=device)
+    q = (torch.randn((shape.batch, 1, heads or shape.heads, shape.d),
+                     generator=gen, device=device) * qk_std).to(dtype)
+    lengths = torch.tensor(shape.lengths, dtype=torch.int32, device=device)
     return q, kp, vp, tables.to(device), lengths
 
 
-def bound(name: str, q, tables, lengths, window, elem: int) -> dict:
+def bound(name: str, q, tables, lengths, window, elem: int,
+          shape: PagedShape = SMOLLM_SHAPE) -> dict:
     """Least time for the work these inputs need: K and V of each distinct
     (page, slot) position some row attends read once (rows sharing pages
     read them once between them), q read and out written once, the table
@@ -400,15 +475,16 @@ def bound(name: str, q, tables, lengths, window, elem: int) -> dict:
     operations on the attendable keys of every query head (the
     inhibitor's as instructions, with the sum of v per kv head)."""
     positions, entries, ops = set(), 0, 0
+    h, h_kv, d = shape.heads, shape.kv_heads, shape.d
     tab = tables.tolist()
     for row, ln in enumerate(lengths.tolist()):
         lo = max(0, ln - window) if window is not None else 0
         positions.update((tab[row][j // PS], j % PS) for j in range(lo, ln))
         entries += -(-ln // PS) - lo // PS
-        ops += (ln - lo) * H * D * OPS_PER_ELEMENT[name]
+        ops += (ln - lo) * h * d * OPS_PER_ELEMENT[name]
         if name == "paged_inhibitor":
-            ops += (ln - lo) * H_KV * D + H * D
-    nbytes = (2 * len(positions) * H_KV * D * elem + 2 * q.numel() * elem
+            ops += (ln - lo) * h_kv * d + h * d
+    nbytes = (2 * len(positions) * h_kv * d * elem + 2 * q.numel() * elem
               + 4 * entries + 4 * lengths.numel())
     rate = FP32_INSTR_PER_S if name == "paged_inhibitor" else FP32_OPS_PER_S
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / rate
@@ -428,6 +504,33 @@ MIN_NONZERO_SHARE = 0.1
 # kernels (smollm-135m's is 3): llama4-scout and hymba-1.5b have 5, the
 # kernels' largest is 8
 SPLIT_GROUPS = (5, 8)
+# the cursors of the long-context shape: around hymba-1.5b's 1,024-key
+# window and past it, to phase 19's 1,100-token prompt (rows 5 and 6
+# share their first pages)
+LONG_LENGTHS = (1, 17, 300, 1023, 1024, 1025, 1100, 1100)
+# the served families' shapes, each held (signed and unsigned inhibitor,
+# Softmax; bf16 and float32) against the plain versions: d 128 at group
+# 1 (qwen2-moe-a2.7b, qwen1.5-4b: 16 / 16 heads) and group 5
+# (llama4-scout: 40 / 8), d 64 at group 5 with hymba-1.5b's window of
+# 1,024 keys over cursors up to 1,100
+FAMILY_SHAPES = {
+    "d128 group 1": PagedShape(heads=16, kv_heads=16, d=128),
+    "d128 group 5": PagedShape(heads=40, kv_heads=8, d=128),
+    "d64 group 5 window 1024": PagedShape(heads=25, kv_heads=5, d=64,
+                                          width=128, lengths=LONG_LENGTHS,
+                                          window=1024),
+}
+# the decode shapes phases 18 and 19 serve, at which both kernels are
+# timed: qwen2-moe-a2.7b's (batch 8, cursors 1..512 as phase 4's, 24
+# layers' pools cycled) and hymba-1.5b's (batch 4 at its table-width
+# bucket 128: the 1,100-token prompt's row after its 16 new tokens and
+# three 64-token rows after theirs, 32 layers' pools)
+SERVE_SHAPES = {
+    "qwen2-moe-a2.7b": (PagedShape(heads=16, kv_heads=16, d=128), 24),
+    "hymba-1.5b": (PagedShape(heads=25, kv_heads=5, d=64, batch=4,
+                              width=128, lengths=(1116, 80, 80, 80),
+                              shared_rows=None, window=1024), 32),
+}
 
 
 def kernel_fns(kpaged, name):
@@ -466,6 +569,16 @@ def parity_checks(torch, kpaged, device: str = "cuda") -> dict:
                                          qk_std=QK_STD[kernel],
                                          device=device)
                 cases += [(name, kws[0], None), (name, kws[1], WINDOW)]
+        # the served families' shapes
+        for shape_name, shape in FAMILY_SHAPES.items():
+            for kernel, kws in (("paged_inhibitor", (dict(signed=True),
+                                                     dict(signed=False))),
+                                ("paged_attention", ({},))):
+                name = f"{kernel} {shape_name}"
+                pools[name] = make_pools(gen, dtype, shape=shape,
+                                         qk_std=shape.qk_std[kernel],
+                                         device=device)
+                cases += [(name, kw, shape.window) for kw in kws]
         for label_name, kw, window in cases:
             name = label_name.split()[0]
             fwd, plain = kernel_fns(kpaged, name)
@@ -480,9 +593,9 @@ def parity_checks(torch, kpaged, device: str = "cuda") -> dict:
             tol = rel * max(1.0, ref.float().abs().max().item())
             if dtype == torch.float32 and not kw.get("normalize", True):
                 # unnormalized, the plain version's eq. 9/10 form cancels
-                # sums of up to max(LENGTHS) terms of size |V| + Z ~ 3:
+                # sums of up to max(lengths) terms of size |V| + Z ~ 3:
                 # its own rounding grows with the key count
-                tol *= max(LENGTHS) / 8
+                tol *= max(lengths.tolist()) / 8
             share = (ref.float().abs() > tol).float().mean().item()
             ctl_err = (control.float() - ref.float()).abs().max().item()
             check(err <= tol, f"{label}: max_abs_err {err} > tol {tol}")
@@ -496,6 +609,8 @@ def parity_checks(torch, kpaged, device: str = "cuda") -> dict:
             r["tol"][str(dtype).replace("torch.", "")] = rel
             r["cases"] += 1
             r["min_nonzero_share"] = min(r["min_nonzero_share"], share)
+            r.setdefault("shapes", set()).add(
+                label_name.partition(" ")[2] or "smollm-135m")
             ratio = ctl_err / tol
             if (r["min_control_err_over_tol"] is None
                     or ratio < r["min_control_err_over_tol"]):
@@ -508,13 +623,14 @@ def parity_checks(torch, kpaged, device: str = "cuda") -> dict:
             kn, vn = kp[0].clone(), vp[0].clone()
             for t in (kn, vn):
                 t[0] = float("nan")
-                for row, ln in enumerate(LENGTHS):
+                for row, ln in enumerate(lengths.tolist()):
                     if ln % PS:
                         t[int(tables[row, ln // PS]), ln % PS:] = float("nan")
             check(torch.equal(fwd(q, kn, vn, tables, lengths), clean),
                   f"{label_name} kernel read a masked position (nan poison)")
     for name in ("paged_inhibitor", "paged_attention"):
         results[name]["groups"] = [H // H_KV, *SPLIT_GROUPS]
+        results[name]["shapes"] = sorted(results[name]["shapes"])
     return results
 
 
@@ -524,8 +640,6 @@ def phase_parity(torch, kpaged, check_grids: bool = True):
     must be (batch x kv heads, ceil(width / pages per split)) over more
     blocks than the card has SMs; without, the grids are only recorded
     (another commit's kernels)."""
-    import torch.nn.functional as F
-
     gen = torch.Generator(device="cuda").manual_seed(1)
     results = parity_checks(torch, kpaged)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -567,19 +681,8 @@ def phase_parity(torch, kpaged, check_grids: bool = True):
                 f"{grid[0]}, expected (batch x kv heads, ceil(width / "
                 f"pages per split)) over more blocks than the {sms} SMs")
         if name == "paged_attention":
-            group = H // H_KV
-            mask = (torch.arange(WIDTH * PS, device="cuda")[None]
-                    < lengths.long()[:, None])[:, None, None, :]
-
-            def library(i):
-                idx = tables.long()
-                k = kp[i % LAYERS][idx].reshape(BATCH, -1, H_KV, D)
-                v = vp[i % LAYERS][idx].reshape(BATCH, -1, H_KV, D)
-                k = k.transpose(1, 2).repeat_interleave(group, dim=1)
-                v = v.transpose(1, 2).repeat_interleave(group, dim=1)
-                return F.scaled_dot_product_attention(
-                    q.transpose(1, 2), k, v, attn_mask=mask)
-
+            library = sdpa_library(torch, q, kp, vp, tables, lengths,
+                                   SMOLLM_SHAPE, LAYERS)
             t["library_ms"] = cuda_ms(library, 100)
             dev = device_us(library, 100)
             t["library_device_us"] = dev["us"]
@@ -591,12 +694,88 @@ def phase_parity(torch, kpaged, check_grids: bool = True):
             t["library_ms"] = None
         t.update(bound(name, q, tables, lengths, None, 2))
         timings[name] = t
+    timings["serve_shapes"] = serve_shape_timings(torch, kpaged, gen, n)
     emit({"phase": "parity", "shapes": {
         "heads": H, "kv_heads": H_KV, "head_dim": D, "page_size": PS,
         "batch": BATCH, "table_width": WIDTH, "lengths": LENGTHS,
         "shared_rows": SHARED_ROWS, "window": WINDOW},
+        "family_shapes": {k: dataclasses.asdict(v)
+                          for k, v in FAMILY_SHAPES.items()},
         "results": results, "timings": timings})
     return results, timings
+
+
+def sdpa_library(torch, q, kp, vp, tables, lengths, shape: PagedShape,
+                 layers: int):
+    """The library yardstick of the paged Softmax kernel: call i gathers
+    layer i's pages by the tables and runs ``scaled_dot_product_attention``
+    under a bool mask of each row's cursor (and window)."""
+    import torch.nn.functional as F
+
+    group = shape.heads // shape.kv_heads
+    j = torch.arange(shape.width * PS, device="cuda")[None]
+    mask = j < lengths.long()[:, None]
+    if shape.window is not None:
+        mask &= j >= lengths.long()[:, None] - shape.window
+    mask = mask[:, None, None, :]
+    idx = tables.long()
+
+    def library(i):
+        k = kp[i % layers][idx].reshape(shape.batch, -1, shape.kv_heads,
+                                        shape.d)
+        v = vp[i % layers][idx].reshape(shape.batch, -1, shape.kv_heads,
+                                        shape.d)
+        k = k.transpose(1, 2).repeat_interleave(group, dim=1)
+        v = v.transpose(1, 2).repeat_interleave(group, dim=1)
+        return F.scaled_dot_product_attention(q.transpose(1, 2), k, v,
+                                              attn_mask=mask)
+
+    return library
+
+
+def serve_shape_timings(torch, kpaged, gen, n: int) -> dict:
+    """Both kernels at the decode shapes phases 18 and 19 serve
+    (``SERVE_SHAPES``), bf16, unpoisoned, cycling over the model's layers'
+    pools: ms per call, the plain version's, the device µs per call and
+    launch grid from a trace, the byte / operation bound, and for the
+    Softmax the library yardstick's ms and device µs (``sdpa_library``)
+    and its distance from the kernel."""
+    out = {}
+    for arch, (shape, layers) in SERVE_SHAPES.items():
+        out[arch] = {"shape": dataclasses.asdict(shape), "layers": layers}
+        for name in ("paged_inhibitor", "paged_attention"):
+            fwd, plain = kernel_fns(kpaged, name)
+            q, kp, vp, tables, lengths = make_pools(
+                gen, torch.bfloat16, layers, poison=False,
+                qk_std=shape.qk_std[name], shape=shape)
+
+            def kernel(i):
+                return fwd(q, kp[i % layers], vp[i % layers], tables,
+                           lengths, window=shape.window)
+
+            t = {"ms": cuda_ms(kernel, n),
+                 "plain_ms": cuda_ms(lambda i: plain(
+                     q, kp[i % layers], vp[i % layers], tables, lengths,
+                     window=shape.window), 10)}
+            dev = device_us(kernel, 100, grids=True)
+            t.update(device_us=dev["us"],
+                     kernels_per_call=dev["kernels_per_call"],
+                     trace_attempts=dev["trace_attempts"],
+                     grids=dev["grids"])
+            t.update(bound(name, q, tables, lengths, shape.window, 2, shape))
+            t["library_ms"] = None
+            if name == "paged_attention":
+                library = sdpa_library(torch, q, kp, vp, tables, lengths,
+                                       shape, layers)
+                t["library_ms"] = cuda_ms(library, 100)
+                t["library_device_us"] = device_us(library, 100)["us"]
+                t["library_max_abs_err"] = (
+                    library(0).transpose(1, 2).float()
+                    - kernel(0).float()).abs().max().item()
+            out[arch][name] = t
+            del q, kp, vp
+    torch.cuda.empty_cache()
+    return out
 
 
 SERVE_ENGINE = dict(max_batch=8, max_len=512, page_size=16, prefix_cache=True)
@@ -2160,6 +2339,419 @@ def phase_serve_analysis(torch, kops, smi: str, served: list) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# 18, 19. serve_moe / serve_hybrid: the MoE and hybrid families served
+# through the paged engine at full width and depth
+# ---------------------------------------------------------------------------
+
+MOE = "qwen2-moe-a2.7b"
+HYBRID = "hymba-1.5b"
+# phase 4's engine and traffic (8 requests of 128 random tokens, 32 new):
+# paged, prefix cache on, every proven bucket captured at construction
+MOE_SERVE_ENGINE = dict(SERVE_ENGINE, warmup="serve")
+# paged; the prefix cache asked for and refused by the family; prompts
+# prefill whole at admission in exact-length chunks of 32, eagerly; every
+# decode bucket (table widths 1..128) captured at construction
+HYBRID_SERVE_ENGINE = dict(max_batch=4, max_len=2048, page_size=16,
+                           prefill_chunk=32, prefix_cache=True,
+                           warmup="decode")
+# one prompt long enough that its decode reads past the 1,024-key window
+HYBRID_PROMPTS, HYBRID_NEW = (1100, 64, 64, 64), 16
+# cursors of the full-width decode step held kernel against gather:
+# phase 5's, and for hymba around its window and past it
+MOE_DECODE_LENGTHS = [0, 14, 15, 16, 99, 299, 500, 510]
+HYBRID_DECODE_LENGTHS = [0, 14, 500, 1022, 1023, 1024, 1100, 2000]
+# phase 5's tolerance: within 5% of the gather path's largest logit
+DECODE_REL = 0.05
+
+
+def moe_requests(Request, vocab: int, wave: int, on_token=None) -> list:
+    return serve_requests(Request, vocab, on_token, wave)
+
+
+def hybrid_requests(Request, vocab: int, wave: int, on_token=None) -> list:
+    import numpy as np
+
+    rng = np.random.default_rng(200 + wave)
+    return [Request(wave * 10 + i, rng.integers(0, vocab, (n,)),
+                    max_new_tokens=HYBRID_NEW, on_token=on_token)
+            for i, n in enumerate(HYBRID_PROMPTS)]
+
+
+FAMILY_SPECS = {
+    MOE: dict(engine=MOE_SERVE_ENGINE, requests=moe_requests,
+              bucketed=True, prefix=True, recycle=False,
+              decode_lengths=MOE_DECODE_LENGTHS),
+    HYBRID: dict(engine=HYBRID_SERVE_ENGINE, requests=hybrid_requests,
+                 bucketed=False, prefix=False, recycle=True,
+                 decode_lengths=HYBRID_DECODE_LENGTHS),
+}
+
+
+@contextlib.contextmanager
+def recording(module, name: str, keep: list):
+    """``module.name`` wrapped to append every call's result to ``keep``
+    (the callers look the function up on the module at each call)."""
+    orig = getattr(module, name)
+
+    def wrapped(*args, **kwargs):
+        out = orig(*args, **kwargs)
+        keep.append(out)
+        return out
+
+    setattr(module, name, wrapped)
+    try:
+        yield keep
+    finally:
+        setattr(module, name, orig)
+
+
+def family_params(torch, api, cfg) -> dict:
+    """Float32 parameters drawn on the card from a CUDA generator (seed 0;
+    a CPU generator would draw 15 B normals on the host); for the
+    inhibitor, every wq and wk scaled by 1/sqrt(head_dim) (QK_STD)."""
+    params = api.init(torch.Generator(device="cuda").manual_seed(0),
+                      device="cuda")
+    if cfg.attention.mechanism.startswith("inhibitor"):
+        std = cfg.attention.head_dim ** -0.5
+        for blk in params["blocks"]:
+            blk["attn"]["wq"]["kernel"].mul_(std)
+            blk["attn"]["wk"]["kernel"].mul_(std)
+    return params
+
+
+def family_decode_paths(torch, kops, cfg, params, lengths, max_len) -> dict:
+    """One full-width paged decode step at cursors ``lengths`` through the
+    paged kernel, through the forced gather backend, and through the
+    kernel after the cached V rows are zeroed (the control), on one state
+    (random K / V, K at 1/sqrt(d) for the inhibitor; zero Mamba carries),
+    in the served bf16 compute and again in float32 compute on the same
+    pool values.  In bf16 the two paths round differently (the kernel
+    accumulates in float32 and rounds once), and an MoE layer's top-k and
+    capacity turn a last-bit difference in one row's router logits into a
+    different expert, or a dropped assignment of another row; float32
+    compute leaves the kernel's own error.  Returns, per compute dtype,
+    the errors against the gather path, the kernel's launches and, for
+    the inhibitor, the share of layer 0's kernel outputs that are
+    non-zero; and each bf16 path's distance to the float32 gather
+    path."""
+    from repro_torch.launch.profile import build_state
+    from repro_torch.models import transformer as tfm
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    st = build_state(cfg, lengths, page_size=PS, max_len=max_len, gen=gen,
+                     device="cuda")
+    inhibitor = cfg.attention.mechanism.startswith("inhibitor")
+    if inhibitor:
+        st.kv.k.mul_(cfg.attention.head_dim ** -0.5)
+    tokens = torch.randint(0, cfg.vocab_size, (len(lengths), 1),
+                           generator=gen, device="cuda")
+    wrapper = "paged_flash_inhibitor" if inhibitor else "paged_flash_attention"
+    kernel = "paged_inhibitor" if inhibitor else "paged_attention"
+    out = {"lengths": lengths}
+    k0, v0 = st.kv.k.clone(), st.kv.v.clone()
+    f32 = dataclasses.replace(cfg, compute_dtype="float32")
+    gathered = {}
+    for label, run in (("bf16", cfg), ("float32", f32)):
+        if label == "float32":
+            tables = st.kv.block_tables
+            st = build_state(f32, lengths, page_size=PS, max_len=max_len,
+                             gen=gen, device="cuda")
+            st.kv.block_tables.copy_(tables)       # the same pages
+        kv = st.kv
+        gather_cfg = dataclasses.replace(run, attention=dataclasses.replace(
+            run.attention, backend="paged"))
+        logits, outs = {}, []
+        kops.reset_counts()
+        for path, run_cfg, v_init in (("kernel", run, v0),
+                                      ("gather", gather_cfg, v0),
+                                      ("control", run, torch.zeros_like(v0))):
+            kv.k.copy_(k0)
+            kv.v.copy_(v_init)
+            keep = []
+            with torch.no_grad(), recording(kops, wrapper, keep):
+                lg, _ = tfm.lm_step(params, run_cfg, tokens, st)
+            logits[path] = lg.float()
+            if path == "kernel":
+                outs = keep
+        ref = logits["gather"]
+        scale = ref.abs().max().item()
+        gathered[label] = logits
+        out[label] = {
+            "max_abs_err": (logits["kernel"] - ref).abs().max().item(),
+            "tol": DECODE_REL * scale, "max_abs_logit": scale,
+            "control_max_abs_err": (logits["control"] - ref).abs().max()
+            .item(),
+            "argmax_agreement": (logits["kernel"].argmax(-1)
+                                 == ref.argmax(-1)).float().mean().item(),
+            "finite": bool(torch.isfinite(logits["kernel"]).all()),
+            "kernel_calls": len(outs), "launches": kops.counts()[kernel],
+            "layer0_nonzero_share": (
+                (outs[0] != 0).float().mean().item() if inhibitor and outs
+                else None)}
+        del outs
+    truth = gathered["float32"]["gather"]
+    out["bf16_vs_float32_gather"] = {
+        path: (gathered["bf16"][path] - truth).abs().max().item()
+        for path in ("kernel", "gather")}
+    del st, k0, v0, gathered
+    return out
+
+
+def serve_family_arm(torch, kops, smi: str, arch: str) -> dict:
+    """Phases 18 and 19 on one arm: ``arch`` at full width and depth
+    (``family_params``) through the paged engine of its ``FAMILY_SPECS``
+    entry.  The counts are zeroed just before the first wave is driven
+    and read just after.  Checks: every request finished; the arm's
+    kernel launched decode ticks x layers times (= the graphs' replayed
+    launches) and every other count 0 (the plain versions never called);
+    every decode tick a replay of a graph captured at construction; the
+    steps built within the proven budget; every decode bucket's paged
+    choice "timed"; the greedy tokens equal to the same engine's steps
+    run eagerly (never captured) over the same traffic; with ``recycle``,
+    a second wave whose first request repeats the first prompt in the
+    recycled slot 0 reproduces its tokens; every state tensor keeps its
+    storage across the waves; one full-width decode step through the
+    kernel within DECODE_REL of the gather backend's, a V-zeroed control
+    outside it, and on the inhibitor arm at least MIN_NONZERO_SHARE of
+    layer 0's kernel outputs non-zero; peak memory under the card's.
+    Printed beside the card's name and power limit: tick p50, ITL, TTFT
+    (and the first request's alone), tok/s, a second-wave tick's device
+    time and idle share, the tick's floor (every weight read once), peak
+    memory and the MoE dropped fraction over the eager run's layers."""
+    from repro_torch.analysis.serve_static import (engine_desc,
+                                                   enumerate_decode_buckets)
+    from repro_torch.configs import get_config
+    from repro_torch.core.mechanism import (kernel_family,
+                                            resolve_mechanism_name)
+    from repro_torch.models.registry import get_model
+    from repro_torch.nn import moe as moenn
+    from repro_torch.serve.engine import Engine, EngineConfig, Request
+
+    spec = FAMILY_SPECS[arch.split("@")[0]]
+    cfg = get_config(arch)
+    api = get_model(cfg)
+    L = cfg.num_layers
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = family_params(torch, api, cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    ecfg = EngineConfig(**spec["engine"])
+    t0 = time.perf_counter()
+    eng = Engine(api, params, ecfg, device="cuda")
+    torch.cuda.synchronize()
+    construct_s = time.perf_counter() - t0
+    check(eng.paged and eng.decode_plan.backend == "paged_pallas"
+          and eng._bucketed == spec["bucketed"]
+          and (eng.prefix is not None) == spec["prefix"],
+          f"{arch}: engine paged={eng.paged} plan={eng.decode_plan} "
+          f"bucketed={eng._bucketed} prefix={eng.prefix is not None}")
+    built = (eng.decode_compiles, eng.prefill_compiles)
+    captures = eng.graph_stats()["captures"]
+
+    def storage():
+        st = eng.states
+        return [t.data_ptr() for t in (st.kv.k, st.kv.v, st.kv.length,
+                                       st.kv.block_tables, st.ssm, st.conv)
+                if t is not None]
+
+    ptrs = storage()
+    first_token = {}
+
+    def on_token(req, tok):
+        first_token.setdefault(req.request_id, time.perf_counter())
+
+    reqs = spec["requests"](Request, cfg.vocab_size, 0, on_token)
+    submitted = {}
+    for r in reqs:
+        eng.submit(r)
+        submitted[r.request_id] = time.perf_counter()
+    kops.reset_counts()
+    tick_ms, decode_only_ms = [], []
+    t0 = time.perf_counter()
+    while eng.active or eng.admitting or len(eng.scheduler):
+        chunks = eng.counters["prefill_chunks"]
+        ts = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - ts) * 1e3
+        tick_ms.append(dt)
+        if eng.counters["prefill_chunks"] == chunks:
+            decode_only_ms.append(dt)
+        check(len(tick_ms) < 1000, f"{arch}: engine did not drain")
+    wall = time.perf_counter() - t0
+    counts = kops.counts()
+    stats = eng.stats()
+    g, budget = stats["graphs"], stats["retrace_budget"]
+    ticks = stats["decode_ticks"]
+    kernel = ("paged_inhibitor" if cfg.attention.mechanism.startswith(
+        "inhibitor") else "paged_attention")
+    outputs = [r.output for r in reqs]
+    check(all(o is not None and len(o) == r.max_new_tokens
+              for o, r in zip(outputs, reqs)),
+          f"{arch}: not every request finished")
+    check(counts[kernel] == ticks * L,
+          f"{arch}: {kernel} launched {counts[kernel]} times, expected "
+          f"{ticks} ticks x {L} layers")
+    check(all(n == 0 for name, n in counts.items() if name != kernel),
+          f"{arch}: unexpected launches {counts}")
+    check(g["decode_replays"] == ticks
+          and g["replayed_launches"].get(kernel, 0) == counts[kernel]
+          and eng.decode_compiles == built[0] and g["captures"] == captures,
+          f"{arch}: {g} for {ticks} ticks (every tick a replay of a graph "
+          f"captured at construction)")
+    if spec["bucketed"]:
+        check(eng.prefill_compiles == built[1],
+              f"{arch}: prefill steps built while serving")
+    check(eng.decode_compiles <= budget["decode_proven"]
+          and eng.prefill_compiles <= budget["prefill_proven"],
+          f"{arch}: steps {eng.decode_compiles} / {eng.prefill_compiles} "
+          f"over the proven {budget}")
+    a = cfg.attention
+    family = kernel_family(resolve_mechanism_name(a))
+    choices = {}
+    for hw in enumerate_decode_buckets(
+            max_len=eng.cfg.max_len, page_size=eng.cfg.page_size,
+            pages_per_slot=eng.alloc.pages_per_slot):
+        d = kops.registry.decisions.get(
+            ("paged", family, hw, eng.cfg.page_size, a.num_heads,
+             a.num_kv_heads, a.head_dim))
+        check(d is not None and d["source"] == "timed",
+              f"{arch}: decode bucket {hw}: registry decision {d}")
+        choices[hw] = d["choice"].pages_per_step
+
+    class NeverCaptured(Engine):
+        """The same engine, its steps run eagerly every time."""
+
+        def _capture(self, step):
+            return None
+
+    t0 = time.perf_counter()
+    ref = NeverCaptured(api, params, ecfg, device="cuda")
+    ref_reqs = spec["requests"](Request, cfg.vocab_size, 0)
+    moe_calls = []
+    with recording(moenn, "apply_moe", moe_calls):
+        for r in ref_reqs:
+            ref.submit(r)
+        ref.run_to_completion()
+    eager_s = time.perf_counter() - t0
+    check(ref.stats()["graphs"]["captures"] == 0,
+          f"{arch}: the eager engine captured a graph")
+    same_eager = [r.output for r in ref_reqs] == outputs
+    # each layer call's dropped fraction, by the tokens it routed (a
+    # decode tick's max_batch rows or a prefill chunk's width) and layer
+    dropped = {}
+    for i, (y, aux) in enumerate(moe_calls):
+        dropped.setdefault(y.shape[0] * y.shape[1], {}).setdefault(
+            i % L, []).append(float(aux.dropped_fraction))
+    del ref, moe_calls
+    # the second wave; its decode-only tick profiled
+    wave = spec["requests"](Request, cfg.vocab_size, 1)
+    if spec["recycle"]:
+        wave[0] = Request(100, reqs[0].prompt.copy(),
+                          max_new_tokens=reqs[0].max_new_tokens)
+    profiled = profile_tick(eng, wave)
+    check(eng.graph_stats()["captures"] == captures,
+          f"{arch}: a graph was captured while serving")
+    recycled_same = wave[0].output == outputs[0] if spec["recycle"] else None
+    storage_kept = storage() == ptrs
+    tick = profiled[-1] if profiled else None
+    paths = family_decode_paths(torch, kops, cfg, params,
+                                spec["decode_lengths"], ecfg.max_len)
+    param_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    # apply_dense and the expert products cast each float32 kernel to bf16
+    # per call: 4 more bytes an element moved than reading it once
+    cast_bytes = sum(t.numel() * 4 for t in _leaves(params, "kernel"))
+    peak = torch.cuda.max_memory_allocated()
+    card = torch.cuda.get_device_properties(0).total_memory
+    gen_tokens = stats["generated_tokens"]
+    p50 = statistics.median(decode_only_ms)
+    out = {"phase": "serve_moe" if cfg.family == "moe" else "serve_hybrid",
+           "arch": arch, "card": smi, "layers": L, "d_model": cfg.d_model,
+           "engine": dict(spec["engine"]),
+           "prefill_chunk": eng.cfg.prefill_chunk,
+           "requests": len(reqs),
+           "prompt_lens": [len(r.prompt) for r in reqs],
+           "new_tokens": [r.max_new_tokens for r in reqs],
+           "init_s": init_s, "construct_s": construct_s, "wall_s": wall,
+           "tok_per_s": gen_tokens / wall, "generated_tokens": gen_tokens,
+           "ticks": len(tick_ms), "decode_ticks": ticks,
+           "prefill_chunks": stats["prefill_chunks"],
+           "decode_tick_ms_p50": p50,
+           "decode_only_ticks": len(decode_only_ms),
+           "ttft_ms_p50": statistics.median(
+               (first_token[i] - submitted[i]) * 1e3 for i in submitted),
+           "ttft_ms_first_request": (first_token[reqs[0].request_id]
+                                     - submitted[reqs[0].request_id]) * 1e3,
+           "itl_ms_p50": stats["itl_ms_p50"], "launches": counts,
+           "graph_stats": g, "steps": {
+               "decode": eng.decode_compiles,
+               "prefill": eng.prefill_compiles,
+               "prefill_widths": sorted(eng._prefill_steps),
+               "decode_proven": budget["decode_proven"],
+               "prefill_proven": budget["prefill_proven"],
+               "within_declared": budget["within_declared"]},
+           "pages_per_step": choices,
+           "tokens_equal_eager_steps": same_eager, "eager_engine_s": eager_s,
+           "recycled_slot_tokens_equal": recycled_same,
+           "storage_kept": storage_kept,
+           "profiled_tick": tick, "profile_attempts": len(profiled),
+           "idle_share_at_p50": (None if tick is None or tick["lost"] else
+                                 1.0 - tick["device_us"] * 1e-3 / p50),
+           "decode_paths": paths, "param_bytes": param_bytes,
+           # the tick's floor: every parameter read once
+           "tick_bound_ms": param_bytes / HBM_BYTES_PER_S * 1e3,
+           "tick_cast_ms": (param_bytes + cast_bytes)
+           / HBM_BYTES_PER_S * 1e3,
+           "moe_dropped_fraction": {
+               f"tokens {t}": {
+                   "mean": statistics.fmean(v for vs in by.values()
+                                            for v in vs),
+                   "calls": sum(len(vs) for vs in by.values()),
+                   "by_layer": [statistics.fmean(by[i]) for i in sorted(by)]}
+               for t, by in sorted(dropped.items())} or None,
+           "max_memory_allocated": peak, "card_memory": card,
+           "engine_desc": engine_desc(eng)}
+    emit(out)
+    check(same_eager, f"{arch}: graphed tokens differ from the eager steps'")
+    check(recycled_same is not False, f"{arch}: a recycled slot's tokens "
+          "differ from a fresh slot's")
+    check(storage_kept, f"{arch}: a state tensor changed its storage")
+    # held in float32 compute (the kernel's own error); in bf16 the
+    # paths' rounding, amplified by MoE routing, is printed beside it
+    f32 = paths["float32"]
+    check(f32["finite"] and f32["max_abs_err"] <= f32["tol"],
+          f"{arch}: kernel vs gather decode step {paths}")
+    for label in ("bf16", "float32"):
+        p = paths[label]
+        check(p["finite"] and p["control_max_abs_err"] > p["tol"],
+              f"{arch}: the V-zeroed control within tol ({label}): {paths}")
+        check(p["kernel_calls"] == L and p["launches"] == 2 * L,
+              f"{arch}: the decode step's kernel calls ({label}) {paths}")
+        check(p["layer0_nonzero_share"] is None
+              or p["layer0_nonzero_share"] >= MIN_NONZERO_SHARE,
+              f"{arch}: layer 0's inhibitor outputs ({label}) {paths}")
+    check(peak < card, f"{arch}: peak memory {peak} over the card's {card}")
+    result = {"arch": arch, "kernel": kernel, "launches": counts[kernel],
+              "profiled_tick": tick}
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result
+
+
+def phase_serve_family(torch, kops, smi: str, arch: str) -> dict:
+    """Phase 18 (``arch`` qwen2-moe-a2.7b) or 19 (hymba-1.5b): the
+    inhibitor arm, then the dot-product arm (``serve_family_arm``).
+    Returns each arm's kernel launches by kernel name."""
+    launches = {}
+    for name in (f"{arch}@inhibitor", arch):
+        arm = serve_family_arm(torch, kops, smi, name)
+        launches[arm["kernel"]] = arm["launches"]
+    return launches
+
+
 LANE_ARCH = "paper-tiny"
 LANE_MECHS = ("inhibitor", "inhibitor_unsigned", "dotprod")
 LANE_INT_SEQS = (8, 512)                   # (a): the int lane, card vs CPU
@@ -2727,7 +3319,8 @@ def main() -> int:
                     "kernels with this script's phases")
     ap.add_argument("--only", choices=["parity", "wkv_parity", "lanes",
                                        "serve", "analysis", "resume",
-                                       "serve_rwkv", "serve_analysis"],
+                                       "serve_rwkv", "serve_analysis",
+                                       "serve_moe", "serve_hybrid"],
                     default=None,
                     help="run the device and build phases and this one, "
                     "then end")
@@ -2777,6 +3370,10 @@ def main() -> int:
             phase_resume(torch, kops)
         elif args.only == "serve_rwkv":
             phase_serve_rwkv(torch, kops, smi)
+        elif args.only == "serve_moe":
+            phase_serve_family(torch, kops, smi, MOE)
+        elif args.only == "serve_hybrid":
+            phase_serve_family(torch, kops, smi, HYBRID)
         elif args.only == "serve_analysis":
             outs = [phase_serve(torch, kops, arch)[2]
                     for arch in ("smollm-135m@inhibitor", "smollm-135m")]
@@ -2841,6 +3438,11 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_serve_analysis(torch, kops, smi, serve_outs + [rwkv_serve])
     t_phase["serve_analysis"] = time.perf_counter() - t0
+    family_launches = {}
+    for phase, arch in (("serve_moe", MOE), ("serve_hybrid", HYBRID)):
+        t0 = time.perf_counter()
+        family_launches[phase] = phase_serve_family(torch, kops, smi, arch)
+        t_phase[phase] = time.perf_counter() - t0
 
     sources = {"paged": "src/repro_torch/csrc/paged_decode.cu",
                "flash": "src/repro_torch/csrc/flash_prefill.cu",
@@ -2871,6 +3473,17 @@ def main() -> int:
     for k in kernels:
         if k["name"] in resume_launches:
             k["launches_resume"] = resume_launches[k["name"]]
+    # the paged kernels' other main paths: the MoE and hybrid families
+    # served, and their timings at those families' decode shapes
+    for k in kernels:
+        if k["name"] in ("paged_inhibitor", "paged_attention"):
+            for phase, per_kernel in family_launches.items():
+                k[f"launches_{phase}"] = per_kernel[k["name"]]
+            k["serve_shapes"] = {
+                arch: {key: t[k["name"]][key] for key in
+                       ("ms", "device_us", "bound_ms", "bound_by", "grids",
+                        "plain_ms", "library_ms")}
+                for arch, t in timings["serve_shapes"].items()}
     # the WKV kernel's other main path: the full-depth eval forward
     kernels[-1]["launches_full_depth_forward"] = forward_launches
     kernels[-1].update(forward_ms=timings["wkv6"]["forward_ms"],

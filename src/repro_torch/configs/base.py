@@ -1,11 +1,13 @@
 """Model configuration: architecture widths, dtypes and the attention block.
 
-Port of :mod:`repro.configs.base` for the dense and the RWKV-6 (``ssm``)
-families.  Field names and defaults match the reference so that a config
-compares field by field; the families the port does not run yet (MoE,
-hybrid SSM, encoder-decoder, frontends) and the JAX-only ``unroll`` knob
-are left out.  ``remat`` selects activation checkpointing per block in
-training (``models.transformer``, ``models.rwkv``).
+Port of :mod:`repro.configs.base` for the decoder-only families: dense,
+MoE (``moe``), hybrid attention ∥ Mamba (``hybrid``) and RWKV-6
+(``ssm``).  Field names and defaults match the reference so that a config
+compares field by field; what the port does not run yet (the
+encoder-decoder and the frontend of the vlm family, ROADMAP item [5c])
+and the JAX-only ``unroll`` knob are left out.  ``remat`` selects
+activation checkpointing per block in training (``models.transformer``,
+``models.rwkv``).
 """
 
 from __future__ import annotations
@@ -25,8 +27,27 @@ _DTYPES = {
 
 
 @dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int
+    top_k: int
+    expert_hidden_dim: int
+    shared_hidden_dim: int = 0
+    shared_gate: bool = False
+    capacity_factor: float = 1.25
+    normalize_topk: bool = True
+    # pad the expert axis up to a multiple of the EP degree (e.g. 60 -> 64)
+    padded_experts: Optional[int] = None
+    lb_loss_weight: float = 0.01
+    z_loss_weight: float = 1e-3
+
+    @property
+    def effective_experts(self) -> int:
+        return self.padded_experts or self.num_experts
+
+
+@dataclasses.dataclass(frozen=True)
 class SSMConfig:
-    kind: str = "mamba"            # mamba | rwkv6 (only rwkv6 is ported)
+    kind: str = "mamba"            # mamba | rwkv6
     state_dim: int = 16
     inner_dim: Optional[int] = None
     conv_dim: int = 4
@@ -39,7 +60,8 @@ class SSMConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                    # dense | ssm (the families ported)
+    family: str                    # dense | moe | hybrid | ssm (encdec
+                                   # and vlm: ROADMAP item [5c])
     num_layers: int
     d_model: int
     d_ff: int
@@ -50,7 +72,8 @@ class ModelConfig:
     mlp: str = "gated_silu"        # gated_silu | mlp_gelu | mlp_relu
     mlp_bias: bool = False
     tie_embeddings: bool = False
-    rope_pct: float = 1.0
+    rope_pct: float = 1.0          # fraction of head_dim rotated (stablelm)
+    moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
     max_seq_len: int = 131072
     param_dtype: str = "float32"
@@ -92,6 +115,12 @@ class ModelConfig:
                   vocab_size=vocab_size, attention=attn,
                   max_seq_len=max_seq_len, remat="none",
                   compute_dtype="float32")
+        if self.moe is not None:
+            kw["moe"] = dataclasses.replace(
+                self.moe, num_experts=4, top_k=min(2, self.moe.top_k),
+                expert_hidden_dim=32,
+                shared_hidden_dim=32 if self.moe.shared_hidden_dim else 0,
+                padded_experts=None)
         if self.ssm is not None:
             kw["ssm"] = dataclasses.replace(
                 self.ssm, state_dim=8, inner_dim=d_model * 2

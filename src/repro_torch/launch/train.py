@@ -10,9 +10,11 @@ stream of :mod:`repro_torch.data.pipeline` under restart supervision, on
 ``--device`` (default ``cuda``; without a card it fails unless ``--device
 cpu`` is given).  Without ``--full`` the config is the reduced per-family
 one (CPU scale); ``--layers N`` keeps its first N layers.  ``--arch``
-names a dense config (``smollm-135m``, ``paper-tiny``) or the RWKV-6
-``rwkv6-7b``; at full size the latter's 7.6 B float32 parameters with
-AdamW take 122 GB, beyond one 80 GB card, and its first 4 layers 23 GB.
+names any config of :mod:`repro_torch.configs` (dense, MoE, hybrid or
+the RWKV-6 ``rwkv6-7b``; the encoder-decoder and vlm ids are refused,
+ROADMAP item [5c]); at full size ``rwkv6-7b``'s 7.6 B float32
+parameters with AdamW take 122 GB, beyond one 80 GB card, and its first
+4 layers 23 GB (``qwen2-moe-a2.7b``'s 15 B, 242 GB).
 Flags and defaults are the reference launcher's; one
 device only: ``--data-parallel`` / ``--model-parallel`` other than 1 are
 not ported yet and raise.  ``--ckpt-dir DIR`` commits a checkpoint every

@@ -8,8 +8,12 @@ the config:
   * ``init_states(batch, max_len, **kw)``  -> decode state
   * ``step(params, tokens, states, batch)`` -> (logits, states')  [decode]
 
-The port has the dense branch and the ``ssm`` branch (RWKV-6); the
-other families raise ``NotImplementedError`` naming their ROADMAP item.
+The dense, ``moe`` and ``hybrid`` families share the transformer branch;
+their ``forward(params, batch, return_aux=True)`` returns (logits, aux),
+the MoE auxiliary losses summed over layers (zeros without MoE), which
+the training loss adds.  The ``ssm`` branch is RWKV-6.  The
+encoder-decoder and vlm families raise ``NotImplementedError`` naming
+their ROADMAP item, [5c].
 """
 
 from __future__ import annotations
@@ -29,16 +33,23 @@ class ModelApi(NamedTuple):
     step: Callable
 
 
+#: the reference's families the port does not run yet
+NOT_PORTED_FAMILIES = ("encdec", "vlm")
+
+
 def get_model(cfg: ModelConfig) -> ModelApi:
     if cfg.family == "ssm":
         return _ssm_model(cfg)
-    if cfg.family != "dense":
+    if cfg.family in NOT_PORTED_FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported to PyTorch yet (ROADMAP "
-            f"queue 1 item [5b])")
+            f"queue 1 item [5c])")
+    if cfg.family not in ("dense", "moe", "hybrid"):
+        raise ValueError(f"unknown family {cfg.family!r}")
 
-    def forward(params, batch):
-        return tfm.lm_forward(params, cfg, batch["tokens"])
+    def forward(params, batch, return_aux=False):
+        return tfm.lm_forward(params, cfg, batch["tokens"],
+                              return_aux=return_aux)
 
     def step(params, tokens, states, batch=None):
         return tfm.lm_step(params, cfg, tokens, states)

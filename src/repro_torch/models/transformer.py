@@ -1,14 +1,19 @@
-"""Decoder-only transformer LM, dense family.
+"""Decoder-only transformer LM: the dense, MoE and hybrid families.
 
-Port of the dense path of :mod:`repro.models.transformer`.  Parameters
-are a dict whose ``"blocks"`` entry is a list of per-layer dicts (the
-reference stacks them on a leading ``("layers",)`` axis and scans); the
-forward pass is a Python loop over the layers.
+Port of :mod:`repro.models.transformer`.  Parameters are a dict whose
+``"blocks"`` entry is a list of per-layer dicts (the reference stacks
+them on a leading ``("layers",)`` axis and scans); the forward pass is a
+Python loop over the layers.
 
 Block (pre-norm)::
 
-    x = x + attention(norm1(x))
-    x = x + ffn(norm2(x))
+    a = attention(norm1(x))             # hybrid: attention ∥ mamba,
+    x = x + a                           #   a = 0.5·(s0·attn + s1·mamba)
+    x = x + ffn_or_moe(norm2(x))
+
+The MoE family's layers return the (load-balance, router-z) auxiliary
+losses, summed over layers; :func:`lm_forward` returns them only when
+asked (``return_aux``), for the training loss.
 
 In training (a forward under grad mode with no cache) ``cfg.remat ==
 "full"`` wraps each block in ``torch.utils.checkpoint`` (non-reentrant),
@@ -26,7 +31,10 @@ Decode state (:func:`init_states`) owns real per-layer storage, allocated
 with ``torch.zeros`` — never a broadcast view — because attention writes
 each layer's new keys/values into its own slice in place.  Block tables
 and cursors are layer-shared: one ``(b, P)`` table and one ``(b,)``
-cursor serve every layer.
+cursor serve every layer.  The hybrid family's Mamba carries (``ssm``,
+``conv``) are real storage too; :func:`lm_step` returns them as new
+tensors, which a caller that keeps its state's storage (the serving
+engine) copies back.
 """
 
 from __future__ import annotations
@@ -44,14 +52,19 @@ from repro_torch.core.attention import (
 from repro_torch.device import resolve_device
 from repro_torch.nn import embedding as emb
 from repro_torch.nn import mlp as mlpnn
+from repro_torch.nn import moe as moenn
 from repro_torch.nn import norm as normnn
+from repro_torch.nn import ssm as ssmnn
 from repro_torch.nn.linear import apply_dense, init_dense
 
 
 class LayerState(NamedTuple):
     """Decode-time state: the layer-stacked attention cache (k/v carry a
-    leading layer axis; tables and cursors are shared by all layers)."""
+    leading layer axis; tables and cursors are shared by all layers) and,
+    for the hybrid family, the Mamba carries."""
     kv: Union[KVCache, PagedKVCache, None] = None
+    ssm: Optional[torch.Tensor] = None    # (L, b, inner, n) float32
+    conv: Optional[torch.Tensor] = None   # (L, b, conv_dim - 1, inner)
 
 
 def _init_norm(cfg: ModelConfig, device):
@@ -87,28 +100,68 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
                                             resolve_mechanism_name)
 
     get_mechanism(resolve_mechanism_name(cfg.attention))  # fail fast
-    return {
+    kw = dict(dtype=cfg.pdtype, device=device)
+    p = {
         "ln1": _init_norm(cfg, device),
-        "attn": init_attention(gen, cfg.attention, cfg.d_model,
-                               dtype=cfg.pdtype, device=device),
+        "attn": init_attention(gen, cfg.attention, cfg.d_model, **kw),
         "ln2": _init_norm(cfg, device),
-        "ffn": _init_ffn(gen, cfg, device),
     }
+    if cfg.family == "hybrid":
+        if cfg.ssm is None or cfg.ssm.kind != "mamba":
+            raise ValueError(f"the hybrid family needs a mamba SSMConfig, "
+                             f"got {cfg.ssm}")
+        p["mamba"] = ssmnn.init_mamba(
+            gen, cfg.d_model, _mamba_inner(cfg), state_dim=cfg.ssm.state_dim,
+            conv_dim=cfg.ssm.conv_dim, dt_rank=cfg.ssm.dt_rank, **kw)
+        # learned per-branch output scales (hymba averages the branches)
+        p["branch_scale"] = torch.ones(2, **kw)
+    if cfg.moe is not None:
+        p["moe"] = moenn.init_moe(
+            gen, cfg.d_model, cfg.moe.expert_hidden_dim,
+            cfg.moe.effective_experts,
+            shared_hidden_dim=cfg.moe.shared_hidden_dim,
+            shared_gate=cfg.moe.shared_gate, **kw)
+    else:
+        p["ffn"] = _init_ffn(gen, cfg, device)
+    return p
+
+
+def _mamba_inner(cfg: ModelConfig) -> int:
+    return cfg.ssm.inner_dim or 2 * cfg.d_model
 
 
 def apply_block(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
-                positions=None, cache=None):
-    """Returns (x, new_cache) for one layer (``cache`` is that layer's
-    KVCache / PagedKVCache view, or None)."""
+                positions=None, cache=None, ssm=None, conv=None):
+    """One layer.  ``cache`` is that layer's KVCache / PagedKVCache view
+    (or None); ``ssm`` / ``conv`` its Mamba carries (hybrid; zeros when
+    None).  Returns (x, new_cache, carries, aux): ``carries`` the new
+    (ssm, conv) of a hybrid layer, else None; ``aux`` the MoE's
+    (load-balance, router-z) losses as a (2,) float32 tensor, else None.
+    """
     cdt = cfg.cdtype
     h = _apply_norm(cfg, params["ln1"], x)
     a, new_cache = apply_attention(params["attn"], cfg.attention, h,
                                    positions=positions, cache=cache,
                                    compute_dtype=cdt)
+    carries = None
+    if cfg.family == "hybrid":
+        m, carries = ssmnn.apply_mamba(
+            params["mamba"], h, state_dim=cfg.ssm.state_dim, ssm_state=ssm,
+            conv_state=conv, compute_dtype=cdt)
+        s = params["branch_scale"].to(cdt)
+        a = 0.5 * (s[0] * a + s[1] * m)
     x = x + a
     h2 = _apply_norm(cfg, params["ln2"], x)
-    x = x + _apply_ffn(cfg, params["ffn"], h2, cdt)
-    return x, new_cache
+    aux = None
+    if cfg.moe is not None:
+        f, moe_aux = moenn.apply_moe(
+            params["moe"], h2, top_k=cfg.moe.top_k,
+            capacity_factor=cfg.moe.capacity_factor,
+            normalize_topk=cfg.moe.normalize_topk, compute_dtype=cdt)
+        aux = torch.stack([moe_aux.load_balance_loss, moe_aux.router_z_loss])
+    else:
+        f = _apply_ffn(cfg, params["ffn"], h2, cdt)
+    return x + f, new_cache, carries, aux
 
 
 def init_lm(gen: torch.Generator, cfg: ModelConfig, *, device=None) -> dict:
@@ -172,25 +225,52 @@ def remat_block(cfg: ModelConfig, fn, *args):
 
 
 def _checkpointed_block(lp, cfg: ModelConfig, x, positions):
-    return apply_block(lp, cfg, x, positions=positions)[0]
+    x, _, _, aux = apply_block(lp, cfg, x, positions=positions)
+    return x, aux
 
 
-def _run_blocks(params, cfg: ModelConfig, x, positions, kv=None):
-    """Apply every block in order; ``kv`` is the layer-stacked cache whose
-    per-layer slices the blocks update in place.  Returns (x, kv')."""
+def _add_aux(total, aux):
+    if aux is None:
+        return total
+    return aux if total is None else total + aux
+
+
+def _run_blocks(params, cfg: ModelConfig, x, positions,
+                states: Optional[LayerState] = None):
+    """Apply every block in order.  ``states.kv`` is the layer-stacked
+    cache whose per-layer slices the blocks update in place; the Mamba
+    carries are read per layer and returned stacked, as new tensors.
+    Returns (x, states' or None, the MoE aux losses summed over layers or
+    None)."""
+    kv = states.kv if states is not None else None
+    aux_total = None
     if _remat_blocks(cfg, kv):
         for lp in params["blocks"]:
-            x = remat_block(cfg, _checkpointed_block, lp, cfg, x, positions)
-        return x, None
+            x, aux = remat_block(cfg, _checkpointed_block, lp, cfg, x,
+                                 positions)
+            aux_total = _add_aux(aux_total, aux)
+        return x, None, aux_total
     new_length = None
+    ssm, conv = [], []
     for layer, lp in enumerate(params["blocks"]):
-        x, c = apply_block(lp, cfg, x, positions=positions,
-                           cache=_layer_cache(kv, layer))
+        carry = (None, None)
+        if states is not None and states.ssm is not None:
+            carry = (states.ssm[layer], states.conv[layer])
+        x, c, carries, aux = apply_block(
+            lp, cfg, x, positions=positions, cache=_layer_cache(kv, layer),
+            ssm=carry[0], conv=carry[1])
+        aux_total = _add_aux(aux_total, aux)
         if c is not None:
             new_length = c.length
-    if kv is None:
-        return x, None
-    return x, kv._replace(length=new_length)
+        if carries is not None:
+            ssm.append(carries[0])
+            conv.append(carries[1])
+    if states is None:
+        return x, None, aux_total
+    new = LayerState(kv=kv._replace(length=new_length))
+    if ssm:
+        new = new._replace(ssm=torch.stack(ssm), conv=torch.stack(conv))
+    return x, new, aux_total
 
 
 def _logits(params, cfg: ModelConfig, x):
@@ -200,12 +280,19 @@ def _logits(params, cfg: ModelConfig, x):
     return apply_dense(params["lm_head"], x, 1, cfg.cdtype)
 
 
-def lm_forward(params: dict, cfg: ModelConfig,
-               tokens: torch.Tensor) -> torch.Tensor:
-    """Prefill forward without a cache: tokens (b, s) -> logits (b, s, V)."""
+def lm_forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
+               return_aux: bool = False):
+    """Prefill forward without a cache: tokens (b, s) -> logits (b, s, V);
+    with ``return_aux``, (logits, aux (2,)): the MoE's load-balance and
+    router-z losses summed over layers (zeros for the other families)."""
     x = emb.apply_embedding(params["embed"], tokens, compute_dtype=cfg.cdtype)
-    x, _ = _run_blocks(params, cfg, x, None)
-    return _logits(params, cfg, x)
+    x, _, aux = _run_blocks(params, cfg, x, None)
+    logits = _logits(params, cfg, x)
+    if not return_aux:
+        return logits
+    if aux is None:
+        aux = torch.zeros(2, dtype=torch.float32, device=logits.device)
+    return logits, aux
 
 
 # ---------------------------------------------------------------------------
@@ -380,7 +467,9 @@ def init_states(cfg: ModelConfig, batch: int, max_len: int, *,
 
     ``per_slot``: per-row cursors (ragged continuous batching).
     ``paged``: KV rows in a shared page pool behind block tables (cursors
-    are then always per-slot).
+    are then always per-slot).  The hybrid family adds its zero Mamba
+    carries: ``ssm`` (L, b, inner, n) in float32, ``conv`` (L, b,
+    conv_dim − 1, inner) in the compute dtype.
     """
     dev = resolve_device(device)
     a = cfg.attention
@@ -403,7 +492,15 @@ def init_states(cfg: ModelConfig, batch: int, max_len: int, *,
             torch.zeros(shape, dtype=cfg.cdtype, device=dev),
             torch.zeros((batch,) if per_slot else (), dtype=torch.int32,
                         device=dev))
-    return LayerState(kv=kv)
+    if cfg.family != "hybrid":
+        return LayerState(kv=kv)
+    inner, L = _mamba_inner(cfg), cfg.num_layers
+    return LayerState(
+        kv=kv,
+        ssm=torch.zeros((L, batch, inner, cfg.ssm.state_dim),
+                        dtype=torch.float32, device=dev),
+        conv=torch.zeros((L, batch, cfg.ssm.conv_dim - 1, inner),
+                         dtype=cfg.cdtype, device=dev))
 
 
 def lm_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
@@ -411,7 +508,8 @@ def lm_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     """Decode step: tokens (b, t) appended at the cursors.
 
     Returns (logits (b, t, V), new_states); the new state shares the KV
-    storage of ``states`` (written in place) with the cursors advanced.
+    storage of ``states`` (written in place) with the cursors advanced;
+    its Mamba carries (hybrid) are new tensors.
     """
     cdt = cfg.cdtype
     x = emb.apply_embedding(params["embed"], tokens, compute_dtype=cdt)
@@ -426,9 +524,9 @@ def lm_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
         run_cfg = dataclasses.replace(
             cfg, attention=dataclasses.replace(cfg.attention,
                                                backend="fused"))
-        x, new_view = _run_blocks(params, run_cfg, x, None,
-                                  _gather_paged_view(kv))
-        new_kv = _scatter_paged_rows(kv, new_view, t)
+        x, new, _ = _run_blocks(params, run_cfg, x, None,
+                                states._replace(kv=_gather_paged_view(kv)))
+        new = new._replace(kv=_scatter_paged_rows(kv, new.kv, t))
     else:
-        x, new_kv = _run_blocks(params, cfg, x, None, kv)
-    return _logits(params, cfg, x), LayerState(kv=new_kv)
+        x, new, _ = _run_blocks(params, cfg, x, None, states)
+    return _logits(params, cfg, x), new

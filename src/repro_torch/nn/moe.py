@@ -1,0 +1,168 @@
+"""Mixture-of-Experts FFN with capacity-bounded dispatch.
+
+Port of :mod:`repro.nn.moe`.  Tokens are routed with top-k gating, then
+placed into a dense ``(experts, capacity, d)`` buffer (GShard-style,
+capacity-dropped), so the expert compute is three batched matrix
+products (``torch.bmm``); the outputs are gathered back and combined
+with the gates.  The buffer holds ``capacity_factor · top_k · tokens``
+rows, the order of one FFN activation.
+
+Determinism: every kept (expert, position) pair is unique, so the
+dispatch is a plain ``index_put_`` (no accumulation): dropped
+assignments go to an overflow row past the capacity, which is cut off.
+A token's ``top_k`` contributions are combined by a sum over a
+``(tokens, top_k, d)`` view (``flat_token`` is token-major), not by a
+scatter-add, whose atomic order on CUDA would differ between runs.  No
+step reads a value back to the host, so the layer runs inside a CUDA
+graph.
+
+Returns the Switch-Transformer load-balancing and router-z auxiliary
+losses and the dropped fraction (:class:`MoEAux`).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.nn.init import truncated_normal
+from repro_torch.nn.linear import apply_dense, init_dense
+from repro_torch.nn.mlp import _ACT, apply_gated_mlp, init_gated_mlp
+
+
+class MoEAux(NamedTuple):
+    load_balance_loss: torch.Tensor
+    router_z_loss: torch.Tensor
+    dropped_fraction: torch.Tensor
+
+
+def init_moe(gen: torch.Generator, embed_dim: int, expert_hidden_dim: int,
+             num_experts: int, *, shared_hidden_dim: int = 0,
+             shared_gate: bool = False, dtype=torch.float32,
+             device=None) -> dict:
+    """Router (float32, as the reference's), the expert-stacked gated MLP
+    (leading expert axis) and the optional shared expert and its gate."""
+    kw = dict(dtype=dtype, device=device)
+    params = {
+        "router": init_dense(gen, (embed_dim,), (num_experts,),
+                             dtype=torch.float32, device=device),
+        "wg": _stack_expert(gen, num_experts, embed_dim, expert_hidden_dim,
+                            **kw),
+        "wu": _stack_expert(gen, num_experts, embed_dim, expert_hidden_dim,
+                            **kw),
+        "wd": _stack_expert(gen, num_experts, expert_hidden_dim, embed_dim,
+                            **kw),
+    }
+    if shared_hidden_dim > 0:
+        params["shared"] = init_gated_mlp(gen, embed_dim, shared_hidden_dim,
+                                          **kw)
+        if shared_gate:
+            params["shared_gate"] = init_dense(gen, (embed_dim,), (1,), **kw)
+    return params
+
+
+def _stack_expert(gen: torch.Generator, num_experts: int, in_dim: int,
+                  out_dim: int, *, dtype, device) -> dict:
+    """``num_experts`` independent dense kernels stacked on a leading
+    expert axis: (E, in, out), each drawn as ``init_dense`` draws one."""
+    return {"kernel": truncated_normal(gen, (num_experts, in_dim, out_dim),
+                                       in_dim ** -0.5, dtype=dtype,
+                                       device=device)}
+
+
+def _router_probs(params: dict, x: torch.Tensor, *,
+                  router_softmax: bool = True):
+    logits = apply_dense(params["router"], x.float(), 1)
+    if router_softmax:
+        probs = torch.softmax(logits, dim=-1)
+    else:
+        probs = torch.sigmoid(logits)
+    return logits, probs
+
+
+def capacity(top_k: int, capacity_factor: float, n_tok: int,
+             num_experts: int) -> int:
+    """Rows per expert: ``int(max(top_k, cf·top_k·T/E))``, capped at T
+    (an expert cannot take more than every token)."""
+    c = int(max(top_k, capacity_factor * top_k * n_tok / num_experts))
+    return min(c, n_tok)
+
+
+def apply_moe(params: dict, x: torch.Tensor, *, top_k: int,
+              capacity_factor: float = 1.25, activation: str = "silu",
+              normalize_topk: bool = True, router_softmax: bool = True,
+              compute_dtype=None):
+    """MoE forward. x: (batch, seq, d) -> ((batch, seq, d), MoEAux).
+
+    Dispatch: top-k routing -> position within each expert by a one-hot
+    cumulative sum over the token-major (token, k) assignments -> the
+    (E, C, d) buffer -> batched expert products -> gather + gated
+    combine (+ the shared expert, gated by a sigmoid when it has one).
+    """
+    b, s, d = x.shape
+    n_tok = b * s
+    tokens = x.reshape(n_tok, d)
+    num_experts = params["wg"]["kernel"].shape[0]
+    dev = x.device
+
+    logits, probs = _router_probs(params, tokens,
+                                  router_softmax=router_softmax)
+    gate_vals, expert_ids = torch.topk(probs, top_k, dim=-1)   # (T, k)
+    if normalize_topk:
+        gate_vals = gate_vals / torch.clamp(
+            gate_vals.sum(-1, keepdim=True), min=1e-9)
+
+    cap = capacity(top_k, capacity_factor, n_tok, num_experts)
+
+    flat_expert = expert_ids.reshape(-1)                        # (T·k,)
+    flat_gate = gate_vals.reshape(-1)
+    flat_token = torch.arange(n_tok, device=dev).repeat_interleave(top_k)
+
+    # position of each assignment within its expert: one-hot cumsum
+    onehot = (flat_expert[:, None] == torch.arange(
+        num_experts, device=dev)[None]).long()                  # (T·k, E)
+    pos_in_expert = (torch.cumsum(onehot, dim=0) - 1) * onehot
+    flat_pos = pos_in_expert.sum(-1)                            # (T·k,)
+    keep = flat_pos < cap                                       # drop mask
+    dropped = 1.0 - keep.float().mean()
+
+    cdt = compute_dtype or x.dtype
+    # the (E, C, d) buffer; a dropped assignment lands on the overflow
+    # row C, which is cut off, so every write below is to its own row
+    buf = torch.zeros((num_experts, cap + 1, d), dtype=cdt, device=dev)
+    buf[flat_expert, torch.where(keep, flat_pos, cap)] = (
+        tokens[flat_token].to(cdt))
+    buf = buf[:, :cap]
+
+    # expert compute: the gated MLP batched over the expert axis
+    wg = params["wg"]["kernel"].to(cdt)
+    wu = params["wu"]["kernel"].to(cdt)
+    wd = params["wd"]["kernel"].to(cdt)
+    h = _ACT[activation](torch.bmm(buf, wg)) * torch.bmm(buf, wu)
+    out_buf = torch.bmm(h, wd)                                  # (E, C, d)
+
+    # gather back and combine with the gates, token by token
+    safe_pos = torch.where(keep, flat_pos, cap - 1)
+    gathered = out_buf[flat_expert, safe_pos]                   # (T·k, d)
+    gathered = gathered * (flat_gate.to(cdt) * keep.to(cdt))[:, None]
+    combined = gathered.view(n_tok, top_k, d).sum(1)
+
+    if "shared" in params:
+        shared_out = apply_gated_mlp(params["shared"], tokens,
+                                     activation=activation, compute_dtype=cdt)
+        if "shared_gate" in params:
+            g = torch.sigmoid(apply_dense(params["shared_gate"], tokens, 1,
+                                          cdt))
+            shared_out = shared_out * g
+        combined = combined + shared_out
+
+    # auxiliary losses (Switch Transformer): the fraction of tokens whose
+    # top-1 choice is each expert, against the mean router probability
+    me = (expert_ids[:, 0][:, None] == torch.arange(
+        num_experts, device=dev)[None]).float().mean(0)
+    ce = probs.mean(0)
+    lb_loss = num_experts * (me * ce).sum()
+    z_loss = torch.logsumexp(logits, dim=-1).square().mean()
+    aux = MoEAux(lb_loss, z_loss, dropped)
+    return combined.reshape(b, s, d).to(x.dtype), aux

@@ -1,9 +1,11 @@
-"""RWKV-6 (Finch) time-mix and channel-mix: the attention-free token mixer
-of the ``ssm`` family.
+"""RWKV-6 (Finch) time-mix and channel-mix, the attention-free token mixer
+of the ``ssm`` family, and the selective SSM (Mamba) block of the
+``hybrid`` family's parallel SSM heads.
 
-Port of the RWKV-6 half of :mod:`repro.nn.ssm` (the selective SSM of the
-hybrid family is not ported yet).  The paper's inhibitor replaces
-dot-product attention; these layers have none, so they run without it.
+Port of :mod:`repro.nn.ssm`.  The paper's inhibitor replaces dot-product
+attention; these layers have none, so they run without it.  The Mamba
+scan (:func:`selective_scan_ref`) is a Python loop over time in float32,
+as the reference's ``lax.scan``; the reference has no kernel for it.
 
 The WKV recurrence per head (state S ∈ R^{n×n}, n = head_dim)::
 
@@ -335,3 +337,102 @@ def apply_rwkv6_channelmix(params: dict, x: torch.Tensor, *,
     vv = apply_dense(params["value"], kk, 1, cdt)
     rr = torch.sigmoid(apply_dense(params["receptance"], xr, 1, cdt))
     return rr * vv, x[:, -1]
+
+
+# ---------------------------------------------------------------------------
+# selective SSM (Mamba) for the hybrid family's parallel SSM heads
+# ---------------------------------------------------------------------------
+
+def init_mamba(gen: torch.Generator, embed_dim: int, inner_dim: int, *,
+               state_dim: int = 16, conv_dim: int = 4,
+               dt_rank: Optional[int] = None, dtype=torch.float32,
+               device=None) -> dict:
+    """Mamba block: in/out projections, the depthwise causal conv, the
+    x -> (dt, B, C) projection, and the S4D-real ``A_log`` = log [1..n]
+    per channel (float32, as ``D``)."""
+    kw = dict(dtype=dtype, device=device)
+    dt_rank = dt_rank or max(1, embed_dim // 16)
+    a_init = torch.arange(1, state_dim + 1, dtype=torch.float32,
+                          device=device)[None, :].repeat(inner_dim, 1)
+    return {
+        "in_proj": init_dense(gen, (embed_dim,), (2 * inner_dim,), **kw),
+        "conv_w": normal(gen, (conv_dim, inner_dim), conv_dim ** -0.5, **kw),
+        "conv_b": torch.zeros(inner_dim, **kw),
+        "x_proj": init_dense(gen, (inner_dim,), (dt_rank + 2 * state_dim,),
+                             **kw),
+        "dt_proj": init_dense(gen, (dt_rank,), (inner_dim,), use_bias=True,
+                              **kw),
+        "A_log": torch.log(a_init),
+        "D": torch.ones(inner_dim, dtype=torch.float32, device=device),
+        "out_proj": init_dense(gen, (inner_dim,), (embed_dim,), **kw),
+    }
+
+
+def _causal_depthwise_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                          carry: Optional[torch.Tensor] = None):
+    """x: (b, t, c); w: (k, c) depthwise causal conv over time, continuing
+    from ``carry`` (the last k − 1 inputs, (b, k − 1, c); zeros when
+    None).  Returns (y, new carry)."""
+    k = w.shape[0]
+    if carry is None:
+        carry = x.new_zeros((x.shape[0], k - 1, x.shape[2]))
+    xp = torch.cat([carry.to(x.dtype), x], dim=1)
+    t = x.shape[1]
+    # the sum of shifted slices, in the reference's order (k is 4)
+    y = xp[:, 0:t] * w[0][None, None, :]
+    for i in range(1, k):
+        y = y + xp[:, i:i + t] * w[i][None, None, :]
+    new_carry = xp[:, -(k - 1):] if k > 1 else None
+    return y + b[None, None, :], new_carry
+
+
+def selective_scan_ref(u: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                       B: torch.Tensor, C: torch.Tensor, D: torch.Tensor,
+                       state: Optional[torch.Tensor] = None):
+    """The Mamba selective scan, a Python loop over time in float32 (the
+    reference's ``lax.scan``).
+
+    u, dt: (b, t, c); A (the ``A_log`` parameter): (c, n); B, C: (b, t,
+    n); D: (c,).  State (b, c, n)::
+
+        S_t = exp(dt_t · −exp(A)) · S_{t−1} + dt_t · B_t · u_t
+        y_t = S_t · C_t + D · u_t
+
+    Returns (y (b, t, c), final state)."""
+    b, t, c = u.shape
+    n = A.shape[1]
+    if state is None:
+        state = u.new_zeros((b, c, n), dtype=torch.float32)
+    dA = torch.exp(dt[..., None] * (-torch.exp(A))[None, None])  # (b,t,c,n)
+    dBu = dt[..., None] * B[:, :, None, :] * u[..., None]         # (b,t,c,n)
+    Cf = C.float()
+    S = state.float()
+    ys = []
+    for i in range(t):
+        S = dA[:, i] * S + dBu[:, i]
+        ys.append(torch.einsum("bcn,bn->bc", S, Cf[:, i]))
+    y = torch.stack(ys, dim=1) + u * D[None, None, :]
+    return y, S
+
+
+def apply_mamba(params: dict, x: torch.Tensor, *, state_dim: int = 16,
+                ssm_state: Optional[torch.Tensor] = None,
+                conv_state: Optional[torch.Tensor] = None,
+                compute_dtype=None):
+    """Mamba block forward from the carries (zeros when None).  Returns
+    (y, (ssm state (b, c, n) float32, conv carry (b, k − 1, c)))."""
+    cdt = compute_dtype or x.dtype
+    xz = apply_dense(params["in_proj"], x, 1, cdt)
+    xs, z = xz.chunk(2, dim=-1)
+    xs, new_conv = _causal_depthwise_conv(
+        xs, params["conv_w"].to(cdt), params["conv_b"].to(cdt), conv_state)
+    xs = F.silu(xs)
+    proj = apply_dense(params["x_proj"], xs, 1, cdt)
+    dt_rank = proj.shape[-1] - 2 * state_dim
+    dt_low, B, C = proj.split([dt_rank, state_dim, state_dim], dim=-1)
+    dt = F.softplus(apply_dense(params["dt_proj"], dt_low, 1, cdt).float())
+    y, new_ssm = selective_scan_ref(
+        xs.float(), dt, params["A_log"].float(), B.float(), C.float(),
+        params["D"].float(), ssm_state)
+    y = y.to(cdt) * F.silu(z)
+    return apply_dense(params["out_proj"], y, 1, cdt), (new_ssm, new_conv)

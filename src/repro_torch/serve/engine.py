@@ -34,6 +34,14 @@ Port of :mod:`repro.serve.engine`:
     (``tick_budget`` is logged as ignored), and decode runs ``lm_step``'s
     exact scan: no kernel runs on this path, as in the reference.
     Admission zeroes the slot's state rows in place.
+  * The ``moe`` family serves as ``dense`` does (bucketed, paged, prefix
+    cache).  The ``hybrid`` family (attention ∥ Mamba) is paged, but its
+    Mamba carries (``LayerState.ssm`` / ``conv``) would absorb pad tokens
+    and cannot skip a cached prefix: its prompts prefill whole at
+    admission in exact-length chunks, eagerly, with no prefix cache, and
+    admission zeroes the slot's carries in place beside pinning its
+    cursor.  Its decode ticks run the paged decode kernels like any
+    paged family's.
 
 **Static steps (the reference's jit per bucket).**  Each decode table
 width ``hw`` (one step for contiguous slots) and each prefill chunk
@@ -300,6 +308,9 @@ class Engine:
             self.alloc = SlotAllocator(cfg.max_batch)
             self.states = api.init_states(cfg.max_batch, cfg.max_len,
                                           per_slot=True, device=self.device)
+        # the hybrid family's Mamba carries, beside its KV cache
+        self._carries = (isinstance(self.states, LayerState)
+                         and self.states.ssm is not None)
         # shared-prefix radix cache over the paged pool, for KV-pure
         # families only: a recurrent carry cannot skip the prefix compute
         self.prefix: Optional[PrefixIndex] = None
@@ -567,12 +578,12 @@ class Engine:
             step = _StaticStep(kind, width,
                                lambda: self._prefill_body(step), capture)
             step.tokens = torch.zeros((1, width), **i32)
-            if self._bucketed:
+            if isinstance(self.states, LayerState):
                 step.cursor = torch.zeros((1,), **i32)
             if self.paged:
                 step.table = torch.zeros(
                     (1, self.alloc.pages_per_slot), **i32)
-            else:
+            if not self.paged or self._carries:
                 step.slot = torch.zeros((1,), dtype=torch.int64, device=dev)
         return step
 
@@ -584,7 +595,8 @@ class Engine:
     def _decode_body(self, step: _StaticStep) -> None:
         """Decode tick over the whole batch: the static token batch, the
         engine's state (its block tables clamped to the bucket's width).
-        A recurrent state is copied back into the engine's own tensors."""
+        A recurrent state, and the hybrid family's Mamba carries, are
+        copied back into the engine's own tensors."""
         if not isinstance(self.states, LayerState):
             with torch.no_grad():
                 logits, new = self.api.step(self.params, step.tokens,
@@ -596,12 +608,15 @@ class Engine:
         kv = self.states.kv
         states_in = self.states
         if self.paged:
-            states_in = LayerState(kv=kv._replace(
+            states_in = states_in._replace(kv=kv._replace(
                 block_tables=kv.block_tables[:, :step.width].contiguous()))
         with torch.no_grad():
             logits, new = self.api.step(self.params, step.tokens, states_in,
                                         None)
         kv.length.copy_(new.kv.length)
+        if self._carries:
+            self.states.ssm.copy_(new.ssm)
+            self.states.conv.copy_(new.conv)
         self._write_out(step, logits[:, -1])
 
     def _prefill_body(self, step: _StaticStep) -> None:
@@ -610,7 +625,8 @@ class Engine:
         and written in place, the view's table is the static row.
         Contiguous: the slot's rows are gathered by the static slot index
         and scattered back after the step; a recurrent state the same way,
-        with no cursor (its chunks are exact-length)."""
+        with no cursor (its chunks are exact-length), and so are the
+        hybrid family's Mamba carries."""
         if not isinstance(self.states, LayerState):
             view = type(self.states)(*(x.index_select(1, step.slot)
                                        for x in self.states))
@@ -621,18 +637,27 @@ class Engine:
                 dst.index_copy_(1, step.slot, src.to(dst.dtype))
             self._write_out(step, logits)
             return
-        kv = self.states.kv
+        st = self.states
+        kv = st.kv
         if self.paged:
             view = PagedKVCache(kv.k, kv.v, step.table, step.cursor)
         else:
             view = KVCache(kv.k.index_select(1, step.slot),
                            kv.v.index_select(1, step.slot), step.cursor)
+        states_in = LayerState(kv=view)
+        if self._carries:
+            states_in = states_in._replace(
+                ssm=st.ssm.index_select(1, step.slot),
+                conv=st.conv.index_select(1, step.slot))
         with torch.no_grad():
-            logits, new = self.api.step(self.params, step.tokens,
-                                        LayerState(kv=view), None)
+            logits, new = self.api.step(self.params, step.tokens, states_in,
+                                        None)
         if not self.paged:
             kv.k.index_copy_(1, step.slot, view.k)
             kv.v.index_copy_(1, step.slot, view.v)
+        if self._carries:
+            st.ssm.index_copy_(1, step.slot, new.ssm)
+            st.conv.index_copy_(1, step.slot, new.conv)
         step.cursor.copy_(new.kv.length)
         self._write_out(step, logits)
 
@@ -652,9 +677,12 @@ class Engine:
 
     def _warmup_state(self) -> List[torch.Tensor]:
         """The state tensors a warm-up's eager runs change, to be
-        restored after: the cursors of a KV cache, every tensor of a
-        recurrent state."""
+        restored after: the cursors of a KV cache (and the Mamba carries
+        beside it), every tensor of a recurrent state."""
         if isinstance(self.states, LayerState):
+            if self._carries:
+                return [self.states.kv.length, self.states.ssm,
+                        self.states.conv]
             return [self.states.kv.length]
         return list(self.states)
 
@@ -708,9 +736,9 @@ class Engine:
                 step.tokens.zero_()
                 if step.cursor is not None:
                     step.cursor.zero_()
-                if self.paged:
+                if step.table is not None:
                     step.table.zero_()
-                else:
+                if step.slot is not None:
                     step.slot.zero_()
                 step()
         for dst, src in zip(live, saved):
@@ -784,11 +812,11 @@ class Engine:
             last = L - 1 - start if i == last_i else real - 1
             step = self._prefill_step_for(cb)
             step.tokens.copy_(torch.from_numpy(toks))  # sync: required — prompt-chunk upload (admission rate, not per tick)
-            if self._bucketed:
+            if step.cursor is not None:
                 step.cursor.fill_(start)
             if self.paged:
                 step.table.copy_(self.states.kv.block_tables[slot:slot + 1])
-            else:
+            if step.slot is not None:
                 step.slot.fill_(slot)
             self.counters["prefill_chunks"] += 1
             step()
@@ -799,7 +827,7 @@ class Engine:
         part.next_chunk = upto
         self._progressed = True
         done = upto == len(part.schedule)
-        if self._bucketed:
+        if isinstance(self.states, LayerState):
             self._set_cursor(slot, L if done else part.pos)
         self.alloc.slots[slot].length = part.pos
         if tr is not None:
@@ -889,10 +917,14 @@ class Engine:
         """Reset one slot's decode state across all layers before a chunk
         runs: the KV families pin the cursor at ``pos`` (rows past it are
         invalid by construction); a recurrent family zeroes the slot's
-        rows of every state tensor, in place, so the decode graph's
-        replays keep reading the same storage."""
+        rows of every state tensor, and the hybrid family the slot's
+        Mamba carries, in place, so the decode graph's replays keep
+        reading the same storage."""
         if isinstance(self.states, LayerState):
             self._set_cursor(slot, pos)
+            if self._carries:
+                self.states.ssm[:, slot].zero_()
+                self.states.conv[:, slot].zero_()
             return
         for x in self.states:
             x[:, slot].zero_()

@@ -1,7 +1,8 @@
 """Train and eval step builders.
 
-Port of :mod:`repro.train.step` for the families the port runs (dense and
-RWKV-6 ``ssm``; the serving steps stay with ``serve/engine.py``).  ``make_train_step(api, opt_cfg)`` returns
+Port of :mod:`repro.train.step` for the families the port runs (dense,
+``moe``, ``hybrid`` and RWKV-6 ``ssm``; the serving steps stay with
+``serve/engine.py``).  ``make_train_step(api, opt_cfg)`` returns
 ``(params, opt_state, batch) -> (params', opt_state', metrics)``; the
 optimizer updates ``params`` and ``opt_state`` in place
 (:func:`repro_torch.optim.adamw.adamw_update`), so the returned trees are
@@ -75,13 +76,27 @@ def _align_labels(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 
 def make_loss_fn(api: ModelApi) -> Callable:
-    """``loss_fn(params, batch) -> (loss, metrics)`` (the ported families
-    have no MoE auxiliary terms)."""
+    """``loss_fn(params, batch) -> (loss, metrics)``: the cross-entropy,
+    plus ``lb_loss_weight · lb + z_loss_weight · zl`` for a MoE config
+    (the load-balance and router-z losses summed over layers, reported as
+    ``moe_lb`` / ``moe_z``)."""
+    cfg = api.cfg
 
     def loss_fn(params, batch) -> tuple:
-        logits = api.forward(params, batch)
+        if cfg.moe is None:
+            logits = api.forward(params, batch)
+        else:
+            logits, aux = api.forward(params, batch, return_aux=True)
         loss = softmax_xent(logits, _align_labels(logits, batch["labels"]))
-        return loss, {"xent": loss, "loss": loss}
+        metrics = {"xent": loss}
+        if cfg.moe is not None:
+            lb, zl = aux[0], aux[1]
+            loss = (loss + cfg.moe.lb_loss_weight * lb
+                    + cfg.moe.z_loss_weight * zl)
+            metrics["moe_lb"] = lb
+            metrics["moe_z"] = zl
+        metrics["loss"] = loss
+        return loss, metrics
 
     return loss_fn
 

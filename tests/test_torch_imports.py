@@ -104,3 +104,19 @@ def test_importing_and_running_the_serve_analyzer_loads_no_jax():
                   "analyze_serve; analyze_serve('rwkv6-7b', reduced={}, "
                   "engine_kw=dict(max_batch=2, max_len=16, page_size=8, "
                   "prefill_chunk=4)); ")
+
+
+def test_importing_the_moe_and_hybrid_families_loads_no_jax():
+    """The MoE layer, the Mamba half of nn.ssm, every ported config, and
+    one reduced qwen2-moe and hymba step through the registry."""
+    _loads_no_jax(
+        "repro_torch.nn.moe, repro_torch.nn.ssm, repro_torch.configs, "
+        "repro_torch.models.registry, torch",
+        "from repro_torch.configs import ARCH_IDS, get_config; "
+        "from repro_torch.models.registry import get_model; "
+        "[get_config(a) for a in ARCH_IDS]; "
+        "cfgs = [get_config(a).reduced() for a in ('qwen2-moe-a2.7b', "
+        "'hymba-1.5b')]; "
+        "[get_model(c).forward(get_model(c).init(torch.Generator()"
+        ".manual_seed(0), device='cpu'), {'tokens': torch.zeros((1, 4), "
+        "dtype=torch.int64)}) for c in cfgs]; ")
