@@ -16,7 +16,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
                case), both split kernels also at 5 and 8 query heads per
                kv head and at the served families' shapes (signed and
                unsigned inhibitor, Softmax): d 128 at group 1 (16 / 16
-               heads) and group 5 (40 / 8), d 64 at group 5 with a
+               heads), group 4 (32 / 8) and group 5 (40 / 8), d 64 at
+               group 5 with a
                1,024-key window over cursors up to 1,100; with kernel,
                plain, library and bound times, the kernel's and the
                library's device time per call (CUDA kernels in a
@@ -25,7 +26,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
                trace; then both kernels timed the same way at
                qwen2-moe-a2.7b's decode shape (batch 8, 16 / 16 heads, d
                128, cursors 1..512) and hymba-1.5b's (batch 4, 25 / 5, d
-               64, window 1,024, table width 128).
+               64, window 1,024, table width 128) and
+               llava-next-mistral-7b's (batch 8, 32 / 8, d 128).
   4. serve   — smollm-135m@inhibitor, then smollm-135m (dot-product), at
                full width (bf16 compute, seeded random init) through the
                paged engine (max_batch 8, max_len 512, page 16, prefix
@@ -56,7 +58,14 @@ Phases, each printing one JSON line; any failure exits non-zero:
                inside a key tile, at head_dim 32 and 128, and with cursors
                unsigned and unnormalized and at head_dim 32 and 128; then
                kernel, plain, library and bound times and device times per
-               call at the train shapes.
+               call at the train shapes; then both kernels at the shapes
+               phases 20-22 run (``FLASH_FAMILY_SHAPES``: non-causal b 2
+               x 4,096 and b 4 x 1,024 at group 1 and d 64, causal b 2 x
+               1,024, causal b 1 x 3,008 and b 2 x 3,136 at group 4 and d
+               128), one launch a call, held in
+               bf16 and float32, timed in bf16 beside SDPA, with the
+               query tile each takes and the d 128 instantiations'
+               ptxas registers.
   7. train   — smollm-135m@inhibitor, then smollm-135m, at full width and
                depth (float32 parameters, bf16 compute, remat "full"),
                through ``repro_torch.train.loop.train`` (the loop the
@@ -211,6 +220,39 @@ Phases, each printing one JSON line; any failure exits non-zero:
                step kernel against gather with the window biting.  The
                first request's TTFT (35 eager chunks through the Mamba
                loop) is printed on its own.
+ 20. serve_vlm — llava-next-mistral-7b@inhibitor, then
+               llava-next-mistral-7b (32 layers, d 4,096, 32 / 8 heads of
+               128, d_ff 14,336, vocab 32,000, ``frontend_proj``: 7.25 B
+               float32 parameters drawn on the card), through phase 18's
+               engine, traffic and checks (launches = ticks x 32).  Then
+               the image prefill: ``api.forward`` on b 1 x (2,880 patch
+               embeddings + 128 tokens) at full depth in bf16, every
+               layer planned ``pallas`` and its flash kernel launched
+               once; wall, device time, the kernel's µs a call beside
+               its bound and SDPA's; at depth 4 in float32 the kernel
+               forward within FORWARD_REL of the plain path (``blocked``
+               / ``fused`` forced), a V-shifted control outside.
+ 21. encdec — seamless-m4t-large-v2@inhibitor, then
+               seamless-m4t-large-v2 (24 + 24 layers, d 1,024, 16 / 16
+               heads of 64, d_ff 8,192, vocab 256,206: 1.63 B
+               parameters): ``encode`` of b 2 x 4,096 frames (every
+               layer ``pallas``, non-causal), ``decode_train`` over 1,024
+               tokens (self-attention ``pallas``, causal;
+               cross-attention ``chunked`` / ``fused``), 64 greedy
+               ``decode_step`` calls on a contiguous cache (no kernel);
+               at depth 4 in float32 the encoder against the plain path
+               and the steps against teacher forcing (STEP_REL); walls,
+               device times, the step against its floor, peak memory.
+ 22. train_families — reduced float32 gradients on the card against the
+               CPU port's (GRAD_REL) for every family below; then AdamW
+               steps on one fixed batch each: qwen2-moe-a2.7b (depth 2,
+               b 4 x 512), hymba-1.5b (depth 4, b 4 x 256),
+               seamless-m4t-large-v2 (whole, b 4 x 1,024 frames x 512
+               tokens; @inhibitor at depth 2), llava-next-mistral-7b
+               (depth 2, b 2 x (2,880 image + 256 text)): launches =
+               steps x kernel sites x 2, losses finite and falling by
+               TRAIN_FAMILY_MIN_FALL; step wall, positions a second,
+               peak memory.
 
 Then the ``kernels`` summary line, the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``.  TF32 is off for matmuls and cuDNN.
@@ -225,9 +267,14 @@ Then the ``kernels`` summary line, the ``nvidia-smi`` line and, last,
     python3 chip_smoke.py --only serve_analysis
     python3 chip_smoke.py --only serve_moe
     python3 chip_smoke.py --only serve_hybrid
+    python3 chip_smoke.py --only serve_vlm
+    python3 chip_smoke.py --only encdec
+    python3 chip_smoke.py --only train_families
+    python3 chip_smoke.py --only flash_parity
 
 run phases 1, 2 and 3 (or 9, or 13, or 4, or 14, or 15, or 16, or 4
-and 17, or 18, or 19) alone, against the package under
+and 17, or 18, or 19, or 20, or 21, or 22, or 6) alone, against the
+package under
 ``--src`` (by default this checkout's): another commit's kernels checked
 and timed by this script's phase.  Against another package, phase 3 records the
 launch grids without holding them to the split design, and phase 4
@@ -363,11 +410,14 @@ def traced_records(run, pad: int, label: str):
     return records, (lo, hi), len(lost)
 
 
-def device_us(fn, n: int, grids: bool = False, attempts: int = 3) -> dict:
+def device_us(fn, n: int, grids: bool = False, attempts: int = 3,
+              warm: int = 3, names: tuple = ()) -> dict:
     """Device time per call of fn(i) without the host: the device records
-    (kernels, copies, fills) of n calls in a torch.profiler trace, summed
-    and divided by n, with the records per call, the mean per record and,
-    with ``grids``, each kernel's launch grids as the trace recorded them.
+    (kernels, copies, fills) of n calls (after ``warm`` untraced ones) in
+    a torch.profiler trace, summed and divided by n, with the records per
+    call, the mean per record, with ``names`` the time and launches per
+    call of the kernels whose name holds one of them, and with ``grids``
+    each kernel's launch grids as the trace recorded them.
 
     The n calls run inside one ``traced_records`` range.  On the H100 the
     trace drops the first records of a session, more the longer the
@@ -377,7 +427,7 @@ def device_us(fn, n: int, grids: bool = False, attempts: int = 3) -> dict:
     such traces the phase fails."""
     import torch
 
-    for i in range(3):
+    for i in range(warm):
         fn(i)
     torch.cuda.synchronize()
     pad = 1000
@@ -393,6 +443,11 @@ def device_us(fn, n: int, grids: bool = False, attempts: int = 3) -> dict:
     total = sum(float(e["dur"]) for e in records)
     out = {"us": total / n, "kernels_per_call": len(records) / n,
            "us_per_launch": total / len(records), "trace_attempts": attempt}
+    if names:
+        hit = [e for e in records if e["cat"] == "kernel"
+               and any(m in e["name"] for m in names)]
+        out["named_us"] = sum(float(e["dur"]) for e in hit) / n
+        out["named_launches"] = len(hit) / n
     if grids:
         out["grids"] = {}
         for e in records:
@@ -510,23 +565,27 @@ SPLIT_GROUPS = (5, 8)
 LONG_LENGTHS = (1, 17, 300, 1023, 1024, 1025, 1100, 1100)
 # the served families' shapes, each held (signed and unsigned inhibitor,
 # Softmax; bf16 and float32) against the plain versions: d 128 at group
-# 1 (qwen2-moe-a2.7b, qwen1.5-4b: 16 / 16 heads) and group 5
-# (llama4-scout: 40 / 8), d 64 at group 5 with hymba-1.5b's window of
-# 1,024 keys over cursors up to 1,100
+# 1 (qwen2-moe-a2.7b, qwen1.5-4b: 16 / 16 heads), group 4
+# (llava-next-mistral-7b: 32 / 8) and group 5 (llama4-scout: 40 / 8), d
+# 64 at group 5 with hymba-1.5b's window of 1,024 keys over cursors up
+# to 1,100
 FAMILY_SHAPES = {
     "d128 group 1": PagedShape(heads=16, kv_heads=16, d=128),
+    "d128 group 4": PagedShape(heads=32, kv_heads=8, d=128),
     "d128 group 5": PagedShape(heads=40, kv_heads=8, d=128),
     "d64 group 5 window 1024": PagedShape(heads=25, kv_heads=5, d=64,
                                           width=128, lengths=LONG_LENGTHS,
                                           window=1024),
 }
-# the decode shapes phases 18 and 19 serve, at which both kernels are
-# timed: qwen2-moe-a2.7b's (batch 8, cursors 1..512 as phase 4's, 24
-# layers' pools cycled) and hymba-1.5b's (batch 4 at its table-width
-# bucket 128: the 1,100-token prompt's row after its 16 new tokens and
-# three 64-token rows after theirs, 32 layers' pools)
+# the decode shapes phases 18, 19 and 20 serve, at which both kernels
+# are timed: qwen2-moe-a2.7b's (batch 8, cursors 1..512 as phase 4's, 24
+# layers' pools cycled), hymba-1.5b's (batch 4 at its table-width bucket
+# 128: the 1,100-token prompt's row after its 16 new tokens and three
+# 64-token rows after theirs, 32 layers' pools) and
+# llava-next-mistral-7b's (phase 4's batch and cursors, 32 layers)
 SERVE_SHAPES = {
     "qwen2-moe-a2.7b": (PagedShape(heads=16, kv_heads=16, d=128), 24),
+    "llava-next-mistral-7b": (PagedShape(heads=32, kv_heads=8, d=128), 32),
     "hymba-1.5b": (PagedShape(heads=25, kv_heads=5, d=64, batch=4,
                               width=128, lengths=(1116, 80, 80, 80),
                               shared_rows=None, window=1024), 32),
@@ -734,7 +793,7 @@ def sdpa_library(torch, q, kp, vp, tables, lengths, shape: PagedShape,
 
 
 def serve_shape_timings(torch, kpaged, gen, n: int) -> dict:
-    """Both kernels at the decode shapes phases 18 and 19 serve
+    """Both kernels at the decode shapes phases 18, 19 and 20 serve
     (``SERVE_SHAPES``), bf16, unpoisoned, cycling over the model's layers'
     pools: ms per call, the plain version's, the device µs per call and
     launch grid from a trace, the byte / operation bound, and for the
@@ -1166,10 +1225,12 @@ def flash_fns(name):
     return kflash.flash_attention_fwd, kflash.flash_attention_plain
 
 
-def flash_operands(torch, gen, name, dtype, b, n_q, n_k=None, d=D):
-    """q (b, n_q, 9, d), k / v (b, n_k, 3, d) on ``gen``'s device; q and
-    k of stddev 1/sqrt(d) for the inhibitor (see QK_STD), 1 for the
-    Softmax; v unit normal."""
+def flash_operands(torch, gen, name, dtype, b, n_q, n_k=None, d=D,
+                   heads=H, kv_heads=H_KV):
+    """q (b, n_q, heads, d), k / v (b, n_k, kv_heads, d) on ``gen``'s
+    device (smollm-135m's 9 / 3 heads by default); q and k of stddev
+    1/sqrt(d) for the inhibitor (see QK_STD), 1 for the Softmax; v unit
+    normal."""
     n_k = n_k or n_q
     std = d ** -0.5 if name == "flash_inhibitor" else 1.0
 
@@ -1177,8 +1238,8 @@ def flash_operands(torch, gen, name, dtype, b, n_q, n_k=None, d=D):
         return (torch.randn(shape, generator=gen, device=gen.device)
                 * scale).to(dtype)
 
-    return (mk((b, n_q, H, d), std), mk((b, n_k, H_KV, d), std),
-            mk((b, n_k, H_KV, d), 1.0))
+    return (mk((b, n_q, heads, d), std), mk((b, n_k, kv_heads, d), std),
+            mk((b, n_k, kv_heads, d), 1.0))
 
 
 def flash_tol(torch, ref, dtype, n_k: int, normalize: bool = True):
@@ -1274,17 +1335,19 @@ def record(torch, results, name, label, out, ref, control, tol):
         r["min_control_err_over_tol"] = ctl
 
 
-def flash_bound(name: str, b: int, n: int, elem: int) -> dict:
-    """Least time at (b, n) causal: q, k, v read and out written once;
-    the operations on each attended (query head, key) pair: the inhibitor
-    as float32 instructions that are not FMAs on the CUDA cores (no tensor
-    core computes a sum of absolute differences), the Softmax products on
-    the bf16 tensor cores (float32: FMAs on the CUDA cores)."""
-    nbytes = elem * (2 * b * n * H * D + 2 * b * n * H_KV * D)
-    pairs = b * H * n * (n + 1) // 2
-    ops = OPS_PER_ELEMENT[name] * pairs * D
+def flash_bound(name: str, b: int, n: int, elem: int, heads: int = H,
+                kv_heads: int = H_KV, d: int = D, causal: bool = True) -> dict:
+    """Least time at (b, n), causal or not (smollm-135m's heads by
+    default): q, k, v read and out written once; the operations on each
+    attended (query head, key) pair: the inhibitor as float32
+    instructions that are not FMAs on the CUDA cores (no tensor core
+    computes a sum of absolute differences), the Softmax products on the
+    bf16 tensor cores (float32: FMAs on the CUDA cores)."""
+    nbytes = elem * (2 * b * n * heads * d + 2 * b * n * kv_heads * d)
+    pairs = b * heads * (n * (n + 1) // 2 if causal else n * n)
+    ops = OPS_PER_ELEMENT[name] * pairs * d
     if name == "flash_inhibitor":   # the prefix sums of v, added per query
-        ops += b * n * (H_KV + H) * D
+        ops += b * n * (kv_heads + heads) * d
     rate = (FP32_INSTR_PER_S if name == "flash_inhibitor"
             else FP32_OPS_PER_S if elem == 4 else BF16_TENSOR_OPS_PER_S)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / rate
@@ -1293,7 +1356,114 @@ def flash_bound(name: str, b: int, n: int, elem: int) -> dict:
             "bytes": nbytes, "ops": ops}
 
 
-def phase_flash_parity(torch):
+# the flash kernels at the shapes phases 20-22 first run them:
+# seamless-m4t-large-v2's non-causal encoder (b 2 x 4,096 frames, 16 / 16
+# heads of 64: group 1) and causal teacher-forced decoder (b 2 x 1,024),
+# llava-next-mistral-7b's image prefill (b 1 x 2,880 image + 128 text
+# positions, causal, 32 / 8 heads of 128: group 4); phase 22's training
+# forwards: seamless's encoder (b 4 x 1,024 frames, non-causal; its
+# decoder's 512 tokens stay below the kernel's threshold) and llava's
+# (b 2 x (2,880 + 256) positions, causal).  (label, batch, n, heads, kv
+# heads, head_dim, causal)
+FLASH_FAMILY_SHAPES = [
+    ("seamless encoder", 2, 4096, 16, 16, 64, False),
+    ("seamless decoder", 2, 1024, 16, 16, 64, True),
+    ("llava image prefill", 1, 3008, 32, 8, 128, True),
+    ("seamless train encoder", 4, 1024, 16, 16, 64, False),
+    ("llava train", 2, 3136, 32, 8, 128, True),
+]
+
+
+def ptxas_registers(ptxas: list, *needles: str) -> dict:
+    """Each compiled entry whose mangled name holds every needle -> its
+    ptxas register line (the build's ``-Xptxas -v`` output)."""
+    out, entry = {}, None
+    for line in ptxas:
+        if "entry function" in line:
+            entry = line.split("'")[1] if "'" in line else line
+        elif "registers" in line and entry is not None:
+            if all(n in entry for n in needles):
+                out[entry] = line.split(":", 1)[-1].strip()
+            entry = None
+    return out
+
+
+def flash_family_shapes(torch, kops, results: dict, gen) -> dict:
+    """Both flash kernels at ``FLASH_FAMILY_SHAPES``: in bf16 and float32
+    one call each, which must be one launch of the kernel and no plain
+    call, held against the plain version (``record``: tolerance, share
+    above it, V-rolled control outside); the query tile each launch takes;
+    then in bf16 (two input sets cycled, beyond the L2) the kernel's ms and
+    device µs per call, the plain version's ms, the bound and, for the
+    Softmax, SDPA's ms and device µs and its distance from the kernel."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash as kflash
+    from repro_torch.kernels import inhibitor as kinh
+
+    out = {}
+    for label, b, n, heads, kv_heads, d, causal in FLASH_FAMILY_SHAPES:
+        group = heads // kv_heads
+        shape = {"batch": b, "n": n, "heads": heads, "kv_heads": kv_heads,
+                 "head_dim": d, "group": group, "causal": causal}
+        for name in ("flash_inhibitor", "flash_attention"):
+            fwd, plain = flash_fns(name)
+            for dtype in (torch.bfloat16, torch.float32):
+                q, k, v = flash_operands(torch, gen, name, dtype, b, n, d=d,
+                                         heads=heads, kv_heads=kv_heads)
+                kops.reset_counts()
+                got = fwd(q, k, v, causal=causal)
+                torch.cuda.synchronize()
+                c = kops.counts()
+                check(c[name] == 1 and c[name + "_plain"] == 0,
+                      f"{name} {label} {dtype}: counts {c}")
+                ref = plain(q, k, v, causal=causal)
+                record(torch, results, name, f"{label} {dtype}", got, ref,
+                       plain(q, k, v.roll(1, dims=1), causal=causal),
+                       flash_tol(torch, ref, dtype, n))
+                del q, k, v, got, ref
+            if name == "flash_inhibitor":
+                tiles = {"bfloat16": kinh.BLOCK_Q, "float32": kinh.BLOCK_Q}
+            else:
+                bq = kflash.DEFAULT_BLOCK_Q
+                tiles = {"bfloat16": kinh._block_q(group, d, bq,
+                                                   kflash.BLOCK_QS),
+                         "float32": kinh._block_q(group, d, bq, None)}
+            sets = [flash_operands(torch, gen, name, torch.bfloat16, b, n,
+                                   d=d, heads=heads, kv_heads=kv_heads)
+                    for _ in range(2)]
+
+            def kernel(i):
+                return fwd(*sets[i % 2], causal=causal)
+
+            t = {"shape": shape, "block_q": tiles, "ms": cuda_ms(kernel, 20),
+                 "plain_ms": cuda_ms(lambda i: plain(*sets[i % 2],
+                                                     causal=causal), 1,
+                                     warm=1)}
+            dev = device_us(kernel, 10)
+            t.update(device_us=dev["us"],
+                     kernels_per_call=dev["kernels_per_call"],
+                     trace_attempts=dev["trace_attempts"])
+            t["library_ms"] = None
+            if name == "flash_attention":
+                def library(i):
+                    q, k, v = (x.transpose(1, 2) for x in sets[i % 2])
+                    return F.scaled_dot_product_attention(
+                        q, k, v, is_causal=causal, enable_gqa=True)
+
+                t["library_ms"] = cuda_ms(library, 20)
+                t["library_device_us"] = device_us(library, 10)["us"]
+                t["library_max_abs_err"] = (
+                    library(0).transpose(1, 2).float()
+                    - kernel(0).float()).abs().max().item()
+            t.update(flash_bound(name, b, n, 2, heads, kv_heads, d, causal))
+            out.setdefault(label, {})[name] = t
+            del sets
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_flash_parity(torch, kops, ptxas=()):
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash as kflash
@@ -1336,12 +1506,14 @@ def phase_flash_parity(torch):
             t["library_ms"] = None
         t.update(flash_bound(name, TRAIN_B, TRAIN_N, 2))
         timings[name] = t
+    timings["family_shapes"] = flash_family_shapes(torch, kops, results, gen)
     emit({"phase": "flash_parity", "heads": H, "kv_heads": H_KV,
           "head_dim": D, "cursors": {"q_offset": CURSOR_OFFS,
                                      "kv_valid_len": CURSOR_VALID},
           "timing_shapes": {"batch": TRAIN_B, "n": TRAIN_N,
                             "causal": True, "dtype": "bfloat16",
                             "flash_attention_block_q": kflash.DEFAULT_BLOCK_Q},
+          "ptxas_d128": ptxas_registers(list(ptxas), "flash", "Li128E"),
           "results": results, "timings": timings})
     return results, timings
 
@@ -2389,14 +2561,15 @@ FAMILY_SPECS = {
 
 
 @contextlib.contextmanager
-def recording(module, name: str, keep: list):
-    """``module.name`` wrapped to append every call's result to ``keep``
-    (the callers look the function up on the module at each call)."""
+def recording(module, name: str, keep: list, args: bool = False):
+    """``module.name`` wrapped to append every call's result to ``keep``,
+    with ``args`` as (positional arguments, result) (the callers look the
+    function up on the module at each call)."""
     orig = getattr(module, name)
 
-    def wrapped(*args, **kwargs):
-        out = orig(*args, **kwargs)
-        keep.append(out)
+    def wrapped(*a, **kwargs):
+        out = orig(*a, **kwargs)
+        keep.append((a, out) if args else out)
         return out
 
     setattr(module, name, wrapped)
@@ -2406,17 +2579,30 @@ def recording(module, name: str, keep: list):
         setattr(module, name, orig)
 
 
-def family_params(torch, api, cfg) -> dict:
-    """Float32 parameters drawn on the card from a CUDA generator (seed 0;
-    a CPU generator would draw 15 B normals on the host); for the
-    inhibitor, every wq and wk scaled by 1/sqrt(head_dim) (QK_STD)."""
-    params = api.init(torch.Generator(device="cuda").manual_seed(0),
-                      device="cuda")
+def attention_params(params: dict) -> list:
+    """Every attention's parameter dict in a model's tree: each block's
+    ``attn``; the encoder-decoder's encoder ``attn`` and decoder
+    ``self_attn`` and ``cross_attn``."""
+    names = {"blocks": ("attn",), "encoder": ("attn",),
+             "decoder": ("self_attn", "cross_attn")}
+    return [layer[a] for stack, attns in names.items()
+            for layer in params.get(stack, ()) for a in attns]
+
+
+def family_params(torch, api, cfg, device: str = "cuda",
+                  seed: int = 0) -> dict:
+    """Float32 parameters drawn on ``device`` from a generator there (seed
+    0; on the card a CPU generator would draw 15 B normals on the host);
+    for the inhibitor, every wq and wk of every attention scaled by
+    1/sqrt(head_dim) (QK_STD)."""
+    params = api.init(torch.Generator(device=device).manual_seed(seed),
+                      device=device)
     if cfg.attention.mechanism.startswith("inhibitor"):
         std = cfg.attention.head_dim ** -0.5
-        for blk in params["blocks"]:
-            blk["attn"]["wq"]["kernel"].mul_(std)
-            blk["attn"]["wk"]["kernel"].mul_(std)
+        with torch.no_grad():
+            for attn in attention_params(params):
+                attn["wq"]["kernel"].mul_(std)
+                attn["wk"]["kernel"].mul_(std)
     return params
 
 
@@ -2667,7 +2853,7 @@ def serve_family_arm(torch, kops, smi: str, arch: str) -> dict:
     card = torch.cuda.get_device_properties(0).total_memory
     gen_tokens = stats["generated_tokens"]
     p50 = statistics.median(decode_only_ms)
-    out = {"phase": "serve_moe" if cfg.family == "moe" else "serve_hybrid",
+    out = {"phase": SERVE_PHASES[cfg.family],
            "arch": arch, "card": smi, "layers": L, "d_model": cfg.d_model,
            "engine": dict(spec["engine"]),
            "prefill_chunk": eng.cfg.prefill_chunk,
@@ -2735,20 +2921,654 @@ def serve_family_arm(torch, kops, smi: str, arch: str) -> dict:
     check(peak < card, f"{arch}: peak memory {peak} over the card's {card}")
     result = {"arch": arch, "kernel": kernel, "launches": counts[kernel],
               "profiled_tick": tick}
-    del eng, params
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    if spec.get("extra") is not None:
+        result["extra"] = spec["extra"](torch, kops, smi, arch, cfg, api,
+                                        params)
+    del params
     gc.collect()
     torch.cuda.empty_cache()
     return result
 
 
 def phase_serve_family(torch, kops, smi: str, arch: str) -> dict:
-    """Phase 18 (``arch`` qwen2-moe-a2.7b) or 19 (hymba-1.5b): the
-    inhibitor arm, then the dot-product arm (``serve_family_arm``).
-    Returns each arm's kernel launches by kernel name."""
+    """Phase 18 (``arch`` qwen2-moe-a2.7b), 19 (hymba-1.5b) or 20
+    (llava-next-mistral-7b): the inhibitor arm, then the dot-product arm
+    (``serve_family_arm``).  Returns each arm's kernel launches by kernel
+    name, and the launches of its ``extra`` part by kernel name under
+    ``"extra"``."""
     launches = {}
     for name in (f"{arch}@inhibitor", arch):
         arm = serve_family_arm(torch, kops, smi, name)
         launches[arm["kernel"]] = arm["launches"]
+        if "extra" in arm:
+            launches.setdefault("extra", {}).update(arm["extra"]["launches"])
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# 20, 21, 22. serve_vlm / encdec / train_families: the vlm and
+# encoder-decoder families at full width, and training of the moe,
+# hybrid, encoder-decoder and vlm families on the card
+# ---------------------------------------------------------------------------
+
+VLM = "llava-next-mistral-7b"
+SEAMLESS = "seamless-m4t-large-v2"
+SERVE_PHASES = {"moe": "serve_moe", "hybrid": "serve_hybrid",
+                "vlm": "serve_vlm"}
+# the image prefill: all 5 anyres tiles x 576 patches before 128 text
+# tokens (3,008 positions), at full depth in bf16; held in float32 at
+# full width and depth 4 against the plain path
+VLM_PREFILL_TEXT = 128
+HOLD_DEPTH = 4
+# kernel forward against the plain path (float32, depth 4): max |diff|
+# within FORWARD_REL of the plain output's largest magnitude; the kernels
+# and the plain versions differ by float32 summation order, about 1e-6
+# of an output a layer
+FORWARD_REL = 1e-4
+# decode steps against the teacher-forced decoder (float32, depth 4):
+# the CPU tests' 2e-4, of max(1, the largest logit)
+STEP_REL = 2e-4
+# the plain path each mechanism's kernel is held against: the inhibitor's
+# structural plain backend, the Softmax's dense one
+PLAIN_BACKEND = {"flash_inhibitor": "blocked", "flash_attention": "fused"}
+
+
+def plan_rows(calls: list) -> list:
+    """``recording(attn, "plan_attention", calls, args=True)``'s calls as
+    rows: causal, cross, n_q, n_k and the backend planned."""
+    return [{"causal": cfg.causal, "cross": shapes.is_cross,
+             "n_q": shapes.n_q, "n_k": shapes.n_k, "backend": plan.backend}
+            for (cfg, shapes), plan in calls]
+
+
+@contextlib.contextmanager
+def v_shifted():
+    """The control: every attention's V rolled by one key before its
+    backend runs (a kernel or plain path reading the wrong keys)."""
+    from repro_torch.core import attention as attn
+
+    orig = attn.execute_plan
+
+    def shifted(plan, q, k, v, **kw):
+        return orig(plan, q, k, v.roll(1, dims=1), **kw)
+
+    attn.execute_plan = shifted
+    try:
+        yield
+    finally:
+        attn.execute_plan = orig
+
+
+def plain_cfg(cfg, kernel: str):
+    return dataclasses.replace(cfg, attention=dataclasses.replace(
+        cfg.attention, backend=PLAIN_BACKEND[kernel]))
+
+
+#: the flash kernels' names in a trace (``device_us``'s ``names``)
+FLASH_KERNEL_NAMES = ("flash_inhibitor_kernel", "flash_attention")
+
+
+def forward_device(torch, run) -> dict:
+    """Device time of one ``run()`` under no_grad, already warm, with the
+    flash kernels' time and launches among its records."""
+    with torch.no_grad():
+        return device_us(lambda i: run(), 1, warm=0,
+                         names=FLASH_KERNEL_NAMES)
+
+
+def held(torch, got, ref, control, rel: float) -> dict:
+    """Max |got - ref| within ``rel`` of max |ref|, the control outside."""
+    scale = ref.float().abs().max().item()
+    err = (got.float() - ref.float()).abs().max().item()
+    ctl = (control.float() - ref.float()).abs().max().item()
+    return {"max_abs_err": err, "tol": rel * scale, "max_abs_ref": scale,
+            "control_max_abs_err": ctl,
+            "ok": bool(torch.isfinite(got).all()) and err <= rel * scale
+            < ctl}
+
+
+def vlm_image_prefill(torch, kops, smi, arch, cfg, api, params) -> dict:
+    """Phase 20's image prefill on one arm: ``api.forward`` on b 1 x
+    (2,880 patch embeddings + 128 text tokens) at full depth in bf16,
+    every layer planned ``pallas`` and its flash kernel launched once a
+    layer (counts zeroed just before, read just after); the forward's
+    wall, device time and the kernel's device µs per call beside its
+    bound and SDPA's time at the same q / k / v shapes.  Then at full
+    width and depth 4 in float32 the kernel forward against the plain
+    path (the planner forced to ``PLAIN_BACKEND``) within FORWARD_REL,
+    and the plain path with V shifted by one key outside it."""
+    import torch.nn.functional as F
+
+    from repro_torch.core import attention as attn_m
+    from repro_torch.models.registry import get_model
+
+    fe, a = cfg.frontend, cfg.attention
+    n_img = fe.tokens_per_item * fe.max_tiles
+    n = n_img + VLM_PREFILL_TEXT
+    L = cfg.num_layers
+    kernel = train_kernel(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size,
+                                     (1, VLM_PREFILL_TEXT), generator=gen,
+                                     device="cuda"),
+             "image_embeds": torch.randn((1, n_img, fe.embed_dim),
+                                         generator=gen, device="cuda")}
+
+    def forward():
+        with torch.no_grad():
+            return api.forward(params, batch)
+
+    forward()
+    torch.cuda.synchronize()
+    calls = []
+    kops.reset_counts()
+    with recording(attn_m, "plan_attention", calls, args=True):
+        t0 = time.perf_counter()
+        logits = forward()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = kops.counts()
+    plans = plan_rows(calls)
+    check(len(plans) == L and all(p["backend"] == "pallas" and p["causal"]
+                                  and p["n_q"] == n for p in plans),
+          f"{arch}: image prefill plans {plans}")
+    check(counts[kernel] == L and all(
+        v == 0 for k, v in counts.items() if k != kernel),
+        f"{arch}: image prefill launches {counts}")
+    check(tuple(logits.shape) == (1, n, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()),
+          f"{arch}: image prefill logits {tuple(logits.shape)}")
+    del logits
+    dev = forward_device(torch, forward)
+    q = torch.randn((1, a.num_heads, n, a.head_dim), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    k, v = (torch.randn((1, a.num_kv_heads, n, a.head_dim), generator=gen,
+                        device="cuda").to(torch.bfloat16) for _ in range(2))
+
+    def sdpa(i):
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                              enable_gqa=True)
+
+    sdpa_ms, sdpa_us = cuda_ms(sdpa, 20), device_us(sdpa, 10)["us"]
+    del q, k, v
+    # the float32 hold at depth HOLD_DEPTH
+    f32 = dataclasses.replace(cfg.with_layers(HOLD_DEPTH),
+                              compute_dtype="float32")
+    p4 = dict(params, blocks=params["blocks"][:HOLD_DEPTH])
+    with torch.no_grad():
+        kops.reset_counts()
+        got = get_model(f32).forward(p4, batch)
+        hold_launches = kops.counts()[kernel]
+        ref = get_model(plain_cfg(f32, kernel)).forward(p4, batch)
+        with v_shifted():
+            control = get_model(plain_cfg(f32, kernel)).forward(p4, batch)
+    hold = held(torch, got, ref, control, FORWARD_REL)
+    del got, ref, control
+    out = {"phase": "vlm_image_prefill", "arch": arch, "card": smi,
+           "batch": 1, "image_positions": n_img,
+           "text_tokens": VLM_PREFILL_TEXT, "layers": L,
+           "plans": sorted({p["backend"] for p in plans}),
+           "launches": {kernel: counts[kernel]}, "wall_ms": wall * 1e3,
+           "device": dev, "kernel_us_per_call": dev["named_us"] / L,
+           "kernel_bound": flash_bound(kernel, 1, n, 2, a.num_heads,
+                                       a.num_kv_heads, a.head_dim),
+           "sdpa_ms": sdpa_ms, "sdpa_device_us": sdpa_us,
+           "hold": dict(hold, depth=HOLD_DEPTH, dtype="float32",
+                        plain_backend=PLAIN_BACKEND[kernel],
+                        launches=hold_launches, rel=FORWARD_REL)}
+    emit(out)
+    check(dev["named_launches"] == L,
+          f"{arch}: {dev['named_launches']} flash kernels in the trace")
+    check(hold_launches == HOLD_DEPTH and hold["ok"],
+          f"{arch}: float32 image prefill vs the plain path {hold}")
+    torch.cuda.empty_cache()
+    return out
+
+
+FAMILY_SPECS[VLM] = dict(engine=MOE_SERVE_ENGINE, requests=moe_requests,
+                         bucketed=True, prefix=True, recycle=False,
+                         decode_lengths=MOE_DECODE_LENGTHS,
+                         extra=vlm_image_prefill)
+
+# phase 21: b 2 x the config's max_source_len (4,096) frames, 1,024
+# teacher-forced target tokens, 64 greedy decode steps
+ENCDEC_B, ENCDEC_TGT, ENCDEC_NEW = 2, 1024, 64
+# the inhibitor arm's cross-attention over 4,096 frames: the fused form's
+# (b, h, n_q, n_k, d) float32 difference cube would take 34 GB at the
+# teacher-forced decoder's 1,024 queries, so the arm plans ``chunked``
+# above 2,048 keys (its self-attentions take the kernel, unaffected)
+ENCDEC_INHIBITOR_CHUNKED_AT = 2048
+
+
+def encdec_cfg(arch: str):
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    if cfg.attention.mechanism.startswith("inhibitor"):
+        cfg = dataclasses.replace(cfg, attention=dataclasses.replace(
+            cfg.attention, chunked_threshold=ENCDEC_INHIBITOR_CHUNKED_AT))
+    return cfg
+
+
+def greedy_steps(torch, api, params, memory, steps: int, max_len: int):
+    """``steps`` greedy ``decode_step`` calls from token 0 on a contiguous
+    cache: (the logits of each step (b, steps, V) in float32, the tokens
+    fed (b, steps), each step's wall in ms)."""
+    b = memory.shape[0]
+    states = api.init_states(b, max_len, device="cuda")
+    tok = torch.zeros((b, 1), dtype=torch.int64, device="cuda")
+    fed, logits, walls = [], [], []
+    with torch.no_grad():
+        for _ in range(steps):
+            fed.append(tok)
+            t0 = time.perf_counter()
+            lg, states = api.step(params, tok, states, {"memory": memory})
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            logits.append(lg[:, -1].float())
+            tok = lg[:, -1].argmax(-1, keepdim=True)
+    check(states.kv.length.tolist() == [steps] * len(states.kv.length),
+          f"decode cursors {states.kv.length.tolist()}")
+    return torch.stack(logits, 1), torch.cat(fed, 1), walls
+
+
+def encdec_arm(torch, kops, smi: str, arch: str) -> dict:
+    """Phase 21 on one arm: ``arch`` at full width and depth, parameters
+    drawn on the card (``family_params``: every attention's wq and wk
+    scaled on the inhibitor arm), frames b 2 x 4,096 from a seed.  The
+    counts are zeroed just before each part and read just after.
+    ``encode``: every encoder layer planned ``pallas``, non-causal, its
+    kernel launched once a layer.  ``decode_train`` over 1,024 target
+    tokens: every self-attention ``pallas``, causal, every
+    cross-attention ``chunked`` or ``fused``.  64 greedy ``decode_step``
+    calls on a contiguous cache (no kernel: one query a step), each
+    step's logits against the teacher-forced decoder's on the tokens fed
+    (bf16, printed).  At full width and depth 4 in float32: the encoder
+    output through the kernel against the plain path within FORWARD_REL
+    and the V-shifted control outside; the greedy steps against the
+    teacher-forced decoder within STEP_REL.  Printed beside the card: the
+    encoder's and the decoder's walls and device times, the decode step's
+    wall p50 and device time against its floor (decoder and head weights
+    read once), peak memory."""
+    from repro_torch.core import attention as attn_m
+    from repro_torch.models import encdec as encdec_m
+    from repro_torch.models.registry import get_model
+
+    cfg = encdec_cfg(arch)
+    api = get_model(cfg)
+    a = cfg.attention
+    kernel = train_kernel(cfg)
+    Le, Ld = cfg.encdec.encoder_layers, cfg.encdec.decoder_layers
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = family_params(torch, api, cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    src = cfg.encdec.max_source_len
+    frames = torch.randn((ENCDEC_B, src, cfg.frontend.embed_dim),
+                         generator=gen, device="cuda")
+    tgt = torch.randint(0, cfg.vocab_size, (ENCDEC_B, ENCDEC_TGT),
+                        generator=gen, device="cuda")
+
+    def counted(fn, what: str, n_kernel: int):
+        calls = []
+        kops.reset_counts()
+        with torch.no_grad(), recording(attn_m, "plan_attention", calls,
+                                        args=True):
+            t0 = time.perf_counter()
+            y = fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        counts = kops.counts()
+        check(counts[kernel] == n_kernel and all(
+            v == 0 for k, v in counts.items() if k != kernel),
+            f"{arch}: {what} launches {counts}, expected {n_kernel}")
+        return y, plan_rows(calls), wall, counts[kernel]
+
+    with torch.no_grad():
+        encdec_m.encode(params, cfg, frames)          # warm
+        torch.cuda.synchronize()
+    memory, enc_plans, enc_wall, enc_launches = counted(
+        lambda: encdec_m.encode(params, cfg, frames), "encode", Le)
+    check(len(enc_plans) == Le and all(
+        p["backend"] == "pallas" and not p["causal"] and not p["cross"]
+        and p["n_q"] == src for p in enc_plans),
+        f"{arch}: encoder plans {enc_plans}")
+    logits, dec_plans, dec_wall, dec_launches = counted(
+        lambda: encdec_m.decode_train(params, cfg, memory, tgt), "decode",
+        Ld)
+    self_plans = [p for p in dec_plans if not p["cross"]]
+    cross_plans = [p for p in dec_plans if p["cross"]]
+    check(len(self_plans) == Ld and all(p["backend"] == "pallas"
+                                        and p["causal"] for p in self_plans)
+          and len(cross_plans) == Ld and all(
+              p["backend"] in ("chunked", "fused") for p in cross_plans),
+          f"{arch}: decoder plans {dec_plans}")
+    check(tuple(logits.shape) == (ENCDEC_B, ENCDEC_TGT, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()),
+          f"{arch}: teacher-forced logits")
+    del logits
+    enc_dev = forward_device(torch,
+                             lambda: encdec_m.encode(params, cfg, frames))
+    dec_dev = forward_device(
+        torch, lambda: encdec_m.decode_train(params, cfg, memory, tgt))
+    # greedy generation at full depth, bf16: ENCDEC_NEW steps, no kernel
+    kops.reset_counts()
+    step_logits, fed, step_ms = greedy_steps(torch, api, params, memory,
+                                             ENCDEC_NEW, ENCDEC_NEW + 8)
+    step_counts = kops.counts()
+    check(all(v == 0 for v in step_counts.values()),
+          f"{arch}: decode steps launched {step_counts}")
+    with torch.no_grad():
+        tf = encdec_m.decode_train(params, cfg, memory, fed).float()
+    bf16_pair = {"max_abs_err": (step_logits - tf).abs().max().item(),
+                 "max_abs_logit": tf.abs().max().item(),
+                 "argmax_agreement": (step_logits.argmax(-1)
+                                      == tf.argmax(-1)).float().mean()
+                 .item()}
+    del tf, step_logits
+    states = api.init_states(ENCDEC_B, ENCDEC_NEW + 8, device="cuda")
+    step_dev = forward_device(torch, lambda: api.step(
+        params, fed[:, :1], states, {"memory": memory}))
+    del states, memory
+    step_bytes = sum(t.numel() * t.element_size() for t in _leaves(
+        {k: params[k] for k in ("decoder", "dec_norm", "lm_head")}))
+    torch.cuda.empty_cache()
+    # depth HOLD_DEPTH in float32: the encoder through the kernel against
+    # the plain path, and the decode steps against teacher forcing
+    f32 = dataclasses.replace(cfg.with_layers(HOLD_DEPTH),
+                              compute_dtype="float32")
+    p4 = dict(params, encoder=params["encoder"][:HOLD_DEPTH],
+              decoder=params["decoder"][:HOLD_DEPTH])
+    with torch.no_grad():
+        kops.reset_counts()
+        m_k = encdec_m.encode(p4, f32, frames)
+        hold_launches = kops.counts()[kernel]
+        m_p = encdec_m.encode(p4, plain_cfg(f32, kernel), frames)
+        with v_shifted():
+            m_c = encdec_m.encode(p4, plain_cfg(f32, kernel), frames)
+    hold = held(torch, m_k, m_p, m_c, FORWARD_REL)
+    del m_p, m_c
+    s_logits, s_fed, _ = greedy_steps(torch, get_model(f32), p4, m_k,
+                                      ENCDEC_NEW, ENCDEC_NEW + 8)
+    with torch.no_grad():
+        tf = encdec_m.decode_train(p4, f32, m_k, s_fed)
+    scale = max(1.0, tf.abs().max().item())
+    f32_pair = {"max_abs_err": (s_logits - tf).abs().max().item(),
+                "tol": STEP_REL * scale, "max_abs_logit": scale,
+                "argmax_agreement": (s_logits.argmax(-1) == tf.argmax(-1))
+                .float().mean().item(),
+                "finite": bool(torch.isfinite(s_logits).all())}
+    del m_k, s_logits, tf
+    peak = torch.cuda.max_memory_allocated()
+    out = {"phase": "encdec", "arch": arch, "card": smi,
+           "encoder_layers": Le, "decoder_layers": Ld,
+           "d_model": cfg.d_model, "batch": ENCDEC_B, "frames": src,
+           "target_tokens": ENCDEC_TGT, "init_s": init_s,
+           "param_bytes": sum(t.numel() * t.element_size()
+                              for t in _leaves(params)),
+           "plans": {"encoder": sorted({p["backend"] for p in enc_plans}),
+                     "decoder_self": sorted({p["backend"]
+                                             for p in self_plans}),
+                     "decoder_cross": sorted({p["backend"]
+                                              for p in cross_plans})},
+           "cross_chunked_threshold": a.chunked_threshold,
+           "launches": {"encode": enc_launches, "decode_train": dec_launches,
+                        "decode_steps": sum(step_counts.values())},
+           "encode_wall_ms": enc_wall, "encode_device": enc_dev,
+           "encode_kernel_us_per_call": enc_dev["named_us"] / Le,
+           "encode_kernel_bound": flash_bound(
+               kernel, ENCDEC_B, src, 2, a.num_heads, a.num_kv_heads,
+               a.head_dim, causal=False),
+           "decode_train_wall_ms": dec_wall, "decode_train_device": dec_dev,
+           "decode_train_kernel_us_per_call": dec_dev["named_us"] / Ld,
+           "decode_train_kernel_bound": flash_bound(
+               kernel, ENCDEC_B, ENCDEC_TGT, 2, a.num_heads, a.num_kv_heads,
+               a.head_dim),
+           "decode_steps": ENCDEC_NEW,
+           "step_wall_ms_p50": statistics.median(step_ms),
+           "step_wall_ms": step_ms, "step_device": step_dev,
+           "step_bound_ms": step_bytes / HBM_BYTES_PER_S * 1e3,
+           "step_bytes": step_bytes, "bf16_steps_vs_teacher": bf16_pair,
+           "float32": {"depth": HOLD_DEPTH, "encoder_vs_plain": dict(
+               hold, plain_backend=PLAIN_BACKEND[kernel],
+               launches=hold_launches, rel=FORWARD_REL),
+               "steps_vs_teacher": f32_pair},
+           "max_memory_allocated": peak}
+    emit(out)
+    check(enc_dev["named_launches"] == Le
+          and dec_dev["named_launches"] == Ld,
+          f"{arch}: flash kernels in the traces {enc_dev} {dec_dev}")
+    check(hold_launches == HOLD_DEPTH and hold["ok"],
+          f"{arch}: float32 encoder vs the plain path {hold}")
+    check(f32_pair["finite"] and f32_pair["max_abs_err"] <= f32_pair["tol"],
+          f"{arch}: float32 decode steps vs teacher forcing {f32_pair}")
+    del params, frames, p4
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"kernel": kernel, "launches": enc_launches + dec_launches}
+
+
+def phase_encdec(torch, kops, smi: str) -> dict:
+    """Phase 21: the inhibitor arm, then the dot-product arm.  Returns
+    each arm's kernel launches (encode and decode_train) by kernel."""
+    launches = {}
+    for arch in (f"{SEAMLESS}@inhibitor", SEAMLESS):
+        arm = encdec_arm(torch, kops, smi, arch)
+        launches[arm["kernel"]] = arm["launches"]
+    return launches
+
+
+# phase 22: (arch, depth (None: full), batch, text tokens a row); the
+# encoder-decoder adds ENCDEC_TRAIN_FRAMES frames a row, the vlm its
+# 2,880 patch embeddings before the text.  Depth cut by memory: AdamW in
+# float32 keeps 16 bytes a parameter (qwen2-moe-a2.7b at depth 2: 1.83 B,
+# 29 GB; llava at depth 2: 0.70 B, 11.2 GB; seamless whole: 1.63 B, 26
+# GB); hymba-1.5b by time (its Mamba branch is an eager Python loop); the
+# inhibitor arm of seamless at depth 2 (its eager backward)
+TRAIN_FAMILIES = [
+    ("qwen2-moe-a2.7b", 2, 4, 512),
+    ("hymba-1.5b", 4, 4, 256),
+    (SEAMLESS, None, 4, 512),
+    (VLM, 2, 2, 256),
+    (f"{SEAMLESS}@inhibitor", 2, 4, 512),
+]
+ENCDEC_TRAIN_FRAMES = 1024
+TRAIN_FAMILY_STEPS = 8
+# least fall of the loss over the steps on the fixed batch (the schedule
+# warms up over 10 steps: the first update has lr 0)
+TRAIN_FAMILY_MIN_FALL = 0.5
+# card against CPU gradients at a reduced config, float32: 1e-4 of each
+# parameter's gradient norm (the CPU tests' tolerance against jax.grad)
+GRAD_REL = 1e-4
+
+
+def family_batch(torch, api, cfg, b: int, text: int, frames: int,
+                 device: str, seed: int = 0) -> dict:
+    """One training batch for ``cfg``'s family: tokens and next-token
+    labels from the seeded LM stream (``lm_batch_at``); the
+    encoder-decoder's frames (b, frames, embed_dim) and the vlm's patch
+    embeddings from a numpy seed, the vlm's labels over image and text
+    positions with the image positions at -1 (the shapes of
+    ``input_specs``)."""
+    import numpy as np
+
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.data.pipeline import PipelineConfig, lm_batch_at
+
+    lm = lm_batch_at(PipelineConfig(b, text, cfg.vocab_size, seed=seed), 0)
+    rng = np.random.default_rng(seed)
+    out = dict(lm)
+    if cfg.family == "encdec":
+        out["frames"] = rng.normal(size=(b, frames, cfg.frontend.embed_dim)
+                                   ).astype(np.float32)
+    if cfg.family == "vlm":
+        fe = cfg.frontend
+        n_img = fe.tokens_per_item * fe.max_tiles
+        specs = api.input_specs(ShapeConfig("train", n_img + text, b,
+                                            "train"))
+        out["image_embeds"] = rng.normal(
+            size=tuple(specs["image_embeds"].shape)).astype(np.float32)
+        out["labels"] = np.concatenate(
+            [np.full((b, n_img), -1, lm["labels"].dtype), lm["labels"]], 1)
+        for k, spec in specs.items():
+            check(tuple(out[k].shape) == tuple(spec.shape),
+                  f"vlm batch {k} {out[k].shape} vs input_specs {spec}")
+    return {k: torch.from_numpy(v).to(device) for k, v in out.items()}
+
+
+def kernel_sites(cfg, batch) -> int:
+    """The self-attentions of one forward the planner sends to the flash
+    kernel (n_q * n_k at or above the blocked threshold)."""
+    at = cfg.attention.blocked_threshold
+    if cfg.family == "encdec":
+        return (cfg.encdec.encoder_layers
+                * (batch["frames"].shape[1] ** 2 >= at)
+                + cfg.encdec.decoder_layers
+                * (batch["tokens"].shape[1] ** 2 >= at))
+    n = batch["tokens"].shape[1] + (batch["image_embeds"].shape[1]
+                                    if "image_embeds" in batch else 0)
+    return cfg.num_layers * (n * n >= at)
+
+
+def grad_card_vs_cpu(torch, arch: str) -> dict:
+    """One gradient of ``arch``'s reduced config (float32) on the card and
+    on the CPU port, from the same parameters and batch: per parameter
+    |g_card - g_cpu| within GRAD_REL of |g_cpu|; a gradient that is 0 by
+    analysis (the key bias under Softmax) below 1e-6 on both, and no other
+    gradient 0."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import get_model
+    from repro_torch.train.step import make_grad_fn
+    from repro_torch.tree import tree_leaves, tree_unflatten
+
+    cfg = get_config(arch).reduced()
+    api = get_model(cfg)
+    cpu = family_params(torch, api, cfg, device="cpu")
+    params = {"cpu": cpu, "cuda": tree_unflatten(
+        cpu, [t.detach().to("cuda") for t in tree_leaves(cpu)])}
+    frames = 24 if cfg.family == "encdec" else 0
+    grads = {}
+    for dev, p in params.items():
+        for t in tree_leaves(p):
+            t.requires_grad_(True)
+        batch = family_batch(torch, api, cfg, 2, 16, frames, dev, seed=3)
+        grads[dev], _ = make_grad_fn(api)(p, batch)
+    # the key bias under Softmax: shift-invariant without RoPE, so its
+    # gradient is 0 by analysis; no other gradient may vanish
+    may_vanish = set() if cfg.attention.mechanism.startswith(
+        "inhibitor") else {id(a["wk"]["bias"]) for a in attention_params(
+            grads["cpu"]) if "bias" in a["wk"]}
+    worst, zeros = 0.0, 0
+    for g_cpu, g_card in zip(tree_leaves(grads["cpu"]),
+                             tree_leaves(grads["cuda"])):
+        ref = g_cpu.norm().item()
+        if ref < 1e-6:
+            zeros += 1
+            check(id(g_cpu) in may_vanish,
+                  f"{arch}: a gradient of shape {tuple(g_cpu.shape)} is 0 "
+                  "on the CPU")
+            check(g_card.norm().item() < 1e-6,
+                  f"{arch}: a gradient 0 on the CPU is "
+                  f"{g_card.norm().item()} on the card")
+            continue
+        worst = max(worst, (g_card.cpu() - g_cpu).norm().item() / ref)
+    return {"max_rel_err": worst, "zero_leaves": zeros,
+            "leaves": len(tree_leaves(grads["cpu"])), "tol": GRAD_REL,
+            "ok": worst <= GRAD_REL}
+
+
+def train_family_arm(torch, kops, smi: str, arch: str, depth, b: int,
+                     text: int) -> dict:
+    """TRAIN_FAMILY_STEPS AdamW steps (the training launcher's optimizer:
+    warmup_cosine(TRAIN_LR, 10, steps)) through ``make_train_step`` on
+    one fixed batch, parameters drawn on the card (``family_params``),
+    remat "full".  The counts are zeroed just before the steps and read
+    just after: the arm's flash kernel launched steps x kernel sites x 2
+    (forward and remat recompute), every other count 0.  Every loss
+    finite, the last below the first by TRAIN_FAMILY_MIN_FALL.  Printed:
+    step wall p50, positions and frames a second, peak memory."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import get_model
+    from repro_torch.optim import AdamWConfig, init_adamw, warmup_cosine
+    from repro_torch.train.step import make_train_step
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config(arch)
+    if depth is not None:
+        cfg = cfg.with_layers(depth)
+    check(cfg.remat == "full", f"{arch}: remat {cfg.remat!r}")
+    api = get_model(cfg)
+    kernel = train_kernel(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    params = family_params(torch, api, cfg)
+    for p in tree_leaves(params):
+        p.requires_grad_(True)
+    opt_cfg = AdamWConfig(lr=warmup_cosine(TRAIN_LR, 10, TRAIN_FAMILY_STEPS))
+    opt_state = init_adamw(params, opt_cfg)
+    step_fn = make_train_step(api, opt_cfg)
+    frames = ENCDEC_TRAIN_FRAMES if cfg.family == "encdec" else 0
+    batch = family_batch(torch, api, cfg, b, text, frames, "cuda")
+    sites = kernel_sites(cfg, batch)
+    positions = b * (text + (batch["image_embeds"].shape[1]
+                             if "image_embeds" in batch else 0))
+    kops.reset_counts()
+    losses, walls, metrics = [], [], {}
+    for _ in range(TRAIN_FAMILY_STEPS):
+        t0 = time.perf_counter()
+        params, opt_state, metrics = step_fn(params, opt_state, batch)
+        losses.append(float(metrics["loss"]))
+        walls.append(time.perf_counter() - t0)
+    counts = kops.counts()
+    expected = TRAIN_FAMILY_STEPS * sites * 2
+    p50 = statistics.median(walls[1:])
+    out = {"phase": "train_families", "arch": arch, "card": smi,
+           "family": cfg.family, "layers": cfg.num_layers,
+           "encdec_layers": (None if cfg.encdec is None else
+                             [cfg.encdec.encoder_layers,
+                              cfg.encdec.decoder_layers]),
+           "params": sum(t.numel() for t in tree_leaves(params)),
+           "batch": {k: list(v.shape) for k, v in batch.items()},
+           "steps": TRAIN_FAMILY_STEPS, "lr": TRAIN_LR, "losses": losses,
+           "metrics": {k: float(v) for k, v in metrics.items()
+                       if v.numel() == 1},
+           "kernel_sites": sites, "launches": counts,
+           "step_wall_s": walls, "step_wall_ms_p50": p50 * 1e3,
+           "positions_per_s": positions / p50,
+           "frames_per_s": b * frames / p50 if frames else None,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    emit(out)
+    check(counts[kernel] == expected and all(
+        v == 0 for k, v in counts.items() if k != kernel),
+        f"{arch}: launches {counts}, expected {kernel} {expected}")
+    check(all(math.isfinite(x) for x in losses), f"{arch}: losses {losses}")
+    check(losses[-1] < losses[0] - TRAIN_FAMILY_MIN_FALL,
+          f"{arch}: loss fell {losses[0] - losses[-1]} < "
+          f"{TRAIN_FAMILY_MIN_FALL}")
+    del params, opt_state, batch, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"kernel": kernel, "launches": counts[kernel]}
+
+
+def phase_train_families(torch, kops, smi: str) -> dict:
+    """Phase 22: each family's reduced gradient on the card against the
+    CPU port's, then the training arms of TRAIN_FAMILIES.  Returns the
+    flash kernels' launches summed over the arms."""
+    grads = {arch: grad_card_vs_cpu(torch, arch)
+             for arch, *_ in TRAIN_FAMILIES}
+    emit({"phase": "train_families_grads", "card": smi, "grads": grads})
+    for arch, g in grads.items():
+        check(g["ok"], f"{arch}: card vs CPU gradients {g}")
+    launches = {}
+    for arch, depth, b, text in TRAIN_FAMILIES:
+        arm = train_family_arm(torch, kops, smi, arch, depth, b, text)
+        launches[arm["kernel"]] = (launches.get(arm["kernel"], 0)
+                                   + arm["launches"])
     return launches
 
 
@@ -3320,7 +4140,9 @@ def main() -> int:
     ap.add_argument("--only", choices=["parity", "wkv_parity", "lanes",
                                        "serve", "analysis", "resume",
                                        "serve_rwkv", "serve_analysis",
-                                       "serve_moe", "serve_hybrid"],
+                                       "serve_moe", "serve_hybrid",
+                                       "serve_vlm", "encdec",
+                                       "train_families", "flash_parity"],
                     default=None,
                     help="run the device and build phases and this one, "
                     "then end")
@@ -3374,6 +4196,14 @@ def main() -> int:
             phase_serve_family(torch, kops, smi, MOE)
         elif args.only == "serve_hybrid":
             phase_serve_family(torch, kops, smi, HYBRID)
+        elif args.only == "serve_vlm":
+            phase_serve_family(torch, kops, smi, VLM)
+        elif args.only == "encdec":
+            phase_encdec(torch, kops, smi)
+        elif args.only == "train_families":
+            phase_train_families(torch, kops, smi)
+        elif args.only == "flash_parity":
+            phase_flash_parity(torch, kops, ptxas)
         elif args.only == "serve_analysis":
             outs = [phase_serve(torch, kops, arch)[2]
                     for arch in ("smollm-135m@inhibitor", "smollm-135m")]
@@ -3392,7 +4222,7 @@ def main() -> int:
     t_phase = {}
     t0 = time.perf_counter()
     results, timings = phase_parity(torch, kpaged)
-    flash_results, flash_timings = phase_flash_parity(torch)
+    flash_results, flash_timings = phase_flash_parity(torch, kops, ptxas)
     results.update(flash_results)
     timings.update(flash_timings)
     t_phase["parity"] = time.perf_counter() - t0
@@ -3439,10 +4269,17 @@ def main() -> int:
     phase_serve_analysis(torch, kops, smi, serve_outs + [rwkv_serve])
     t_phase["serve_analysis"] = time.perf_counter() - t0
     family_launches = {}
-    for phase, arch in (("serve_moe", MOE), ("serve_hybrid", HYBRID)):
+    for phase, arch in (("serve_moe", MOE), ("serve_hybrid", HYBRID),
+                        ("serve_vlm", VLM)):
         t0 = time.perf_counter()
         family_launches[phase] = phase_serve_family(torch, kops, smi, arch)
         t_phase[phase] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    encdec_launches = phase_encdec(torch, kops, smi)
+    t_phase["encdec"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    train_family_launches = phase_train_families(torch, kops, smi)
+    t_phase["train_families"] = time.perf_counter() - t0
 
     sources = {"paged": "src/repro_torch/csrc/paged_decode.cu",
                "flash": "src/repro_torch/csrc/flash_prefill.cu",
@@ -3473,8 +4310,23 @@ def main() -> int:
     for k in kernels:
         if k["name"] in resume_launches:
             k["launches_resume"] = resume_launches[k["name"]]
-    # the paged kernels' other main paths: the MoE and hybrid families
-    # served, and their timings at those families' decode shapes
+    # the flash kernels' main paths of phases 20-22 (llava's image
+    # prefill, seamless's encoder and teacher-forced decoder, the
+    # families' training) and their timings at those shapes (phase 6)
+    for k in kernels:
+        if k["name"] in ("flash_inhibitor", "flash_attention"):
+            k["launches_image_prefill"] = family_launches["serve_vlm"][
+                "extra"][k["name"]]
+            k["launches_encdec"] = encdec_launches[k["name"]]
+            k["launches_train_families"] = train_family_launches.get(
+                k["name"], 0)
+            k["family_shapes"] = {
+                label: {key: t[k["name"]][key] for key in
+                        ("ms", "device_us", "bound_ms", "bound_by",
+                         "plain_ms", "library_ms", "block_q")}
+                for label, t in timings["family_shapes"].items()}
+    # the paged kernels' other main paths: the MoE, hybrid and vlm
+    # families served, and their timings at those families' decode shapes
     for k in kernels:
         if k["name"] in ("paged_inhibitor", "paged_attention"):
             for phase, per_kernel in family_launches.items():

@@ -2,14 +2,13 @@
 
 ``get_config(name)`` resolves ids with or without the attention override
 suffix (``smollm-135m@inhibitor``, ``@inhibitor_unsigned``, ``@dotprod``).
-The port carries every decoder-only config of the reference: the dense
+The port carries every config of the reference: the dense
 ``smollm-135m``, ``qwen2-0.5b``, ``qwen1.5-4b``, ``stablelm-1.6b`` and
 ``paper-tiny``, the MoE ``qwen2-moe-a2.7b`` and ``llama4-scout-17b-a16e``,
-the hybrid ``hymba-1.5b`` and the RWKV-6 ``rwkv6-7b`` (family ``ssm``),
-which is attention-free: any attention kind but ``dotprod`` is rejected,
-as in the reference.  The encoder-decoder ``seamless-m4t-large-v2`` and
-the vlm ``llava-next-mistral-7b`` are not ported yet (ROADMAP item [5c]):
-asking for them raises ``NotImplementedError``.
+the hybrid ``hymba-1.5b``, the encoder-decoder ``seamless-m4t-large-v2``,
+the vlm ``llava-next-mistral-7b`` and the RWKV-6 ``rwkv6-7b`` (family
+``ssm``), which is attention-free: any attention kind but ``dotprod`` is
+rejected, as in the reference.
 """
 
 from __future__ import annotations
@@ -17,7 +16,8 @@ from __future__ import annotations
 import importlib
 
 from repro_torch.configs.base import (  # noqa: F401
-    ModelConfig, MoEConfig, SSMConfig)
+    SHAPES, SHAPES_BY_NAME, EncDecConfig, FrontendConfig, ModelConfig,
+    MoEConfig, ShapeConfig, SSMConfig)
 
 _MODULES = {
     "smollm-135m": "repro_torch.configs.smollm_135m",
@@ -27,13 +27,11 @@ _MODULES = {
     "llama4-scout-17b-a16e": "repro_torch.configs.llama4_scout_17b_16e",
     "qwen2-moe-a2.7b": "repro_torch.configs.qwen2_moe_a2_7b",
     "hymba-1.5b": "repro_torch.configs.hymba_1_5b",
+    "seamless-m4t-large-v2": "repro_torch.configs.seamless_m4t_large_v2",
     "rwkv6-7b": "repro_torch.configs.rwkv6_7b",
+    "llava-next-mistral-7b": "repro_torch.configs.llava_next_mistral_7b",
     "paper-tiny": "repro_torch.configs.paper_tiny",
 }
-
-#: the reference's arch ids whose families are not ported yet
-NOT_PORTED = {"seamless-m4t-large-v2": "encdec",
-              "llava-next-mistral-7b": "vlm"}
 
 ARCH_IDS = tuple(k for k in _MODULES if k != "paper-tiny")
 
@@ -49,10 +47,6 @@ def get_config(name: str) -> ModelConfig:
     kind = None
     if "@" in name:
         name, kind = name.split("@", 1)
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"arch {name!r} (family {NOT_PORTED[name]!r}) is not ported to "
-            f"PyTorch yet (ROADMAP queue 1 item [5c])")
     if name not in _MODULES:
         raise KeyError(
             f"unknown arch {name!r}; available: {sorted(_MODULES)}")

@@ -1,19 +1,21 @@
 """Model configuration: architecture widths, dtypes and the attention block.
 
-Port of :mod:`repro.configs.base` for the decoder-only families: dense,
-MoE (``moe``), hybrid attention ∥ Mamba (``hybrid``) and RWKV-6
-(``ssm``).  Field names and defaults match the reference so that a config
-compares field by field; what the port does not run yet (the
-encoder-decoder and the frontend of the vlm family, ROADMAP item [5c])
-and the JAX-only ``unroll`` knob are left out.  ``remat`` selects
-activation checkpointing per block in training (``models.transformer``,
-``models.rwkv``).
+Port of :mod:`repro.configs.base` for every family: dense, MoE
+(``moe``), hybrid attention ∥ Mamba (``hybrid``), RWKV-6 (``ssm``), the
+encoder-decoder (``encdec``, :class:`EncDecConfig`) and the vlm family,
+whose frontend stub (:class:`FrontendConfig`) projects precomputed
+patch or frame embeddings into the model.  Field names and defaults
+match the reference so that a config compares field by field; the
+JAX-only ``unroll`` knob is left out.  ``remat`` selects activation
+checkpointing per block in training (``models.transformer``,
+``models.rwkv``, ``models.encdec``).  :data:`SHAPES` are the reference's
+four input shapes, which ``ModelApi.input_specs`` describes.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -58,10 +60,25 @@ class SSMConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class EncDecConfig:
+    encoder_layers: int = 24
+    decoder_layers: int = 24
+    # frontend stub: encoder input is precomputed frame embeddings
+    max_source_len: int = 4096
+
+
+@dataclasses.dataclass(frozen=True)
+class FrontendConfig:
+    kind: str = "vision"           # vision | audio
+    embed_dim: int = 1024          # frontend output dim (projected to d_model)
+    tokens_per_item: int = 576     # patches per tile / frames per clip
+    max_tiles: int = 5             # llava-next anyres
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                    # dense | moe | hybrid | ssm (encdec
-                                   # and vlm: ROADMAP item [5c])
+    family: str                    # dense | moe | hybrid | encdec | ssm | vlm
     num_layers: int
     d_model: int
     d_ff: int
@@ -75,6 +92,8 @@ class ModelConfig:
     rope_pct: float = 1.0          # fraction of head_dim rotated (stablelm)
     moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
+    encdec: Optional[EncDecConfig] = None
+    frontend: Optional[FrontendConfig] = None
     max_seq_len: int = 131072
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
@@ -100,8 +119,12 @@ class ModelConfig:
 
     def with_layers(self, n: int) -> "ModelConfig":
         """Depth-n variant (the depth cut of runs that do not fit the card
-        at full depth)."""
-        return dataclasses.replace(self, num_layers=n)
+        at full depth); an encoder-decoder keeps n layers in each stack."""
+        kw = dict(num_layers=n)
+        if self.encdec is not None:
+            kw["encdec"] = dataclasses.replace(
+                self.encdec, encoder_layers=n, decoder_layers=n)
+        return dataclasses.replace(self, **kw)
 
     def reduced(self, *, num_layers=2, d_model=64, d_ff=128, vocab_size=256,
                 num_heads=4, num_kv_heads=2, head_dim=16,
@@ -126,4 +149,34 @@ class ModelConfig:
                 self.ssm, state_dim=8, inner_dim=d_model * 2
                 if self.ssm.inner_dim else None, lora_dim=8,
                 decay_lora_dim=8)
+        if self.encdec is not None:
+            kw["encdec"] = dataclasses.replace(
+                self.encdec, encoder_layers=num_layers,
+                decoder_layers=num_layers, max_source_len=64)
+        if self.frontend is not None:
+            kw["frontend"] = dataclasses.replace(
+                self.frontend, embed_dim=32, tokens_per_item=8, max_tiles=2)
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                      # train | prefill | decode
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+# The four assigned input shapes (LM-family)
+SHAPES: Tuple[ShapeConfig, ...] = (
+    ShapeConfig("train_4k", 4096, 256, "train"),
+    ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    ShapeConfig("decode_32k", 32768, 128, "decode"),
+    ShapeConfig("long_500k", 524288, 1, "decode"),
+)
+
+SHAPES_BY_NAME = {s.name: s for s in SHAPES}

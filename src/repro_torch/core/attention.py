@@ -188,23 +188,29 @@ def _write_contiguous(cache: KVCache, k, v, n_q: int) -> None:
 
 
 def apply_attention(params: dict, cfg: AttentionConfig, x: torch.Tensor, *,
+                    x_kv: Optional[torch.Tensor] = None,
                     positions: Optional[torch.Tensor] = None,
                     cache=None, attn_mask: Optional[torch.Tensor] = None,
                     compute_dtype=None):
-    """Self-attention over ``x`` (b, n_q, embed).  Returns (y, cache').
+    """Attention of ``x`` (b, n_q, embed) over itself, or over ``x_kv``
+    (b, n_kv, embed) when given (cross-attention).  Returns (y, cache').
 
     ``positions`` (b, n_q) are absolute RoPE positions (default: arange,
-    or cache.length + arange when decoding).
+    or cache.length + arange when decoding).  Cross-attention applies no
+    RoPE, plans with ``is_cross`` (so never a mask-free backend: it has
+    no structural mask) and masks its keys only by the cache's valid
+    length, when a cache is given.
     """
     from repro_torch.nn.rotary import apply_rope
 
     cdt = compute_dtype or x.dtype
     b, n_q, _ = x.shape
     dev = x.device
+    src = x if x_kv is None else x_kv
 
     q = apply_dense(params["wq"], x, 1, cdt)          # (b, n_q, h, d)
-    k = apply_dense(params["wk"], x, 1, cdt)          # (b, n_q, hk, d)
-    v = apply_dense(params["wv"], x, 1, cdt)
+    k = apply_dense(params["wk"], src, 1, cdt)        # (b, n_kv, hk, d)
+    v = apply_dense(params["wv"], src, 1, cdt)
 
     if positions is None:
         ar = torch.arange(n_q, device=dev)[None, :]
@@ -215,7 +221,7 @@ def apply_attention(params: dict, cfg: AttentionConfig, x: torch.Tensor, *,
             positions = off[:, None] + ar if off.dim() == 1 else ar + off
         positions = positions.expand(b, n_q)
 
-    if cfg.use_rope:
+    if cfg.use_rope and x_kv is None:
         if cfg.rope_pct >= 1.0:
             q = apply_rope(q, positions, base=cfg.rope_base)
             k = apply_rope(k, positions, base=cfg.rope_base)
@@ -251,7 +257,7 @@ def apply_attention(params: dict, cfg: AttentionConfig, x: torch.Tensor, *,
     shapes = AttnShapes(
         batch=b, n_q=n_q, n_k=n_k, num_heads=cfg.num_heads,
         num_kv_heads=k.shape[2], head_dim=cfg.head_dim, dtype=q.dtype,
-        has_explicit_mask=attn_mask is not None, is_cross=False,
+        has_explicit_mask=attn_mask is not None, is_cross=x_kv is not None,
         has_cache=cache is not None, scalar_cursor=scalar_cursor,
         platform=dev.type, paged=paged_layout is not None)
     plan = plan_attention(cfg, shapes)
@@ -270,9 +276,14 @@ def apply_attention(params: dict, cfg: AttentionConfig, x: torch.Tensor, *,
                            structural=structural, paged=paged_layout)
     else:
         mask = attn_mask
-        if mask is None:
+        if mask is None and x_kv is None:
             mask = _build_mask(cfg, n_q, n_k, q_offset, kv_valid_len,
                                device=dev)
+        elif mask is None and kv_valid_len is not None:
+            # cross-attention over a cache: only its valid keys
+            kvl = kv_valid_len.reshape(-1)
+            mask = (torch.arange(n_k, device=dev)[None, :]
+                    < kvl[:, None])[:, None, None]
         out = execute_plan(plan, q, k, v, mask=mask, params=mech_params,
                            paged=paged_layout)
 

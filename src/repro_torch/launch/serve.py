@@ -4,9 +4,11 @@ initialised model.
     python -m repro_torch.launch.serve --arch smollm-135m@inhibitor --full
 
 ``--arch`` names any config of :mod:`repro_torch.configs`: the dense,
-MoE and hybrid families serve through the paged pool (the hybrid one
-without a prefix cache), RWKV-6 through contiguous slots; the
-encoder-decoder and vlm ids are refused (ROADMAP item [5c]).
+MoE, hybrid and vlm families serve through the paged pool (the hybrid
+one without a prefix cache; the vlm text-only, as in the reference),
+RWKV-6 through contiguous slots; the encoder-decoder is refused by the
+engine (``ValueError``: its step needs the encoder's memory, which no
+request carries).
 Builds the model from a seeded ``torch.Generator`` on ``--device``
 (default ``cuda``; without a card it fails unless ``--device cpu`` is
 given), or loads its parameters from the newest commit under

@@ -10,9 +10,12 @@ stream of :mod:`repro_torch.data.pipeline` under restart supervision, on
 ``--device`` (default ``cuda``; without a card it fails unless ``--device
 cpu`` is given).  Without ``--full`` the config is the reduced per-family
 one (CPU scale); ``--layers N`` keeps its first N layers.  ``--arch``
-names any config of :mod:`repro_torch.configs` (dense, MoE, hybrid or
-the RWKV-6 ``rwkv6-7b``; the encoder-decoder and vlm ids are refused,
-ROADMAP item [5c]); at full size ``rwkv6-7b``'s 7.6 B float32
+names any config of :mod:`repro_torch.configs` (dense, MoE, hybrid, the
+RWKV-6 ``rwkv6-7b``, and the vlm ``llava-next-mistral-7b`` text-only,
+as the reference's launcher trains it: the LM stream has no image
+embeddings); the encoder-decoder is refused with a ``ValueError``, since
+the token stream has no frames for its encoder.  At full size
+``rwkv6-7b``'s 7.6 B float32
 parameters with AdamW take 122 GB, beyond one 80 GB card, and its first
 4 layers 23 GB (``qwen2-moe-a2.7b``'s 15 B, 242 GB).
 Flags and defaults are the reference launcher's; one
@@ -86,6 +89,11 @@ def run(argv=None) -> dict:
         cfg = cfg.reduced()
     if args.layers:
         cfg = cfg.with_layers(args.layers)
+    if cfg.family == "encdec":
+        raise ValueError(
+            f"{name}: the encoder-decoder trains on (frames, tokens) "
+            f"batches, and the token pipeline (data.pipeline.lm_batch_at) "
+            f"has no frames")
     api = get_model(cfg)
     pipe = PipelineConfig(global_batch=args.batch, seq_len=args.seq,
                           vocab_size=cfg.vocab_size, seed=args.seed)

@@ -1,4 +1,4 @@
-"""Decoder-only transformer LM: the dense, MoE and hybrid families.
+"""Decoder-only transformer LM: the dense, MoE, hybrid and vlm families.
 
 Port of :mod:`repro.models.transformer`.  Parameters are a dict whose
 ``"blocks"`` entry is a list of per-layer dicts (the reference stacks
@@ -177,6 +177,11 @@ def init_lm(gen: torch.Generator, cfg: ModelConfig, *, device=None) -> dict:
     if not cfg.tie_embeddings:
         p["lm_head"] = init_dense(gen, (cfg.d_model,), (cfg.vocab_size,),
                                   dtype=cfg.pdtype, device=dev)
+    if cfg.frontend is not None:
+        # the vlm family's frontend stub: patch embeddings -> d_model
+        p["frontend_proj"] = init_dense(
+            gen, (cfg.frontend.embed_dim,), (cfg.d_model,), use_bias=True,
+            dtype=cfg.pdtype, device=dev)
     return p
 
 
@@ -281,11 +286,22 @@ def _logits(params, cfg: ModelConfig, x):
 
 
 def lm_forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
+               extra_embeds: Optional[torch.Tensor] = None,
                return_aux: bool = False):
     """Prefill forward without a cache: tokens (b, s) -> logits (b, s, V);
     with ``return_aux``, (logits, aux (2,)): the MoE's load-balance and
-    router-z losses summed over layers (zeros for the other families)."""
-    x = emb.apply_embedding(params["embed"], tokens, compute_dtype=cfg.cdtype)
+    router-z losses summed over layers (zeros for the other families).
+
+    ``extra_embeds`` (b, n_extra, frontend embed_dim): the vlm family's
+    patch embeddings, projected by ``frontend_proj`` and prepended to the
+    token embeddings; positions then run over the whole n_extra + s
+    sequence and the logits cover it."""
+    cdt = cfg.cdtype
+    x = emb.apply_embedding(params["embed"], tokens, compute_dtype=cdt)
+    if extra_embeds is not None:
+        fe = apply_dense(params["frontend_proj"], extra_embeds.to(cdt), 1,
+                         cdt)
+        x = torch.cat([fe, x], dim=1)
     x, _, aux = _run_blocks(params, cfg, x, None)
     logits = _logits(params, cfg, x)
     if not return_aux:

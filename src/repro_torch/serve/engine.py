@@ -42,6 +42,11 @@ Port of :mod:`repro.serve.engine`:
     admission zeroes the slot's carries in place beside pinning its
     cursor.  Its decode ticks run the paged decode kernels like any
     paged family's.
+  * The ``vlm`` family serves text prompts as ``dense`` does: a
+    ``Request`` carries no image embeddings, in the reference too.  The
+    ``encdec`` family is refused at construction: its step decodes
+    against the encoder's memory (``batch["memory"]``), which no
+    request carries, so the reference's engine cannot serve it either.
 
 **Static steps (the reference's jit per bucket).**  Each decode table
 width ``hw`` (one step for contiguous slots) and each prefill chunk
@@ -260,6 +265,11 @@ class Engine:
         if cfg.warmup not in ("none", "decode", "serve"):
             raise ValueError(f"unknown warmup policy {cfg.warmup!r} "
                              f"(expected 'none', 'decode' or 'serve')")
+        if api.cfg.family == "encdec":
+            raise ValueError(
+                "the engine cannot serve the encoder-decoder family: its "
+                "decode step needs the encoder's memory (batch['memory']), "
+                "which a Request does not carry")
         want = resolve_device(device)
         self.device = params["embed"]["table"].device
         if self.device.type != want.type or (

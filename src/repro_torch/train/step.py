@@ -1,12 +1,15 @@
 """Train and eval step builders.
 
-Port of :mod:`repro.train.step` for the families the port runs (dense,
-``moe``, ``hybrid`` and RWKV-6 ``ssm``; the serving steps stay with
-``serve/engine.py``).  ``make_train_step(api, opt_cfg)`` returns
-``(params, opt_state, batch) -> (params', opt_state', metrics)``; the
-optimizer updates ``params`` and ``opt_state`` in place
-(:func:`repro_torch.optim.adamw.adamw_update`), so the returned trees are
-the ones passed in.  Parameters are leaf tensors with ``requires_grad``
+Port of :mod:`repro.train.step` for every family (dense, ``moe``,
+``hybrid``, RWKV-6 ``ssm``, ``encdec`` and ``vlm``; the serving steps
+stay with ``serve/engine.py``).  A batch holds what the family's
+``input_specs`` names: the encoder-decoder's ``frames`` beside its
+target tokens, the vlm's ``image_embeds`` beside its text tokens, whose
+labels cover the image positions too (:func:`_align_labels`).
+``make_train_step(api, opt_cfg)`` returns ``(params, opt_state, batch)
+-> (params', opt_state', metrics)``; the optimizer updates ``params`` and
+``opt_state`` in place (:func:`repro_torch.optim.adamw.adamw_update`), so
+the returned trees are the ones passed in.  Parameters are leaf tensors with ``requires_grad``
 set (:func:`init_train_state`); gradients come from
 ``torch.autograd.grad`` and never accumulate in ``.grad``.
 
@@ -105,14 +108,18 @@ def make_grad_fn(api: ModelApi, microbatches: int = 1) -> Callable:
     """``grad_fn(params, batch) -> (grads, metrics)``: the gradient half
     of :func:`make_train_step`.  ``microbatches`` > 1 splits the batch
     into N sequential micro-steps with float32 gradient accumulation; the
-    gradient is their mean, and each metric the mean of its values."""
+    gradient is their mean, and each metric the mean of its values.  The
+    ``frontend_proj`` of a batch with no ``image_embeds`` (the vlm on a
+    text-only batch) does not reach the loss and gets a zero gradient, as
+    under ``jax.grad``; any other parameter that does not reach it
+    raises."""
     loss_fn = make_loss_fn(api)
 
     def grad_fn(params, batch) -> Tuple[dict, dict]:
         leaves = tree_leaves(params)
         if microbatches == 1:
             loss, metrics = loss_fn(params, batch)
-            grads = torch.autograd.grad(loss, leaves)
+            grads = _grads(loss, leaves, _unreached(params, batch))
             return tree_unflatten(params, grads), _detached(metrics)
         acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
                for p in leaves]
@@ -120,7 +127,8 @@ def make_grad_fn(api: ModelApi, microbatches: int = 1) -> Callable:
         splits = {k: v.chunk(microbatches, dim=0) for k, v in batch.items()}
         for i in range(microbatches):
             loss, m = loss_fn(params, {k: v[i] for k, v in splits.items()})
-            for a, g in zip(acc, torch.autograd.grad(loss, leaves)):
+            for a, g in zip(acc, _grads(loss, leaves,
+                                        _unreached(params, batch))):
                 a.add_(g.float())
             ms.append(_detached(m))
         grads = [a / microbatches for a in acc]
@@ -128,6 +136,27 @@ def make_grad_fn(api: ModelApi, microbatches: int = 1) -> Callable:
         return tree_unflatten(params, grads), metrics
 
     return grad_fn
+
+
+def _unreached(params: dict, batch: dict) -> set:
+    """The ids of the leaves the batch leaves out of the loss: the
+    frontend projection when the batch carries no image embeddings and
+    no frames."""
+    if ("image_embeds" in batch or "frames" in batch
+            or "frontend_proj" not in params):
+        return set()
+    return {id(t) for t in tree_leaves(params["frontend_proj"])}
+
+
+def _grads(loss: torch.Tensor, leaves: list, unreached: set) -> list:
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    out = []
+    for p, g in zip(leaves, grads):
+        if g is None and id(p) not in unreached:
+            raise RuntimeError(f"a parameter of shape {tuple(p.shape)} "
+                               "does not reach the loss")
+        out.append(torch.zeros_like(p) if g is None else g)
+    return out
 
 
 def _detached(metrics: dict) -> dict:

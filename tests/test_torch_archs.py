@@ -2,18 +2,21 @@
 against the JAX package on converted parameters.
 
 * Configs: each full config equals the reference's field by field (the
-  ``moe`` / ``ssm`` / ``attention`` blocks as dicts; the reference's
-  encoder-decoder and frontend fields are None and ``unroll`` False for
-  every ported arch), with and without ``@inhibitor``; ``ARCH_IDS``,
-  ``INHIBITOR_APPLICABLE`` and ``LONG_CONTEXT_ARCHS`` are the
-  reference's without the two families that wait (item [5c]).
+  ``moe`` / ``ssm`` / ``encdec`` / ``frontend`` / ``attention`` blocks as
+  dicts; the reference's ``unroll`` is False for every arch), with and
+  without ``@inhibitor``, and so do their reduced and depth-cut
+  variants' blocks; ``ARCH_IDS``, ``INHIBITOR_APPLICABLE`` and
+  ``LONG_CONTEXT_ARCHS`` are the reference's.
 * Logits of the reduced configs (2 layers, d 32, d_ff 64, vocab 128; the
   MoE's 4 experts of 32, top 2 or 1, its shared expert of 32; hymba's
-  Mamba at inner 64, state 8) against the reference's forward, for every
-  arch and the ``@inhibitor`` variants of qwen2-0.5b, qwen2-moe and
-  hymba, and the MoE aux losses beside them.  For the inhibitor, wq and
-  wk are scaled by 1/sqrt(head_dim) in both trees (tests/test_torch_model.py
-  says why).
+  Mamba at inner 64, state 8; the encoder-decoder's 2 + 2 layers; the
+  vlm's 16 patch embeddings of 32) against the reference's forward on a
+  batch built from its ``input_specs`` (train shape b 2 x 28, as
+  tests/test_archs_smoke.py builds one), for every arch and the
+  ``@inhibitor`` variants of qwen2-0.5b, qwen2-moe, hymba, seamless and
+  llava, and the MoE aux losses beside them.  For the inhibitor, wq and
+  wk are scaled by 1/sqrt(head_dim) in every attention of both trees
+  (tests/test_torch_model.py says why).
 * Decode against forward: qwen2-moe and hymba prefill 5 tokens and decode
   2 on a paged state (page 8, rows on non-contiguous pages) against the
   whole 7-token forward, and against the reference's ``lm_step`` on the
@@ -22,8 +25,6 @@ against the JAX package on converted parameters.
   the MoE case takes a capacity factor of E / k = 2, at which no
   assignment is dropped in either call; at the default 1.25 the port
   still equals the reference step for step.
-* ``encdec`` / ``vlm`` raise ``NotImplementedError`` citing [5c], by arch
-  id and by family.
 * ``params_from_jax`` carries the expert stacks (L, E, d, f) -> (E, d,
   f) per layer, ``router``, ``shared_gate``, every ``mamba`` leaf and
   ``branch_scale`` across unchanged.
@@ -61,17 +62,28 @@ from repro_torch.tree import tree_leaves
 
 TOL = dict(rtol=1e-5, atol=5e-5)
 SMALL = dict(num_layers=2, d_model=32, d_ff=64, vocab_size=128)
-WAITING = ("seamless-m4t-large-v2", "llava-next-mistral-7b")
-PORTED = tuple(a for a in jconfigs.ARCH_IDS if a not in WAITING)
+PORTED = jconfigs.ARCH_IDS
 INHIBITOR_ARCHS = ("qwen2-0.5b@inhibitor", "qwen2-moe-a2.7b@inhibitor",
-                   "hymba-1.5b@inhibitor")
+                   "hymba-1.5b@inhibitor", "seamless-m4t-large-v2@inhibitor",
+                   "llava-next-mistral-7b@inhibitor")
+# the layer stacks of a parameter tree and their attentions
+STACKS = {"blocks": ("attn",), "encoder": ("attn",),
+          "decoder": ("self_attn", "cross_attn")}
 
 
 def _scale_qk(jp, factor):
-    attn = dict(jp["blocks"]["attn"])
-    for w in ("wq", "wk"):
-        attn[w] = dict(attn[w], kernel=attn[w]["kernel"] * factor)
-    return dict(jp, blocks=dict(jp["blocks"], attn=attn))
+    out = dict(jp)
+    for stack, attns in STACKS.items():
+        if stack not in jp:
+            continue
+        st = dict(jp[stack])
+        for name in attns:
+            attn = dict(st[name])
+            for w in ("wq", "wk"):
+                attn[w] = dict(attn[w], kernel=attn[w]["kernel"] * factor)
+            st[name] = attn
+        out[stack] = st
+    return out
 
 
 def _live(jp, cfg, seed=0):
@@ -127,45 +139,57 @@ def _asdict(x):
 @pytest.mark.parametrize("arch", PORTED + INHIBITOR_ARCHS)
 def test_full_config_matches_reference(arch):
     ref, port = jax_config(arch), get_config(arch)
+    blocks = ("attention", "moe", "ssm", "encdec", "frontend")
     for f in dataclasses.fields(port):
-        if f.name in ("attention", "moe", "ssm"):
+        if f.name in blocks:
             assert _asdict(getattr(port, f.name)) == _asdict(
                 getattr(ref, f.name)), f.name
         else:
             assert getattr(port, f.name) == getattr(ref, f.name), f.name
-    assert ref.encdec is None and ref.frontend is None and not ref.unroll
+    assert {f.name for f in dataclasses.fields(ref)} - {
+        f.name for f in dataclasses.fields(port)} == {"unroll"}
+    assert not ref.unroll
     if port.moe is not None:
         assert port.moe.effective_experts == ref.moe.effective_experts
-    red_ref, red_port = ref.reduced(**SMALL), port.reduced(**SMALL)
-    for name in ("moe", "ssm", "attention"):
-        assert _asdict(getattr(red_port, name)) == _asdict(
-            getattr(red_ref, name)), name
+    for red_ref, red_port in ((ref.reduced(**SMALL), port.reduced(**SMALL)),
+                              (ref.with_layers(3), port.with_layers(3))):
+        assert red_port.num_layers == red_ref.num_layers
+        for name in blocks:
+            assert _asdict(getattr(red_port, name)) == _asdict(
+                getattr(red_ref, name)), name
 
 
 def test_arch_lists_match_reference():
-    assert tconfigs.ARCH_IDS == PORTED
-    assert tconfigs.INHIBITOR_APPLICABLE == tuple(
-        a for a in jconfigs.INHIBITOR_APPLICABLE if a not in WAITING)
+    assert tconfigs.ARCH_IDS == jconfigs.ARCH_IDS
+    assert tconfigs.INHIBITOR_APPLICABLE == jconfigs.INHIBITOR_APPLICABLE
     assert tconfigs.LONG_CONTEXT_ARCHS == jconfigs.LONG_CONTEXT_ARCHS
+    assert not hasattr(tconfigs, "NOT_PORTED")
 
 
-@pytest.mark.parametrize("arch", WAITING)
-def test_waiting_families_raise_citing_5c(arch):
-    with pytest.raises(NotImplementedError, match=r"\[5c\]"):
-        get_config(arch)
-    family = jax_config(arch).family
-    cfg = dataclasses.replace(get_config("smollm-135m"), family=family)
-    with pytest.raises(NotImplementedError, match=r"\[5c\]"):
-        get_model(cfg)
+def _spec_batch(japi, seed=1, b=2, s=28):
+    """A forward batch from the reference's ``input_specs`` at a train
+    shape (labels left out), as tests/test_archs_smoke.py builds one."""
+    from repro.configs.base import ShapeConfig
+
+    rng = np.random.default_rng(seed)
+    out = {}
+    for name, spec in japi.input_specs(ShapeConfig("t", s, b,
+                                                   "train")).items():
+        if name == "labels":
+            continue
+        if spec.dtype == jnp.int32:
+            out[name] = rng.integers(0, 128, spec.shape).astype(np.int32)
+        else:
+            out[name] = rng.normal(size=spec.shape).astype(np.float32)
+    return out
 
 
 @pytest.mark.parametrize("arch", PORTED + INHIBITOR_ARCHS)
 def test_forward_logits_match_reference(arch):
     jcfg, japi, jp, tcfg, tapi, tp = _models(arch)
-    toks = np.random.default_rng(1).integers(0, 128, (2, 12)).astype(
-        np.int32)
-    jl, jaux = japi.forward(jp, {"tokens": jnp.asarray(toks)})
-    batch = {"tokens": torch.from_numpy(toks)}
+    nb = _spec_batch(japi)
+    jl, jaux = japi.forward(jp, {k: jnp.asarray(v) for k, v in nb.items()})
+    batch = {k: torch.from_numpy(v) for k, v in nb.items()}
     if tcfg.family == "ssm":
         tl = tapi.forward(tp, batch)
     else:

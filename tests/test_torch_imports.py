@@ -120,3 +120,29 @@ def test_importing_the_moe_and_hybrid_families_loads_no_jax():
         "[get_model(c).forward(get_model(c).init(torch.Generator()"
         ".manual_seed(0), device='cpu'), {'tokens': torch.zeros((1, 4), "
         "dtype=torch.int64)}) for c in cfgs]; ")
+
+
+def test_importing_the_encdec_vlm_and_conv_modules_loads_no_jax():
+    """The encoder-decoder, the conv layers, the two new configs, and one
+    reduced seamless forward and decode step and one llava forward with
+    image embeddings through the registry."""
+    _loads_no_jax(
+        "repro_torch.models.encdec, repro_torch.nn.conv, "
+        "repro_torch.configs.seamless_m4t_large_v2, "
+        "repro_torch.configs.llava_next_mistral_7b, "
+        "repro_torch.models.registry, torch",
+        "from repro_torch.configs import get_config; "
+        "from repro_torch.models.registry import get_model; "
+        "g = torch.Generator().manual_seed(0); "
+        "s = get_config('seamless-m4t-large-v2').reduced(); "
+        "api = get_model(s); p = api.init(g, device='cpu'); "
+        "api.forward(p, {'frames': torch.zeros((1, 8, 32)), "
+        "'tokens': torch.zeros((1, 4), dtype=torch.int64)}); "
+        "api.step(p, torch.zeros((1, 1), dtype=torch.int64), "
+        "api.init_states(1, 8, device='cpu'), "
+        "{'memory': torch.zeros((1, 8, 64))}); "
+        "v = get_config('llava-next-mistral-7b').reduced(); "
+        "api = get_model(v); "
+        "api.forward(api.init(g, device='cpu'), {'tokens': torch.zeros("
+        "(1, 4), dtype=torch.int64), 'image_embeds': torch.zeros("
+        "(1, 16, 32))}); ")

@@ -25,8 +25,8 @@ requests and converted parameters.
   tables, ``ssm``, ``conv``) keeps its storage across the waves.
 * The launchers: ``launch.serve`` serves both families on the CPU (exit
   0), ``launch.train`` trains the reduced qwen2-moe (its loss with the
-  aux terms, finite), and both refuse the encoder-decoder and vlm ids,
-  citing [5c].
+  aux terms, finite).  Where the launchers stand on the encoder-decoder
+  and vlm ids: tests/test_torch_vlm.py.
 """
 
 import dataclasses
@@ -208,18 +208,6 @@ def test_serve_launcher_runs_the_families(arch):
                               "--max-len", "48", "--prompt-len", "12",
                               "--new-tokens", "3", "--prefill-chunk",
                               "8"]) == 0
-
-
-@pytest.mark.parametrize("arch", ["seamless-m4t-large-v2",
-                                  "llava-next-mistral-7b"])
-def test_launchers_refuse_the_waiting_families(arch):
-    from repro_torch.launch import serve as launch_serve
-    from repro_torch.launch import train as launch_train
-
-    with pytest.raises(NotImplementedError, match=r"\[5c\]"):
-        launch_serve.main(["--arch", arch, "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match=r"\[5c\]"):
-        launch_train.run(["--arch", arch, "--device", "cpu", "--steps", "1"])
 
 
 def test_train_launcher_trains_the_moe_family():
