@@ -253,6 +253,26 @@ Phases, each printing one JSON line; any failure exits non-zero:
                steps x kernel sites x 2, losses finite and falling by
                TRAIN_FAMILY_MIN_FALL; step wall, positions a second,
                peak memory.
+ 23. distributed — on a one-rank NCCL process group (the card is one
+               GPU; multi-rank behaviour is held on the CPU over gloo) and
+               a (1, 1) ("data", "model") mesh: smollm-135m at full width
+               and depth, then @inhibitor at depth 2, DIST_STEPS AdamW
+               steps of one batch TRAIN_B x TRAIN_N (remat "full")
+               through the sharded train step (DTensor parameters and
+               moments) against the unsharded ``make_train_step`` from
+               the same parameters: losses and every parameter within
+               DIST_REL, a perturbed shard outside, the arm's flash
+               kernel launched steps x layers x 2 times and its plain
+               version never; step walls, device times, peak memory.
+               Then ``compress_tree`` / ``decompress_tree`` on the
+               full-width gradient tree bit-equal to the CPU port (each
+               residual within scale / 2); ``compressed_grad_sync``,
+               ``allgather_matmul`` and ``pipeline_apply`` on one-rank
+               meshes (the sends go to the rank itself) against the card's
+               own products and, within GRAD_REL, the CPU's;
+               the process group is destroyed; then the dry-run CLI for
+               smollm-135m decode_32k --multi-pod in a subprocess (host
+               only): rc 0, "[OK]", its record printed.
 
 Then the ``kernels`` summary line, the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``.  TF32 is off for matmuls and cuDNN.
@@ -271,9 +291,10 @@ Then the ``kernels`` summary line, the ``nvidia-smi`` line and, last,
     python3 chip_smoke.py --only encdec
     python3 chip_smoke.py --only train_families
     python3 chip_smoke.py --only flash_parity
+    python3 chip_smoke.py --only distributed
 
 run phases 1, 2 and 3 (or 9, or 13, or 4, or 14, or 15, or 16, or 4
-and 17, or 18, or 19, or 20, or 21, or 22, or 6) alone, against the
+and 17, or 18, or 19, or 20, or 21, or 22, or 6, or 23) alone, against the
 package under
 ``--src`` (by default this checkout's): another commit's kernels checked
 and timed by this script's phase.  Against another package, phase 3 records the
@@ -4127,6 +4148,288 @@ def phase_resume(torch, kops):
             for r in out["arms"].values()}
 
 
+DIST_ARMS = (("smollm-135m", None), ("smollm-135m@inhibitor", 2))
+DIST_STEPS = 4
+#: sharded vs unsharded, each parameter leaf and each loss: |a - b| within
+#: DIST_REL of the leaf's largest |b| (expected: equal up to float32
+#: rounding at mesh size 1, where every gather is a no-op)
+DIST_REL = 1e-5
+DIST_PRED_S = 90.0                          # the phase's predicted wall
+#: the error-feedback residual's bound, in scales: 1/2, plus the float32
+#: rounding of the division and the subtraction (2 · 127 · 2^-24)
+COMPRESS_RESID = 0.5 + 2 * 127 * 2.0 ** -24
+DRYRUN_CELL = ("smollm-135m", "decode_32k")
+
+
+def leaf_rel(a, b) -> float:
+    return float((a.float() - b.float()).abs().max()
+                 / max(float(b.float().abs().max()), 1e-30))
+
+
+def dist_arm(torch, kops, mesh, arch: str, depth) -> dict:
+    """DIST_STEPS AdamW steps of one fixed batch TRAIN_B x TRAIN_N of the
+    seeded LM stream (remat "full"), unsharded (``make_train_step``) and
+    through the sharded step on the one-rank mesh, from the same
+    parameters: losses and every parameter within DIST_REL; the arm's
+    flash kernel launched steps x layers x 2 times in the sharded run,
+    its plain version never; a perturbed shard outside DIST_REL."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import PipelineConfig, lm_batch_at
+    from repro_torch.launch import shardings as shlib
+    from repro_torch.models.registry import get_model
+    from repro_torch.nn.module import box_like
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train.step import init_train_state, make_train_step
+    from repro_torch.tree import tree_flatten_with_path, tree_leaves, tree_map
+
+    cfg = get_config(arch)
+    if depth:
+        cfg = cfg.with_layers(depth)
+    check(cfg.remat == "full", f"{arch}: remat is {cfg.remat!r}")
+    api = get_model(cfg)
+    opt = AdamWConfig(lr=TRAIN_LR)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in lm_batch_at(
+        PipelineConfig(TRAIN_B, TRAIN_N, cfg.vocab_size, seed=0),
+        0).items()}
+    kernel = train_kernel(cfg)
+    out = {"arch": arch, "layers": cfg.num_layers, "steps": DIST_STEPS,
+           "batch": [TRAIN_B, TRAIN_N], "kernel": kernel, "rel": DIST_REL}
+
+    def init():
+        return init_train_state(api, opt, torch.Generator(
+            device="cuda").manual_seed(0), device="cuda")
+
+    def run(step, params, state, b):
+        losses, walls, dev = [], [], []
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(DIST_STEPS):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            e0.record()
+            params, state, m = step(params, state, b)
+            e1.record()
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            dev.append(e0.elapsed_time(e1))
+        return params, losses, {
+            # the first step pays the process's first kernel calls
+            "step_wall_ms_p50": statistics.median(walls[1:]) * 1e3,
+            "step_wall_ms": [w * 1e3 for w in walls],
+            "step_device_ms": dev,
+            "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+
+    params, state = init()
+    ref_params, ref_losses, out["unsharded"] = run(
+        make_train_step(api, opt), params, state, batch)
+    ref = [p.detach().clone() for p in tree_leaves(ref_params)]
+    ref_tree = tree_map(lambda p: 0, ref_params)
+    del params, state, ref_params
+    torch.cuda.empty_cache()
+
+    params, state = init()
+    _, psh = shlib.params_shardings(box_like(params, api.axes()), mesh)
+    dparams = shlib.place(params, psh, requires_grad=True)
+    dstate = shlib.place(state, shlib.opt_shardings(state, psh, mesh))
+    dbatch = shlib.place(batch, shlib.batch_shardings(batch, mesh))
+    del params, state
+    torch.cuda.empty_cache()
+    kops.reset_counts()
+    dparams, losses, out["sharded"] = run(
+        shlib.make_sharded_train_step(api, opt, mesh), dparams, dstate,
+        dbatch)
+    counts = kops.counts()
+    got = [shlib.local(p).detach() for p in tree_leaves(dparams)]
+    out["losses"] = losses
+    out["unsharded_losses"] = ref_losses
+    out["loss_rel"] = max(abs(a - b) / max(abs(b), 1e-30)
+                          for a, b in zip(losses, ref_losses))
+    rels = [leaf_rel(a, b) for a, b in zip(got, ref)]
+    out["param_rel_max"] = max(rels)
+    worst = max(range(len(rels)), key=rels.__getitem__)
+    out["param_rel_worst_leaf"] = "/".join(
+        str(k) for k in tree_flatten_with_path(ref_tree)[worst][0])
+    # the control: one shard perturbed by 1e-3 of its scale
+    bad = got[0].clone()
+    bad.view(-1)[0] += 1e-3 * float(bad.abs().max())
+    out["control_rel"] = leaf_rel(bad, ref[0])
+    out["launches"] = counts
+    expected = DIST_STEPS * cfg.num_layers * 2
+    out["wall_ratio"] = (out["sharded"]["step_wall_ms_p50"]
+                         / out["unsharded"]["step_wall_ms_p50"])
+    emit({"phase": "distributed", "arm": out})
+    check(out["loss_rel"] <= DIST_REL, f"{arch}: sharded losses {losses} "
+          f"vs {ref_losses}")
+    check(out["param_rel_max"] <= DIST_REL,
+          f"{arch}: sharded parameters off by {out['param_rel_max']}")
+    check(out["control_rel"] > DIST_REL, f"{arch}: control not caught")
+    check(counts[kernel] == expected and all(
+        n == 0 for name, n in counts.items() if name != kernel),
+          f"{arch}: launches {counts}, expected {kernel} {expected}")
+    del dparams, dstate, got, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"kernel": kernel, "launches": counts[kernel], "api": api,
+            "batch": batch}
+
+
+def dist_compress(torch, api, batch) -> dict:
+    """compress_tree / decompress_tree on the full-width gradient tree of
+    the dot-product arm, card against the CPU port on the same inputs:
+    bit-equal payloads, scales and residuals; each residual within
+    COMPRESS_RESID scales."""
+    from repro_torch.optim import compress_tree, decompress_tree
+    from repro_torch.optim.compress import init_compression
+    from repro_torch.train.step import init_train_state, make_grad_fn
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.tree import tree_leaves, tree_map
+
+    params, _ = init_train_state(api, AdamWConfig(), torch.Generator(
+        device="cuda").manual_seed(0), device="cuda")
+    grads, _ = make_grad_fn(api)(params, batch)
+    del params
+    state = init_compression(grads)
+    t0 = time.perf_counter()
+    (q, s), new = compress_tree(grads, state)
+    deq = decompress_tree(q, s)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    cpu = tree_map(lambda g: g.detach().cpu(), grads)
+    (qc, sc), newc = compress_tree(cpu, init_compression(cpu))
+    deqc = decompress_tree(qc, sc)
+    equal = all(torch.equal(a.cpu(), b) for a, b in zip(
+        tree_leaves((q, s, new.error, deq)),
+        tree_leaves((qc, sc, newc.error, deqc))))
+    resid = max(float((e.abs() / sc_).max()) for e, sc_ in zip(
+        tree_leaves(new.error), tree_leaves(s)))
+    out = {"leaves": len(tree_leaves(grads)),
+           "elements": sum(g.numel() for g in tree_leaves(grads)),
+           "bit_equal_to_cpu": equal, "residual_over_scale_max": resid,
+           "wall_s": wall}
+    emit({"phase": "distributed", "compress": out})
+    check(equal, "compress_tree: card differs from the CPU")
+    check(resid <= COMPRESS_RESID, f"compress residual {resid} scales")
+    return out
+
+
+def dist_collectives(torch) -> dict:
+    """compressed_grad_sync, allgather_matmul and pipeline_apply on
+    one-rank NCCL meshes (the ring and pipe sends go to the rank itself):
+    the sync bit-equal to the CPU's formula; the matmul and the schedule
+    equal to the card's own products and within GRAD_REL of the CPU's."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.distributed.collectives import (allgather_matmul,
+                                                     compressed_grad_sync)
+    from repro_torch.distributed.pipeline import make_pp_mesh, pipeline_apply
+    from repro_torch.optim.compress import compress, divide
+
+    gen = torch.Generator().manual_seed(0)
+    g = {"a": torch.randn(4096, generator=gen),
+         "b": torch.randn(64, 33, generator=gen)}
+    mesh3 = init_device_mesh("cuda", (1, 1, 1),
+                             mesh_dim_names=("pod", "data", "model"))
+    got = compressed_grad_sync({k: v.cuda() for k, v in g.items()}, mesh3)
+
+    def cpu_sync(x):
+        # one rank: the data mean and the pod sum are x itself
+        q, scale, _ = compress(x, torch.zeros_like(x))
+        return q.to(torch.int32).float() * divide(scale, 1)
+
+    sync_equal = all(torch.equal(got[k].cpu(), cpu_sync(g[k])) for k in g)
+    mmesh = init_device_mesh("cuda", (1,), mesh_dim_names=("model",))
+    x = torch.randn(256, 512, generator=gen)
+    w = torch.randn(512, 384, generator=gen)
+    y = allgather_matmul(x.cuda(), w.cuda(), mmesh)
+    # one hop: the product of the resident chunk, added to zeros; on the
+    # card that is the card's own product exactly, and the CPU's within
+    # the float32 products' summation order (GRAD_REL, as phase 22)
+    mm_card_equal = bool(torch.equal(y, x.cuda() @ w.cuda()))
+    mm_rel = leaf_rel(y.cpu(), x @ w)
+    pmesh = make_pp_mesh(1, device_type="cuda")
+    S, M, mb, dim = 1, 8, 4, 256
+    ws = torch.randn(S, dim, dim, generator=gen) * dim ** -0.5
+    xs = torch.randn(M, mb, dim, generator=gen)
+    yp = pipeline_apply(lambda wt, v: torch.tanh(v @ wt), ws.cuda(),
+                        xs.cuda(), pmesh, num_microbatches=M)
+    # the stages in sequence, one microbatch at a time as the schedule
+    # applies them: on the card exactly, on the CPU within GRAD_REL
+    seq_card = torch.stack([torch.tanh(xs[m].cuda() @ ws[0].cuda())
+                            for m in range(M)])
+    pp_card_equal = bool(torch.equal(yp, seq_card))
+    ref = xs
+    for s_ in range(S):
+        ref = torch.tanh(ref @ ws[s_])
+    pp_rel = leaf_rel(yp.cpu(), ref)
+    out = {"compressed_grad_sync_equal": sync_equal,
+           "allgather_matmul_equal_on_card": mm_card_equal,
+           "allgather_matmul_rel_cpu": mm_rel,
+           "pipeline_apply_equal_on_card": pp_card_equal,
+           "pipeline_apply_rel_cpu": pp_rel, "rel_cpu": GRAD_REL}
+    emit({"phase": "distributed", "collectives": out})
+    check(sync_equal, "compressed_grad_sync: card differs from the CPU")
+    check(mm_card_equal and mm_rel <= GRAD_REL,
+          f"allgather_matmul: {out}")
+    check(pp_card_equal and pp_rel <= GRAD_REL, f"pipeline_apply: {out}")
+    return out
+
+
+def dist_dryrun() -> dict:
+    """The dry-run CLI on DRYRUN_CELL, multi-pod, host only (a fake
+    process group of 512 ranks, no card): rc 0, "[OK]", its record."""
+    arch, shape = DRYRUN_CELL
+    out_dir = SRC.parent / "build" / "dryrun"
+    env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="")
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--multi-pod", "--out-dir", str(out_dir)],
+        env=env, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    path = out_dir / f"{arch}_{shape}_2x16x16.json"
+    rec = json.loads(path.read_text()) if path.exists() else None
+    emit({"phase": "distributed", "dryrun": {"rc": r.returncode,
+                                             "wall_s": wall,
+                                             "stdout": r.stdout[-400:],
+                                             "record": rec}})
+    check(r.returncode == 0 and "[OK]" in r.stdout and rec
+          and rec.get("ok"), f"dry-run failed: {r.stderr[-2000:]}")
+    return rec
+
+
+def phase_distributed(torch, kops, smi: str) -> dict:
+    """23. The distributed layer on a one-rank NCCL process group."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    t0 = time.perf_counter()
+    torch.cuda.set_device(0)
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/pg",
+                                rank=0, world_size=1,
+                                device_id=torch.device("cuda", 0))
+        try:
+            mesh = init_device_mesh("cuda", (1, 1),
+                                    mesh_dim_names=("data", "model"))
+            first = None
+            for arch, depth in DIST_ARMS:
+                arm = dist_arm(torch, kops, mesh, arch, depth)
+                launches[arm["kernel"]] = arm["launches"]
+                first = first or arm
+            dist_compress(torch, first["api"], first["batch"])
+            del first
+            dist_collectives(torch)
+        finally:
+            dist.destroy_process_group()
+    dist_dryrun()
+    wall = time.perf_counter() - t0
+    emit({"phase": "distributed", "wall_s": wall,
+          "predicted_wall_s": DIST_PRED_S, "card": smi})
+    return launches
+
+
 def main() -> int:
     import argparse
 
@@ -4142,7 +4445,8 @@ def main() -> int:
                                        "serve_rwkv", "serve_analysis",
                                        "serve_moe", "serve_hybrid",
                                        "serve_vlm", "encdec",
-                                       "train_families", "flash_parity"],
+                                       "train_families", "flash_parity",
+                                       "distributed"],
                     default=None,
                     help="run the device and build phases and this one, "
                     "then end")
@@ -4204,6 +4508,8 @@ def main() -> int:
             phase_train_families(torch, kops, smi)
         elif args.only == "flash_parity":
             phase_flash_parity(torch, kops, ptxas)
+        elif args.only == "distributed":
+            phase_distributed(torch, kops, smi)
         elif args.only == "serve_analysis":
             outs = [phase_serve(torch, kops, arch)[2]
                     for arch in ("smollm-135m@inhibitor", "smollm-135m")]
@@ -4280,6 +4586,9 @@ def main() -> int:
     t0 = time.perf_counter()
     train_family_launches = phase_train_families(torch, kops, smi)
     t_phase["train_families"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dist_launches = phase_distributed(torch, kops, smi)
+    t_phase["distributed"] = time.perf_counter() - t0
 
     sources = {"paged": "src/repro_torch/csrc/paged_decode.cu",
                "flash": "src/repro_torch/csrc/flash_prefill.cu",
@@ -4320,6 +4629,7 @@ def main() -> int:
             k["launches_encdec"] = encdec_launches[k["name"]]
             k["launches_train_families"] = train_family_launches.get(
                 k["name"], 0)
+            k["launches_distributed"] = dist_launches.get(k["name"], 0)
             k["family_shapes"] = {
                 label: {key: t[k["name"]][key] for key in
                         ("ms", "device_us", "bound_ms", "bound_by",

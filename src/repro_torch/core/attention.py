@@ -24,7 +24,7 @@ from repro_torch.core.mechanism import (
     DEFAULT_BLOCKED_THRESHOLD, DEFAULT_CHUNKED_THRESHOLD,
     MASK_FREE_BACKENDS, AttnShapes, PagedLayout, Structural, execute_plan,
     get_mechanism, plan_attention)
-from repro_torch.nn.linear import apply_dense, init_dense
+from repro_torch.nn.linear import apply_dense, dense_axes, init_dense
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,6 +116,20 @@ def init_attention(gen: torch.Generator, cfg: AttentionConfig,
                          **kw),
         "wo": init_dense(gen, (h, d), (embed_dim,), use_bias=cfg.out_bias,
                          **kw),
+    }
+
+
+def attention_axes(cfg: AttentionConfig) -> dict:
+    """Logical axes of :func:`init_attention`'s tree."""
+    return {
+        "wq": dense_axes(("embed",), ("heads", "head_dim"),
+                         use_bias=cfg.qkv_bias),
+        "wk": dense_axes(("embed",), ("kv_heads", "head_dim"),
+                         use_bias=cfg.qkv_bias),
+        "wv": dense_axes(("embed",), ("kv_heads", "head_dim"),
+                         use_bias=cfg.qkv_bias),
+        "wo": dense_axes(("heads", "head_dim"), ("embed",),
+                         use_bias=cfg.out_bias),
     }
 
 

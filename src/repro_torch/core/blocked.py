@@ -25,8 +25,11 @@ bounds each cube by a (chunk_q, chunk_k) tile:
 
 Chunk sizes default to the reference's 512 x 512 and shrink by its rule
 (:func:`_auto_chunks`) until the live (b, h, cq, ck, d) float32 cube fits
-:data:`CUBE_BUDGET_BYTES`.  The port has no device mesh yet, so batch and
-heads count whole: they are the local sizes.
+:data:`CUBE_BUDGET_BYTES`.  The reference divides the global batch and
+heads by the mesh degrees; the port's shapes are already the local ones
+(the sharded step runs the model on each rank's rows, and every model
+rank computes all heads), so they count whole and are not divided
+again.
 """
 
 from __future__ import annotations

@@ -1,8 +1,15 @@
-"""Fault supervision for the training loop: restart supervisor and
-straggler watchdog.
+"""Fault tolerance: restart supervisor, straggler watchdog, elastic
+rescale.
 
-Port of the single-process parts of :mod:`repro.distributed.fault`
-(pure Python).  ``elastic_remesh_plan`` comes with the distributed slice.
+Port of :mod:`repro.distributed.fault` (pure Python).  The unit of
+recovery is the committed checkpoint (the checkpoint store is atomic):
+any :class:`StepFailure` inside the step loop restores from the last
+commit, and since the data is a pure function of (seed, step) the
+replay is exact.  ``StepWatchdog`` flags steps slower than ``threshold``
+times the trend.  ``elastic_remesh_plan`` computes, for a reduced
+healthy chip set, the largest usable (data, model) mesh and whether the
+FSDP-sharded state re-slices without resharding collectives (it does
+whenever the new data parallelism divides the old).
 """
 
 from __future__ import annotations
@@ -74,3 +81,35 @@ class StepWatchdog:
             # only fold non-straggler steps into the trend
             self._mean = self.ewma * self._mean + (1 - self.ewma) * seconds
         return is_slow
+
+
+@dataclasses.dataclass(frozen=True)
+class RemeshPlan:
+    data: int
+    model: int
+    pods: int
+    resliceable: bool     # FSDP shards re-slice without gather
+
+
+def elastic_remesh_plan(healthy_chips: int, *, model_parallelism: int,
+                        old_data_parallelism: int,
+                        chips_per_pod: int = 256) -> RemeshPlan:
+    """Largest mesh on the healthy chip set keeping the TP degree fixed.
+
+    The TP degree is set by the architecture (head / expert
+    divisibility), so elasticity trades only the data axis, rounded down
+    to a power of two.  The FSDP state re-slices locally iff the new data
+    parallelism divides the old; otherwise restore goes through the
+    checkpoint reshard path."""
+    if healthy_chips < model_parallelism:
+        raise ValueError("not enough chips for one model replica")
+    new_data = healthy_chips // model_parallelism
+    while new_data & (new_data - 1):
+        new_data -= 1
+    pods = max(1, (new_data * model_parallelism) // chips_per_pod)
+    return RemeshPlan(
+        data=new_data // pods if pods > 1 else new_data,
+        model=model_parallelism,
+        pods=pods,
+        resliceable=(old_data_parallelism % new_data == 0),
+    )

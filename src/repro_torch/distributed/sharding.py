@@ -1,0 +1,317 @@
+"""Logical-axis -> mesh-axis sharding rules and helpers, over DTensor.
+
+Port of :mod:`repro.distributed.sharding`.  Parameters and activations
+carry *logical* axis names ("embed", "heads", "vocab", "expert",
+"batch", "seq", ...).  A rules table maps each logical name to mesh axes
+(or none = replicated), so ten architectures share one distribution
+layer: a parallelism strategy is a rules-table edit, not a model edit.
+
+Axis roles:
+  * ``pod``   — pure data parallelism across pods
+  * ``data``  — FSDP: batch sharding + parameter / optimizer-state sharding
+  * ``model`` — tensor parallelism (heads / mlp / vocab / experts) and
+                sequence parallelism for activations in norm regions
+
+A mesh is a ``torch.distributed.device_mesh.DeviceMesh`` (or, for the
+spec functions alone, an :class:`AbstractMesh`, which needs no process
+group).  A spec is a tuple with one entry per leading tensor dim:
+``None``, one mesh axis name, or a tuple of names (the first the major
+one), trailing ``None`` entries trimmed, as a ``PartitionSpec`` prints.
+:func:`placements` turns a spec into DTensor placements, one per mesh
+dim; a tensor dim over two mesh axes takes ``Shard(dim)`` on each, in
+mesh order (major first), which is the reference's layout.
+
+:func:`constrain` redistributes a DTensor activation to its logical
+layout and returns any other tensor, and every tensor when no mesh is
+active, unchanged.  The port's sharded train step
+(:mod:`repro_torch.launch.shardings`) runs the model on plain local
+tensors, so its ``constrain`` calls are no-ops.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import math
+import threading
+from typing import NamedTuple, Tuple
+
+# ---------------------------------------------------------------------------
+# Rules tables
+# ---------------------------------------------------------------------------
+
+# Parameter logical axes.  FSDP ("data") shards one large dim of each weight;
+# TP ("model") shards heads/mlp/vocab/expert dims.
+PARAM_RULES = {
+    "embed": ("data",),            # d_model dim of weights -> FSDP
+    "heads": ("model",),           # query-head dim -> TP
+    "kv_heads": ("model",),        # kv-head dim -> TP
+    "head_dim": (),                # never sharded
+    "mlp": ("model",),             # FFN hidden -> TP
+    "heads_mlp": ("model",),       # fused head*dim projections (ssm/rwkv)
+    "vocab": ("model",),           # embedding/vocab -> TP
+    "expert": ("model",),          # MoE expert axis -> EP (over model)
+    "layers": (),                  # stacked-scan layer axis
+    None: (),
+}
+
+# Activation logical axes.
+ACT_RULES = {
+    "batch": ("pod", "data"),      # batch -> DP across pod×data
+    "batch_heads": ("pod", "data", "model"),  # merged b×h dim (blocked attn)
+    "seq": (),                     # sequence replicated by default
+    "seq_sp": ("model",),          # sequence-parallel regions
+    "embed": (),                   # d_model on activations: replicated
+    "heads": ("model",),           # per-head activations -> TP
+    "kv_heads": ("model",),
+    "head_dim": (),
+    "mlp": ("model",),
+    "vocab": ("model",),
+    "expert": ("model",),
+    None: (),
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class AbstractMesh:
+    """Mesh axes and sizes without devices or a process group (the
+    counterpart of ``jax.sharding.AbstractMesh``): enough for the spec
+    functions, e.g. on the production (16, 16) mesh from one process."""
+
+    shape: Tuple[int, ...]
+    axis_names: Tuple[str, ...]
+
+
+def axis_sizes(mesh) -> dict:
+    """``{axis name: size}`` of a DeviceMesh or an AbstractMesh."""
+    names = getattr(mesh, "mesh_dim_names", None) or mesh.axis_names
+    return dict(zip(names, tuple(mesh.shape)))
+
+
+class NamedSharding(NamedTuple):
+    """A spec on a mesh (the counterpart of ``jax.sharding.NamedSharding``)."""
+    mesh: object
+    spec: tuple
+
+    @property
+    def placements(self) -> list:
+        return placements(self.spec, self.mesh)
+
+
+class _ShardingCtx(threading.local):
+    def __init__(self):
+        self.mesh = None
+        self.param_rules = dict(PARAM_RULES)
+        self.act_rules = dict(ACT_RULES)
+
+
+_CTX = _ShardingCtx()
+
+
+@contextlib.contextmanager
+def use_mesh(mesh, *, param_rules=None, act_rules=None):
+    """Activate a mesh + rules for this thread; the previous ones come
+    back on exit."""
+    prev = (_CTX.mesh, _CTX.param_rules, _CTX.act_rules)
+    _CTX.mesh = mesh
+    if param_rules is not None:
+        _CTX.param_rules = dict(param_rules)
+    if act_rules is not None:
+        _CTX.act_rules = dict(act_rules)
+    try:
+        yield mesh
+    finally:
+        _CTX.mesh, _CTX.param_rules, _CTX.act_rules = prev
+
+
+def current_mesh():
+    return _CTX.mesh
+
+
+def _trim(parts: list) -> tuple:
+    while parts and parts[-1] is None:
+        parts.pop()
+    return tuple(parts)
+
+
+def _part_size(part, sizes: dict) -> int:
+    names = part if isinstance(part, tuple) else (part,)
+    return math.prod(sizes[n] for n in names)
+
+
+def _spec_from_axes(axes, rules, sizes: dict) -> tuple:
+    parts = []
+    used = set()
+    for name in axes:
+        # keep only axes present in this mesh and not already used
+        eligible = tuple(a for a in rules.get(name, ())
+                         if a in sizes and a not in used)
+        used.update(eligible)
+        if not eligible:
+            parts.append(None)
+        elif len(eligible) == 1:
+            parts.append(eligible[0])
+        else:
+            parts.append(eligible)
+    return _trim(parts)
+
+
+def param_spec(axes, shape=None, mesh=None) -> tuple:
+    """Spec for a parameter with logical ``axes``.  With ``shape``,
+    sharded dims that do not divide evenly fall back to replication, one
+    dim at a time (so the port never makes an uneven shard)."""
+    mesh = mesh if mesh is not None else _CTX.mesh
+    if mesh is None:
+        return ()
+    sizes = axis_sizes(mesh)
+    spec = _spec_from_axes(axes, _CTX.param_rules, sizes)
+    if shape is None:
+        return spec
+    parts = list(spec) + [None] * (len(shape) - len(spec))
+    for i, part in enumerate(parts):
+        if part is not None and shape[i] % _part_size(part, sizes):
+            parts[i] = None
+    return _trim(parts)
+
+
+def param_sharding(axes_tree, arr_tree, mesh=None):
+    """Tree of :class:`NamedSharding` for a plain parameter tree (tensors
+    or anything with a ``shape``) and its axes tree."""
+    from repro_torch.tree import tree_map
+
+    mesh = mesh if mesh is not None else _CTX.mesh
+    if mesh is None:
+        raise ValueError("param_sharding needs a mesh (use_mesh or mesh=)")
+    return tree_map(
+        lambda arr, axes: NamedSharding(mesh, param_spec(axes, arr.shape,
+                                                         mesh)),
+        arr_tree, axes_tree)
+
+
+def activation_spec(shape, axes, mesh=None) -> tuple:
+    """The spec :func:`constrain` gives a tensor of ``shape``: the
+    activation rules, dims whose size does not divide their mesh axes
+    replicated *per dim*, so a later logical axis mapping to the same
+    mesh axis gets its chance (("heads", "seq_sp") both -> "model": a
+    40-head tensor on a 16-way axis shards its seq dim instead)."""
+    mesh = mesh if mesh is not None else _CTX.mesh
+    if mesh is None:
+        return ()
+    sizes = axis_sizes(mesh)
+    parts = []
+    used = set()
+    for i, name in enumerate(axes):
+        eligible = tuple(a for a in _CTX.act_rules.get(name, ())
+                         if a in sizes and a not in used)
+        if eligible and i < len(shape):
+            size = math.prod(sizes[a] for a in eligible)
+            if shape[i] % size == 0 and shape[i] >= size:
+                used.update(eligible)
+                parts.append(eligible[0] if len(eligible) == 1
+                             else eligible)
+                continue
+        parts.append(None)
+    return _trim(parts)
+
+
+def constrain(x, *axes):
+    """Lay a DTensor activation out by its logical ``axes`` (see
+    :func:`activation_spec`).  No-op when no mesh is active and on a
+    plain tensor (the model computing on local shards)."""
+    mesh = _CTX.mesh
+    if mesh is None:
+        return x
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(x, DTensor):
+        return x
+    return x.redistribute(mesh, placements(
+        activation_spec(tuple(x.shape), axes, mesh), mesh))
+
+
+def batch_spec(mesh=None) -> tuple:
+    """Spec of a (batch, ...) input."""
+    mesh = mesh if mesh is not None else _CTX.mesh
+    if mesh is None:
+        return ()
+    return _spec_from_axes(("batch",), _CTX.act_rules, axis_sizes(mesh))
+
+
+def placements(spec, mesh) -> list:
+    """DTensor placements, one per mesh dim, of ``spec``: ``Shard(i)`` on
+    each mesh axis named by tensor dim ``i``'s entry, ``Replicate()`` on
+    the others.  A dim over several mesh axes must name them in mesh
+    order (the first the major one), which is DTensor's nesting."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = list(axis_sizes(mesh))
+    out = [Replicate() for _ in names]
+    for dim, part in enumerate(spec):
+        if part is None:
+            continue
+        group = part if isinstance(part, tuple) else (part,)
+        order = [names.index(a) for a in group]
+        if order != sorted(order):
+            raise ValueError(f"spec entry {part} is not in mesh order "
+                             f"{tuple(names)}")
+        for i in order:
+            out[i] = Shard(dim)
+    return out
+
+
+def batch_axes(mesh) -> tuple:
+    """The mesh's batch axes, ("pod", "data") where present."""
+    return tuple(a for a in ("pod", "data") if a in axis_sizes(mesh))
+
+
+def batch_index(mesh) -> Tuple[int, int]:
+    """(this rank's block of batch rows, the number of blocks): the
+    pod-major index over the batch axes, as the reference lays out a
+    dim sharded over ("pod", "data")."""
+    coord = mesh.get_coordinate()
+    names = list(mesh.mesh_dim_names)
+    idx, count = 0, 1
+    for a in batch_axes(mesh):
+        i = names.index(a)
+        idx = idx * mesh.shape[i] + coord[i]
+        count *= mesh.shape[i]
+    return idx, count
+
+
+def batch_all_reduce(x, mesh):
+    """The sum of ``x`` over the batch axes of ``mesh``: one all-reduce
+    per axis, on that axis's process sub-group.  Returns a new tensor."""
+    import torch.distributed as dist
+
+    out = x.clone()
+    for a in batch_axes(mesh):
+        if axis_sizes(mesh)[a] > 1:
+            dist.all_reduce(out, group=mesh.get_group(a))
+    return out
+
+
+def batch_sum(x, mesh):
+    """The sum of ``x`` over the batch ranks, differentiable with the
+    identity backward: the gradient each rank receives is that of its
+    own contribution, so the ranks' gradients add up to the gradient of
+    the global quantity (the MoE's load-balance and z losses)."""
+    total = batch_all_reduce(x.detach(), mesh)
+    return x + (total - x.detach())
+
+
+def batch_all_gather(x, mesh):
+    """Stack ``x`` from every batch rank: (blocks, *x.shape), block order
+    pod-major as :func:`batch_index` numbers them."""
+    import torch
+    import torch.distributed as dist
+
+    out = x[None]
+    # the minor axis first: each gather stacks whole lower-axis blocks
+    for a in reversed(batch_axes(mesh)):
+        n = axis_sizes(mesh)[a]
+        if n == 1:
+            continue
+        parts = [torch.empty_like(out) for _ in range(n)]
+        dist.all_gather(parts, out.contiguous(), group=mesh.get_group(a))
+        out = torch.cat(parts, dim=0)
+    return out

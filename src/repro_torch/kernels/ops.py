@@ -219,6 +219,20 @@ def _timer(run: Callable[[KernelChoice], torch.Tensor]):
     return time_one
 
 
+def _local_only(*xs) -> None:
+    """The kernels launch on raw device pointers (``kernels.cuda_lib``):
+    a DTensor's local shard is not the tensor it stands for, so a DTensor
+    raises rather than computing on one shard.  The sharded steps hand
+    the model plain tensors (:mod:`repro_torch.launch.shardings`)."""
+    from torch.distributed.tensor import DTensor
+
+    for x in xs:
+        if isinstance(x, DTensor):
+            raise TypeError("a kernel wrapper got a DTensor "
+                            f"{tuple(x.shape)} {x.placements}: the kernels "
+                            "take plain (local) tensors")
+
+
 def _paged_choice(family_key: str, q, k_pool, block_tables,
                   override: Optional[KernelChoice], run) -> KernelChoice:
     """The paged kernels' choice: timed on the card with concrete
@@ -245,6 +259,7 @@ def paged_flash_inhibitor(q, k_pool, v_pool, block_tables, lengths, *,
             normalize=normalize, window=window,
             pages_per_step=c.pages_per_step)
 
+    _local_only(q, k_pool, v_pool)
     return run(_paged_choice("inhibitor", q, k_pool, block_tables, choice,
                              run))
 
@@ -258,6 +273,7 @@ def paged_flash_attention(q, k_pool, v_pool, block_tables, lengths, *,
             score_scale=score_scale, window=window,
             pages_per_step=c.pages_per_step)
 
+    _local_only(q, k_pool, v_pool)
     return run(_paged_choice("flash", q, k_pool, block_tables, choice, run))
 
 
@@ -314,6 +330,7 @@ def flash_inhibitor(q, k, v, score_scale=None, score_shift=0.5, signed=True,
     forward runs the kernel (its plain version on the CPU), the backward
     the reference's analytic VJP (no score matrix is saved).  ``choice``
     (a :class:`KernelChoice`) overrides the registry's launch choice."""
+    _local_only(q, k, v)
     return _FlashInhibitor.apply(q, k, v, score_scale, score_shift, signed,
                                  normalize, causal, window, choice)
 
@@ -325,6 +342,7 @@ def flash_inhibitor_cached(q, k, v, q_offset, kv_valid_len, *,
     """Decode-cache flash inhibitor: per-row ``q_offset`` /
     ``kv_valid_len`` cursors (ints, 0-d or (b,) tensors).  Inference only:
     no backward is defined for the cursor-carrying form."""
+    _local_only(q, k, v)
     _prefill_choice("inhibitor", q, k, causal, window, True, choice)
     return kinhibitor.flash_inhibitor_fwd(
         q, k, v, score_scale=score_scale, score_shift=score_shift,
@@ -360,6 +378,7 @@ def flash_attention(q, k, v, score_scale=None, causal=True, window=None,
                     choice=None):
     """Flash (Softmax) attention with a recompute-based backward (see
     :func:`flash_inhibitor`)."""
+    _local_only(q, k, v)
     return _FlashAttention.apply(q, k, v, score_scale, causal, window,
                                  choice)
 
@@ -368,6 +387,7 @@ def flash_attention_cached(q, k, v, q_offset, kv_valid_len, *,
                            score_scale=None, causal=True, window=None,
                            choice=None):
     """Decode-cache flash attention (see :func:`flash_inhibitor_cached`)."""
+    _local_only(q, k, v)
     c = _prefill_choice("flash", q, k, causal, window, True, choice)
     return kflash.flash_attention_fwd(
         q, k, v, score_scale=score_scale, causal=causal, window=window,
@@ -409,6 +429,7 @@ def wkv6(r, k, v, w, u, state=None, *, chunk: int = kwkv6.DEFAULT_CHUNK):
     (and trace-logged) at the model level — ``models.rwkv.wkv_plan`` — so
     this wrapper only enforces the state-carry constraint.  Returns (out (b, t, h, n), final state (b, h, n, n)),
     float32."""
+    _local_only(r, k, v, w, u)
     if state is not None:
         return kref.wkv6_ref(r, k, v, w, u, state)
     return _Wkv6.apply(r, k, v, w, u, chunk)

@@ -18,9 +18,19 @@ the token stream has no frames for its encoder.  At full size
 ``rwkv6-7b``'s 7.6 B float32
 parameters with AdamW take 122 GB, beyond one 80 GB card, and its first
 4 layers 23 GB (``qwen2-moe-a2.7b``'s 15 B, 242 GB).
-Flags and defaults are the reference launcher's; one
-device only: ``--data-parallel`` / ``--model-parallel`` other than 1 are
-not ported yet and raise.  ``--ckpt-dir DIR`` commits a checkpoint every
+Flags and defaults are the reference launcher's.  A ("data", "model")
+mesh of ``--data-parallel`` x ``--model-parallel`` > 1 trains on that
+many ranks under ``torchrun``::
+
+    python -m torch.distributed.run --nproc-per-node 4 \
+        -m repro_torch.launch.train --device cpu \
+        --data-parallel 2 --model-parallel 2 --steps 6
+
+one process per rank (gloo for ``--device cpu``, NCCL on ``cuda:
+{LOCAL_RANK}`` otherwise), the state sharded by the rules the dry-run
+places (:mod:`repro_torch.launch.shardings`), each step the sharded one;
+rank 0 prints the summary.  A mesh larger than the world exits with
+``mesh DxM needs N devices, have W``.  ``--ckpt-dir DIR`` commits a checkpoint every
 ``--ckpt-every`` steps and at the end, and a rerun resumes from the newest
 commit under DIR (fault tolerance: auto-resume + restart supervision).
 
@@ -31,8 +41,10 @@ p50, tokens per second and, on a card, the peak device memory.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import logging
+import os
 import statistics
 
 import torch
@@ -63,10 +75,14 @@ def run(argv=None) -> dict:
                     help="torch device to train on (default: cuda)")
     args = ap.parse_args(argv)
 
-    if args.data_parallel != 1 or args.model_parallel != 1:
-        raise NotImplementedError(
-            "--data-parallel / --model-parallel other than 1 are not ported "
-            "to PyTorch yet (ROADMAP queue 1 item 7: distributed)")
+    dp, mp = args.data_parallel, args.model_parallel
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if dp * mp > world:
+        raise SystemExit(f"mesh {dp}x{mp} needs {dp * mp} devices, "
+                         f"have {world}")
+    if 1 < dp * mp < world:
+        raise SystemExit(f"mesh {dp}x{mp} uses {dp * mp} of the {world} "
+                         "ranks; run as many ranks as the mesh holds")
 
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(message)s")
@@ -75,14 +91,28 @@ def run(argv=None) -> dict:
     from repro_torch.checkpoint import CheckpointConfig
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import PipelineConfig, lm_batch_at
+    from repro_torch.launch.mesh import make_mesh
     from repro_torch.device import resolve_device
+    from repro_torch.distributed.sharding import use_mesh
     from repro_torch.distributed.fault import (SupervisorConfig,
                                                run_supervised)
     from repro_torch.models.registry import get_model
     from repro_torch.optim import AdamWConfig, warmup_cosine
     from repro_torch.train.loop import TrainConfig, train
 
-    device = resolve_device(args.device)
+    distributed = dp * mp > 1
+    if distributed:
+        import torch.distributed as dist
+
+        if args.device == "cpu":
+            dist.init_process_group("gloo")
+            device = resolve_device("cpu")
+        else:
+            device = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
+            torch.cuda.set_device(device)
+            dist.init_process_group("nccl", device_id=device)
+    else:
+        device = resolve_device(args.device)
     name = args.arch if not args.attention else f"{args.arch}@{args.attention}"
     cfg = get_config(name)
     if args.reduced:
@@ -110,20 +140,27 @@ def run(argv=None) -> dict:
     result = {}
 
     def attempt(i):
-        log.info("attempt %d: training %s for %d steps on %s", i, cfg.name,
-                 args.steps, device)
-        result.update(train(api, opt_cfg, train_cfg,
-                            lambda step: lm_batch_at(pipe, step),
-                            device=device))
+        log.info("attempt %d: training %s for %d steps on %s, %dx%d mesh",
+                 i, cfg.name, args.steps, device, dp, mp)
+        with contextlib.ExitStack() as stack:
+            if distributed:
+                stack.enter_context(use_mesh(make_mesh(dp, mp)))
+            result.update(train(api, opt_cfg, train_cfg,
+                                lambda step: lm_batch_at(pipe, step),
+                                device=device))
 
-    restarts = run_supervised(attempt,
-                              SupervisorConfig(max_restarts=args.max_restarts))
+    try:
+        restarts = run_supervised(
+            attempt, SupervisorConfig(max_restarts=args.max_restarts))
+    finally:
+        if distributed:
+            dist.destroy_process_group()
     hist = result["history"]
     walls = [h["seconds"] for h in hist[1:]] or [h["seconds"] for h in hist]
     p50 = statistics.median(walls) if walls else float("nan")
     summary = {
         "arch": name, "full": not args.reduced, "layers": cfg.num_layers,
-        "device": str(device),
+        "device": str(device), "mesh": [dp, mp],
         "steps": args.steps, "batch": args.batch, "seq": args.seq,
         "microbatches": args.microbatches, "restarts": restarts,
         "start_step": hist[0]["step"] if hist else args.steps,
@@ -141,7 +178,9 @@ def run(argv=None) -> dict:
 
 
 def main(argv=None) -> int:
-    print(json.dumps(run(argv)), flush=True)
+    summary = run(argv)
+    if int(os.environ.get("RANK", "0")) == 0:
+        print(json.dumps(summary), flush=True)
     return 0
 
 

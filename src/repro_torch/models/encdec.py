@@ -35,12 +35,14 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.attention import (AttentionConfig, KVCache,
-                                        apply_attention, init_attention)
+                                        apply_attention, attention_axes,
+                                        init_attention)
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models import transformer as tfm
 from repro_torch.nn import embedding as emb
 from repro_torch.nn import mlp as mlpnn
-from repro_torch.nn.linear import apply_dense, init_dense
+from repro_torch.nn.linear import apply_dense, dense_axes, init_dense
 
 
 class DecLayerState(NamedTuple):
@@ -109,6 +111,29 @@ def init_model(gen: torch.Generator, cfg: ModelConfig, *,
     }
 
 
+def model_axes(cfg: ModelConfig) -> dict:
+    """Logical axes of :func:`init_model`'s tree (per-layer dicts without
+    the reference's leading ``"layers"`` axis)."""
+    norm = tfm._norm_axes(cfg)
+    ffn = mlpnn.mlp_axes(use_bias=True)
+    ed = cfg.encdec
+    enc = {"ln1": norm, "attn": attention_axes(_enc_attn_cfg(cfg)),
+           "ln2": norm, "ffn": ffn}
+    dec = {"ln1": norm, "self_attn": attention_axes(cfg.attention),
+           "ln_cross": norm,
+           "cross_attn": attention_axes(_cross_attn_cfg(cfg)),
+           "ln2": norm, "ffn": ffn}
+    return {
+        "frontend_proj": dense_axes((None,), ("embed",), use_bias=True),
+        "embed": emb.embedding_axes(),
+        "encoder": [enc] * ed.encoder_layers,
+        "enc_norm": norm,
+        "decoder": [dec] * ed.decoder_layers,
+        "dec_norm": norm,
+        "lm_head": dense_axes(("embed",), ("vocab",)),
+    }
+
+
 def _checkpointed(cfg: ModelConfig) -> bool:
     """Checkpoint each layer?  Only in training, and only under remat
     "full" (the reference's two stacks know no other policy)."""
@@ -128,7 +153,8 @@ def _enc_block(lp, cfg: ModelConfig, h, positions):
                            tfm._apply_norm(cfg, lp["ln1"], h),
                            positions=positions, compute_dtype=cdt)
     h = h + a
-    return h + _apply_ffn(lp["ffn"], tfm._apply_norm(cfg, lp["ln2"], h), cdt)
+    h = h + _apply_ffn(lp["ffn"], tfm._apply_norm(cfg, lp["ln2"], h), cdt)
+    return constrain(h, "batch", "seq_sp", "embed")
 
 
 def encode(params: dict, cfg: ModelConfig,
@@ -157,7 +183,7 @@ def _dec_block(lp, cfg: ModelConfig, h, memory, positions, cache=None):
         compute_dtype=cdt)
     h = h + c
     f = _apply_ffn(lp["ffn"], tfm._apply_norm(cfg, lp["ln2"], h), cdt)
-    return h + f, new_kv
+    return constrain(h + f, "batch", "seq_sp", "embed"), new_kv
 
 
 def _head(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -176,7 +202,7 @@ def decode_train(params: dict, cfg: ModelConfig, memory: torch.Tensor,
         x, _ = (tfm.remat_block(cfg, _dec_block, lp, cfg, x, memory,
                                 positions) if remat
                 else _dec_block(lp, cfg, x, memory, positions))
-    return _head(params, cfg, x)
+    return constrain(_head(params, cfg, x), "batch", None, "vocab")
 
 
 def forward_train(params: dict, cfg: ModelConfig, frames: torch.Tensor,

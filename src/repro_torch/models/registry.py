@@ -8,6 +8,7 @@ the config:
   * ``init_states(batch, max_len, **kw)``  -> decode state
   * ``step(params, tokens, states, batch)`` -> (logits, states')  [decode]
   * ``input_specs(shape)``                 -> dict of ``meta`` tensors
+  * ``axes()``                             -> logical-axes tree
 
 The dense, ``moe`` and ``hybrid`` families share the transformer branch;
 ``vlm`` is the same model with its patch embeddings (``batch
@@ -22,7 +23,9 @@ step decodes against ``batch["memory"]``, the encoder's output.
 ``input_specs(shape)`` describes every tensor the train / serve step of
 a :class:`~repro_torch.configs.base.ShapeConfig` consumes, with the
 reference's shapes and dtypes, as tensors on the ``meta`` device (no
-storage).
+storage).  ``axes()`` is the tree of logical axis names of ``init``'s
+parameters (:mod:`repro_torch.nn.module`), one tuple per tensor, from
+which :mod:`repro_torch.distributed.sharding` places them on a mesh.
 """
 
 from __future__ import annotations
@@ -44,6 +47,7 @@ class ModelApi(NamedTuple):
     init_states: Callable
     step: Callable
     input_specs: Callable
+    axes: Callable
 
 
 def _spec(shape, dtype) -> torch.Tensor:
@@ -122,6 +126,7 @@ def get_model(cfg: ModelConfig) -> ModelApi:
         init_states=lambda b, s, **kw: tfm.init_states(cfg, b, s, **kw),
         step=step,
         input_specs=lambda shape: specs(cfg, shape),
+        axes=lambda: tfm.lm_axes(cfg),
     )
 
 
@@ -146,6 +151,7 @@ def _encdec_model(cfg: ModelConfig) -> ModelApi:
         init_states=lambda b, s, **kw: encdec_m.init_states(cfg, b, s, **kw),
         step=step,
         input_specs=lambda shape: _encdec_specs(cfg, shape),
+        axes=lambda: encdec_m.model_axes(cfg),
     )
 
 
@@ -171,4 +177,5 @@ def _ssm_model(cfg: ModelConfig) -> ModelApi:
         init_states=lambda b, s, **kw: rwkv_m.init_states(cfg, b, s, **kw),
         step=step,
         input_specs=lambda shape: _lm_specs(cfg, shape),
+        axes=lambda: rwkv_m.lm_axes(cfg),
     )

@@ -33,10 +33,11 @@ import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import constrain
 from repro_torch.nn import embedding as emb
 from repro_torch.nn import norm as normnn
 from repro_torch.nn import ssm as ssmnn
-from repro_torch.nn.linear import apply_dense, init_dense
+from repro_torch.nn.linear import apply_dense, dense_axes, init_dense
 
 
 class RwkvLayerState(NamedTuple):
@@ -62,6 +63,14 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
     }
 
 
+def block_axes(cfg: ModelConfig) -> dict:
+    """Logical axes of :func:`init_block`'s tree."""
+    return {"ln1": normnn.layernorm_axes(),
+            "time_mix": ssmnn.rwkv6_timemix_axes(),
+            "ln2": normnn.layernorm_axes(),
+            "channel_mix": ssmnn.rwkv6_channelmix_axes()}
+
+
 def wkv_plan(use_kernel: bool, carried_state: bool):
     """The WKV token mixer's plan: the chunked kernel (``"pallas"``) from
     a zero state when the caller allows it, else the exact scan
@@ -82,6 +91,7 @@ def apply_block(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
     (a zero state).  Returns (x, (wkv', tm_x', cm_x'))."""
     cdt = cfg.cdtype
     h = normnn.apply_layernorm(params["ln1"], x, eps=cfg.norm_eps)
+    h = constrain(h, "batch", "seq_sp", "embed")
     plan = wkv_plan(use_kernel, state is not None)
     a, (wkv_state, tm_x) = ssmnn.apply_rwkv6_timemix(
         params["time_mix"], h, _num_heads(cfg),
@@ -93,7 +103,8 @@ def apply_block(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
     f, cm_x = ssmnn.apply_rwkv6_channelmix(
         params["channel_mix"], h2,
         x_prev=None if state is None else state[2], compute_dtype=cdt)
-    return x + f, (wkv_state, tm_x, cm_x)
+    x = constrain(x + f, "batch", "seq_sp", "embed")
+    return x, (wkv_state, tm_x, cm_x)
 
 
 def init_lm(gen: torch.Generator, cfg: ModelConfig, *, device=None) -> dict:
@@ -112,6 +123,17 @@ def init_lm(gen: torch.Generator, cfg: ModelConfig, *, device=None) -> dict:
         p["lm_head"] = init_dense(gen, (cfg.d_model,), (cfg.vocab_size,),
                                   **kw)
     return p
+
+
+def lm_axes(cfg: ModelConfig) -> dict:
+    """Logical axes of :func:`init_lm`'s tree (per-layer dicts without
+    the reference's leading ``"layers"`` axis)."""
+    axes = {"embed": emb.embedding_axes(), "ln_in": normnn.layernorm_axes(),
+            "blocks": [block_axes(cfg) for _ in range(cfg.num_layers)],
+            "final_norm": normnn.layernorm_axes()}
+    if not cfg.tie_embeddings:
+        axes["lm_head"] = dense_axes(("embed",), ("vocab",))
+    return axes
 
 
 def _checkpointed_block(lp, cfg: ModelConfig, x, use_kernel: bool):
@@ -152,9 +174,9 @@ def lm_forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
                use_kernel: bool = True) -> torch.Tensor:
     """Training / prefill forward from a zero state: tokens (b, s) ->
     logits (b, s, V)."""
-    x, _ = _run_blocks(params, cfg, _embed(params, cfg, tokens),
-                       use_kernel=use_kernel)
-    return _logits(params, cfg, x)
+    x = constrain(_embed(params, cfg, tokens), "batch", "seq_sp", "embed")
+    x, _ = _run_blocks(params, cfg, x, use_kernel=use_kernel)
+    return constrain(_logits(params, cfg, x), "batch", None, "vocab")
 
 
 def init_states(cfg: ModelConfig, batch: int, max_len: int, *,

@@ -48,14 +48,15 @@ import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.attention import (
-    KVCache, PagedKVCache, apply_attention, init_attention)
+    KVCache, PagedKVCache, apply_attention, attention_axes, init_attention)
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import constrain
 from repro_torch.nn import embedding as emb
 from repro_torch.nn import mlp as mlpnn
 from repro_torch.nn import moe as moenn
 from repro_torch.nn import norm as normnn
 from repro_torch.nn import ssm as ssmnn
-from repro_torch.nn.linear import apply_dense, init_dense
+from repro_torch.nn.linear import apply_dense, dense_axes, init_dense
 
 
 class LayerState(NamedTuple):
@@ -74,6 +75,10 @@ def _init_norm(cfg: ModelConfig, device):
     return normnn.init_layernorm(cfg.d_model, dtype=cfg.pdtype, device=device)
 
 
+def _norm_axes(cfg: ModelConfig) -> dict:
+    return normnn.layernorm_axes(use_bias=cfg.norm != "rmsnorm")
+
+
 def _apply_norm(cfg: ModelConfig, p, x):
     if cfg.norm == "rmsnorm":
         return normnn.apply_rmsnorm(p, x, eps=cfg.norm_eps)
@@ -85,6 +90,12 @@ def _init_ffn(gen, cfg: ModelConfig, device):
     if cfg.mlp == "gated_silu":
         return mlpnn.init_gated_mlp(gen, cfg.d_model, cfg.d_ff, **kw)
     return mlpnn.init_mlp(gen, cfg.d_model, cfg.d_ff, **kw)
+
+
+def _ffn_axes(cfg: ModelConfig) -> dict:
+    if cfg.mlp == "gated_silu":
+        return mlpnn.gated_mlp_axes(use_bias=cfg.mlp_bias)
+    return mlpnn.mlp_axes(use_bias=cfg.mlp_bias)
 
 
 def _apply_ffn(cfg: ModelConfig, p, x, cdt):
@@ -126,6 +137,22 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
     return p
 
 
+def block_axes(cfg: ModelConfig) -> dict:
+    """Logical axes of :func:`init_block`'s tree."""
+    axes = {"ln1": _norm_axes(cfg), "attn": attention_axes(cfg.attention),
+            "ln2": _norm_axes(cfg)}
+    if cfg.family == "hybrid":
+        axes["mamba"] = ssmnn.mamba_axes()
+        axes["branch_scale"] = (None,)
+    if cfg.moe is not None:
+        axes["moe"] = moenn.moe_axes(
+            shared_hidden_dim=cfg.moe.shared_hidden_dim,
+            shared_gate=cfg.moe.shared_gate)
+    else:
+        axes["ffn"] = _ffn_axes(cfg)
+    return axes
+
+
 def _mamba_inner(cfg: ModelConfig) -> int:
     return cfg.ssm.inner_dim or 2 * cfg.d_model
 
@@ -140,6 +167,7 @@ def apply_block(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
     """
     cdt = cfg.cdtype
     h = _apply_norm(cfg, params["ln1"], x)
+    h = constrain(h, "batch", "seq_sp", "embed")
     a, new_cache = apply_attention(params["attn"], cfg.attention, h,
                                    positions=positions, cache=cache,
                                    compute_dtype=cdt)
@@ -151,6 +179,7 @@ def apply_block(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
         s = params["branch_scale"].to(cdt)
         a = 0.5 * (s[0] * a + s[1] * m)
     x = x + a
+    x = constrain(x, "batch", "seq_sp", "embed")
     h2 = _apply_norm(cfg, params["ln2"], x)
     aux = None
     if cfg.moe is not None:
@@ -161,7 +190,8 @@ def apply_block(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
         aux = torch.stack([moe_aux.load_balance_loss, moe_aux.router_z_loss])
     else:
         f = _apply_ffn(cfg, params["ffn"], h2, cdt)
-    return x + f, new_cache, carries, aux
+    x = constrain(x + f, "batch", "seq_sp", "embed")
+    return x, new_cache, carries, aux
 
 
 def init_lm(gen: torch.Generator, cfg: ModelConfig, *, device=None) -> dict:
@@ -183,6 +213,19 @@ def init_lm(gen: torch.Generator, cfg: ModelConfig, *, device=None) -> dict:
             gen, (cfg.frontend.embed_dim,), (cfg.d_model,), use_bias=True,
             dtype=cfg.pdtype, device=dev)
     return p
+
+
+def lm_axes(cfg: ModelConfig) -> dict:
+    """Logical axes of :func:`init_lm`'s tree: the reference's, with each
+    per-layer dict's leading ``"layers"`` axis dropped."""
+    axes = {"blocks": [block_axes(cfg) for _ in range(cfg.num_layers)],
+            "embed": emb.embedding_axes(), "final_norm": _norm_axes(cfg)}
+    if not cfg.tie_embeddings:
+        axes["lm_head"] = dense_axes(("embed",), ("vocab",))
+    if cfg.frontend is not None:
+        axes["frontend_proj"] = dense_axes((None,), ("embed",),
+                                           use_bias=True)
+    return axes
 
 
 def _layer_cache(kv, layer: int):
@@ -302,8 +345,9 @@ def lm_forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
         fe = apply_dense(params["frontend_proj"], extra_embeds.to(cdt), 1,
                          cdt)
         x = torch.cat([fe, x], dim=1)
+    x = constrain(x, "batch", "seq_sp", "embed")
     x, _, aux = _run_blocks(params, cfg, x, None)
-    logits = _logits(params, cfg, x)
+    logits = constrain(_logits(params, cfg, x), "batch", None, "vocab")
     if not return_aux:
         return logits
     if aux is None:

@@ -53,6 +53,15 @@ def init_conv1d(gen: torch.Generator, in_ch: int, out_ch: int, kernel: int,
     return p
 
 
+def conv_axes(ndim: int, *, use_bias: bool = True) -> dict:
+    """Logical axes of :func:`init_conv2d` (``ndim`` 4) and
+    :func:`init_conv1d` (``ndim`` 3): the output channels on ``"mlp"``."""
+    axes = {"kernel": (None,) * (ndim - 1) + ("mlp",)}
+    if use_bias:
+        axes["bias"] = ("mlp",)
+    return axes
+
+
 def same_padding(n: int, k: int, stride: int) -> Tuple[int, int]:
     """(low, high) padding of one spatial axis under ``"SAME"``."""
     out = -(-n // stride)

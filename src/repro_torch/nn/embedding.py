@@ -15,6 +15,10 @@ def init_embedding(gen: torch.Generator, vocab_size: int, embed_dim: int,
                             dtype=dtype, device=device)}
 
 
+def embedding_axes() -> dict:
+    return {"table": ("vocab", "embed")}
+
+
 def apply_embedding(params: dict, token_ids: torch.Tensor,
                     compute_dtype=None) -> torch.Tensor:
     """Lookup: (...,) int -> (..., embed).  Gathers rows first, then casts

@@ -24,6 +24,17 @@ def init_dense(gen: torch.Generator, in_shape: Sequence[int],
     return params
 
 
+def dense_axes(in_axes: Sequence, out_axes: Sequence, *,
+               use_bias: bool = False, bias_axes=None) -> dict:
+    """Logical axes of :func:`init_dense`'s tree: the kernel's
+    ``(*in_axes, *out_axes)``, the bias's ``bias_axes`` (default
+    ``out_axes``)."""
+    axes = {"kernel": tuple(in_axes) + tuple(out_axes)}
+    if use_bias:
+        axes["bias"] = tuple(out_axes if bias_axes is None else bias_axes)
+    return axes
+
+
 def apply_dense(params: dict, x: torch.Tensor, n_in_dims: int = 1,
                 compute_dtype=None) -> torch.Tensor:
     """Contract the last ``n_in_dims`` dims of ``x`` with the kernel."""

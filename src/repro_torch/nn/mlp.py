@@ -6,7 +6,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.nn.linear import apply_dense, init_dense
+from repro_torch.nn.linear import apply_dense, dense_axes, init_dense
 
 _ACT = {
     "relu": F.relu,
@@ -26,6 +26,11 @@ def init_mlp(gen: torch.Generator, embed_dim: int, hidden_dim: int, *,
             "wo": init_dense(gen, (hidden_dim,), (embed_dim,), **kw)}
 
 
+def mlp_axes(*, use_bias: bool = False) -> dict:
+    return {"wi": dense_axes(("embed",), ("mlp",), use_bias=use_bias),
+            "wo": dense_axes(("mlp",), ("embed",), use_bias=use_bias)}
+
+
 def apply_mlp(params: dict, x: torch.Tensor, *, activation: str = "relu",
               compute_dtype=None) -> torch.Tensor:
     h = _ACT[activation](apply_dense(params["wi"], x, 1, compute_dtype))
@@ -40,6 +45,12 @@ def init_gated_mlp(gen: torch.Generator, embed_dim: int, hidden_dim: int,
     return {"wg": init_dense(gen, (embed_dim,), (hidden_dim,), **kw),
             "wu": init_dense(gen, (embed_dim,), (hidden_dim,), **kw),
             "wd": init_dense(gen, (hidden_dim,), (embed_dim,), **kw)}
+
+
+def gated_mlp_axes(*, use_bias: bool = False) -> dict:
+    up = dense_axes(("embed",), ("mlp",), use_bias=use_bias)
+    return {"wg": up, "wu": dict(up),
+            "wd": dense_axes(("mlp",), ("embed",), use_bias=use_bias)}
 
 
 def apply_gated_mlp(params: dict, x: torch.Tensor, *,

@@ -18,6 +18,14 @@ graph.
 
 Returns the Switch-Transformer load-balancing and router-z auxiliary
 losses and the dropped fraction (:class:`MoEAux`).
+
+Under a mesh (:func:`repro_torch.distributed.sharding.use_mesh`) the
+tokens are this rank's rows of the global batch, and the layer keeps
+the single-device semantics of the whole batch: the capacity counts
+the global tokens, an assignment's slot is its position in the global
+token order (the one-hot cumsum offset by the per-expert counts of the
+lower batch ranks, an all-gather of an (E,) vector), and the auxiliary
+losses and the dropped fraction come from sums over the batch ranks.
 """
 
 from __future__ import annotations
@@ -26,9 +34,13 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.distributed.sharding import (
+    batch_all_gather, batch_all_reduce, batch_index, batch_sum, constrain,
+    current_mesh)
 from repro_torch.nn.init import truncated_normal
-from repro_torch.nn.linear import apply_dense, init_dense
-from repro_torch.nn.mlp import _ACT, apply_gated_mlp, init_gated_mlp
+from repro_torch.nn.linear import apply_dense, dense_axes, init_dense
+from repro_torch.nn.mlp import (_ACT, apply_gated_mlp, gated_mlp_axes,
+                                init_gated_mlp)
 
 
 class MoEAux(NamedTuple):
@@ -60,6 +72,23 @@ def init_moe(gen: torch.Generator, embed_dim: int, expert_hidden_dim: int,
         if shared_gate:
             params["shared_gate"] = init_dense(gen, (embed_dim,), (1,), **kw)
     return params
+
+
+def moe_axes(*, shared_hidden_dim: int = 0,
+             shared_gate: bool = False) -> dict:
+    """Logical axes of :func:`init_moe`'s tree: the expert stacks lead
+    with ``"expert"``."""
+    axes = {
+        "router": dense_axes(("embed",), (None,)),
+        "wg": {"kernel": ("expert", "embed", "mlp")},
+        "wu": {"kernel": ("expert", "embed", "mlp")},
+        "wd": {"kernel": ("expert", "mlp", "embed")},
+    }
+    if shared_hidden_dim > 0:
+        axes["shared"] = gated_mlp_axes()
+        if shared_gate:
+            axes["shared_gate"] = dense_axes(("embed",), (None,))
+    return axes
 
 
 def _stack_expert(gen: torch.Generator, num_experts: int, in_dim: int,
@@ -105,6 +134,10 @@ def apply_moe(params: dict, x: torch.Tensor, *, top_k: int,
     tokens = x.reshape(n_tok, d)
     num_experts = params["wg"]["kernel"].shape[0]
     dev = x.device
+    # under a mesh the rows are this rank's block of the global batch:
+    # capacity, slots and the auxiliary losses are the global ones
+    mesh = current_mesh()
+    n_global = n_tok * (batch_index(mesh)[1] if mesh is not None else 1)
 
     logits, probs = _router_probs(params, tokens,
                                   router_softmax=router_softmax)
@@ -113,7 +146,7 @@ def apply_moe(params: dict, x: torch.Tensor, *, top_k: int,
         gate_vals = gate_vals / torch.clamp(
             gate_vals.sum(-1, keepdim=True), min=1e-9)
 
-    cap = capacity(top_k, capacity_factor, n_tok, num_experts)
+    cap = capacity(top_k, capacity_factor, n_global, num_experts)
 
     flat_expert = expert_ids.reshape(-1)                        # (T·k,)
     flat_gate = gate_vals.reshape(-1)
@@ -124,8 +157,18 @@ def apply_moe(params: dict, x: torch.Tensor, *, top_k: int,
         num_experts, device=dev)[None]).long()                  # (T·k, E)
     pos_in_expert = (torch.cumsum(onehot, dim=0) - 1) * onehot
     flat_pos = pos_in_expert.sum(-1)                            # (T·k,)
+    if mesh is not None:
+        # a slot is the position in the global token order: offset by
+        # the assignments of the lower batch blocks
+        counts = batch_all_gather(onehot.sum(0), mesh)          # (R, E)
+        flat_pos = flat_pos + counts[:batch_index(mesh)[0]].sum(0)[
+            flat_expert]
     keep = flat_pos < cap                                       # drop mask
-    dropped = 1.0 - keep.float().mean()
+    if mesh is None:
+        dropped = 1.0 - keep.float().mean()
+    else:
+        dropped = 1.0 - (batch_all_reduce(keep.sum(), mesh).float()
+                         / (n_global * top_k))
 
     cdt = compute_dtype or x.dtype
     # the (E, C, d) buffer; a dropped assignment lands on the overflow
@@ -133,14 +176,16 @@ def apply_moe(params: dict, x: torch.Tensor, *, top_k: int,
     buf = torch.zeros((num_experts, cap + 1, d), dtype=cdt, device=dev)
     buf[flat_expert, torch.where(keep, flat_pos, cap)] = (
         tokens[flat_token].to(cdt))
-    buf = buf[:, :cap]
+    buf = constrain(buf[:, :cap], "expert", None, None)
 
     # expert compute: the gated MLP batched over the expert axis
     wg = params["wg"]["kernel"].to(cdt)
     wu = params["wu"]["kernel"].to(cdt)
     wd = params["wd"]["kernel"].to(cdt)
     h = _ACT[activation](torch.bmm(buf, wg)) * torch.bmm(buf, wu)
+    h = constrain(h, "expert", None, None)
     out_buf = torch.bmm(h, wd)                                  # (E, C, d)
+    out_buf = constrain(out_buf, "expert", None, None)
 
     # gather back and combine with the gates, token by token
     safe_pos = torch.where(keep, flat_pos, cap - 1)
@@ -159,10 +204,17 @@ def apply_moe(params: dict, x: torch.Tensor, *, top_k: int,
 
     # auxiliary losses (Switch Transformer): the fraction of tokens whose
     # top-1 choice is each expert, against the mean router probability
-    me = (expert_ids[:, 0][:, None] == torch.arange(
-        num_experts, device=dev)[None]).float().mean(0)
-    ce = probs.mean(0)
+    top1 = (expert_ids[:, 0][:, None] == torch.arange(
+        num_experts, device=dev)[None]).float()
+    lse2 = torch.logsumexp(logits, dim=-1).square()
+    if mesh is None:
+        me, ce, z_loss = top1.mean(0), probs.mean(0), lse2.mean()
+    else:
+        # means over the global batch: sums over the batch ranks, each
+        # rank's gradient that of its own rows (batch_sum)
+        me = batch_sum(top1.sum(0), mesh) / n_global
+        ce = batch_sum(probs.sum(0), mesh) / n_global
+        z_loss = batch_sum(lse2.sum(), mesh) / n_global
     lb_loss = num_experts * (me * ce).sum()
-    z_loss = torch.logsumexp(logits, dim=-1).square().mean()
     aux = MoEAux(lb_loss, z_loss, dropped)
     return combined.reshape(b, s, d).to(x.dtype), aux

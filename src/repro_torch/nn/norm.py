@@ -13,6 +13,16 @@ def init_layernorm(embed_dim: int, *, use_bias: bool = True,
     return p
 
 
+def layernorm_axes(*, use_bias: bool = True) -> dict:
+    """Logical axes of :func:`init_layernorm`'s tree (and of
+    :func:`init_rmsnorm`'s without the bias, of :func:`init_groupnorm`'s
+    with it)."""
+    axes = {"scale": ("embed",)}
+    if use_bias:
+        axes["bias"] = ("embed",)
+    return axes
+
+
 def apply_layernorm(params: dict, x: torch.Tensor, *,
                     eps: float = 1e-5) -> torch.Tensor:
     xf = x.float()

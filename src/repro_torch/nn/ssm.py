@@ -35,8 +35,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.nn.init import normal
-from repro_torch.nn.linear import apply_dense, init_dense
-from repro_torch.nn.norm import apply_groupnorm, init_groupnorm
+from repro_torch.nn.linear import apply_dense, dense_axes, init_dense
+from repro_torch.nn.norm import (apply_groupnorm, init_groupnorm,
+                                 layernorm_axes)
 
 #: floor of the decay before its log: a *normal* float32 value, so a
 #: decay that underflows to 0 (or to a flushed subnormal) still gives a
@@ -82,6 +83,24 @@ def init_rwkv6_timemix(gen: torch.Generator, embed_dim: int, num_heads: int,
         "u": zeros(embed_dim),
         "output": lin(),
         "ln_x": init_groupnorm(num_heads, embed_dim, **kw),
+    }
+
+
+def rwkv6_timemix_axes() -> dict:
+    """Logical axes of :func:`init_rwkv6_timemix`'s tree."""
+    lin = dense_axes(("embed",), ("heads_mlp",))
+    return {
+        "mu_base": (None, "embed"),
+        "mix_lora_a": ("embed", None),
+        "mix_lora_b": (None, None, "embed"),
+        "receptance": lin, "key": dict(lin), "value": dict(lin),
+        "gate": dict(lin),
+        "w_base": ("embed",),
+        "w_lora_a": ("embed", None),
+        "w_lora_b": (None, "embed"),
+        "u": ("embed",),
+        "output": dense_axes(("heads_mlp",), ("embed",)),
+        "ln_x": layernorm_axes(),
     }
 
 
@@ -324,6 +343,16 @@ def init_rwkv6_channelmix(gen: torch.Generator, embed_dim: int,
     }
 
 
+def rwkv6_channelmix_axes() -> dict:
+    return {
+        "mu_k": ("embed",),
+        "mu_r": ("embed",),
+        "key": dense_axes(("embed",), ("mlp",)),
+        "receptance": dense_axes(("embed",), ("heads_mlp",)),
+        "value": dense_axes(("mlp",), ("embed",)),
+    }
+
+
 def apply_rwkv6_channelmix(params: dict, x: torch.Tensor, *,
                            x_prev: Optional[torch.Tensor] = None,
                            compute_dtype=None):
@@ -365,6 +394,20 @@ def init_mamba(gen: torch.Generator, embed_dim: int, inner_dim: int, *,
         "A_log": torch.log(a_init),
         "D": torch.ones(inner_dim, dtype=torch.float32, device=device),
         "out_proj": init_dense(gen, (inner_dim,), (embed_dim,), **kw),
+    }
+
+
+def mamba_axes() -> dict:
+    """Logical axes of :func:`init_mamba`'s tree."""
+    return {
+        "in_proj": dense_axes(("embed",), ("mlp",)),
+        "conv_w": (None, "mlp"),
+        "conv_b": ("mlp",),
+        "x_proj": dense_axes(("mlp",), (None,)),
+        "dt_proj": dense_axes((None,), ("mlp",), use_bias=True),
+        "A_log": ("mlp", None),
+        "D": ("mlp",),
+        "out_proj": dense_axes(("mlp",), ("embed",)),
     }
 
 

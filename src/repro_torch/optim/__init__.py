@@ -1,4 +1,4 @@
-"""Optimizer and learning-rate schedules."""
+"""Optimizers, schedules, gradient compression."""
 
 from repro_torch.optim.adamw import (  # noqa: F401
     AdamWConfig,
@@ -7,6 +7,12 @@ from repro_torch.optim.adamw import (  # noqa: F401
     clip_by_global_norm,
     global_norm,
     init_adamw,
+)
+from repro_torch.optim.compress import (  # noqa: F401
+    CompressionState,
+    compress_tree,
+    decompress_tree,
+    init_compression,
 )
 from repro_torch.optim.schedule import (  # noqa: F401
     constant,

@@ -6,6 +6,14 @@ step, and the checkpoint manager commits atomically — so ``train()``
 after a crash resumes from the newest commit and replays the same
 stream.  A resumed run loads the commit into the freshly initialised
 state in place (the parameters stay leaf tensors that require grad).
+
+Under a mesh (:func:`repro_torch.distributed.sharding.use_mesh`, as the
+launcher runs the loop under ``torchrun``) every rank draws the same
+parameters, keeps its shard of them and of the AdamW moments as
+DTensors (:mod:`repro_torch.launch.shardings`), takes its rows of each
+batch, and trains through the sharded step; the history holds the global
+loss.  Checkpoints are single-process only: a mesh with a checkpoint
+config raises.
 """
 
 from __future__ import annotations
@@ -51,6 +59,26 @@ def _load_into(state, restored) -> None:
         dst.copy_(src)
 
 
+def _sharded(api, opt_cfg, train_cfg, mesh, params, opt_state, to_device):
+    """Place the state on ``mesh`` and build the sharded step; returns
+    (params, opt_state, step_fn, batch placer)."""
+    from repro_torch.launch import shardings as shlib
+    from repro_torch.nn.module import box_like
+
+    _, psh = shlib.params_shardings(box_like(params, api.axes()), mesh)
+    params = shlib.place(params, psh, requires_grad=True)
+    opt_state = shlib.place(opt_state,
+                            shlib.opt_shardings(opt_state, psh, mesh))
+    step_fn = shlib.make_sharded_train_step(api, opt_cfg, mesh,
+                                            train_cfg.microbatches)
+
+    def placed(b):
+        b = to_device(b)
+        return shlib.place(b, shlib.batch_shardings(b, mesh))
+
+    return params, opt_state, step_fn, placed
+
+
 def train(api: ModelApi, opt_cfg: AdamWConfig, train_cfg: TrainConfig,
           batch_fn: Callable[[int], Dict[str, np.ndarray]], *,
           device=None, hooks: Optional[list] = None) -> dict:
@@ -61,12 +89,24 @@ def train(api: ModelApi, opt_cfg: AdamWConfig, train_cfg: TrainConfig,
     in the loss read, which waits for the device).  With a checkpoint
     config the loop saves every ``every_steps`` steps and at the end, and
     waits for the last write before it returns."""
+    from repro_torch.distributed.sharding import current_mesh
+
     dev = resolve_device(device)
+    mesh = current_mesh()
+    if mesh is not None and train_cfg.checkpoint:
+        raise ValueError("checkpoints are not supported under a mesh")
     # parameters drawn on the training device: a CPU generator's one
     # sequential stream takes minutes for billions of parameters
     params, opt_state = init_train_state(
         api, opt_cfg, torch.Generator(device=dev).manual_seed(train_cfg.seed),
         device=dev)
+    to_device = lambda b: {k: torch.from_numpy(v).to(dev)  # noqa: E731
+                           for k, v in b.items()}
+    if mesh is None:
+        step_fn = make_train_step(api, opt_cfg, train_cfg.microbatches)
+    else:
+        params, opt_state, step_fn, to_device = _sharded(
+            api, opt_cfg, train_cfg, mesh, params, opt_state, to_device)
     mgr = (CheckpointManager(train_cfg.checkpoint)
            if train_cfg.checkpoint else None)
     start_step = saved = 0
@@ -77,14 +117,12 @@ def train(api: ModelApi, opt_cfg: AdamWConfig, train_cfg: TrainConfig,
         saved = start_step
         log.info("resumed from step %d", start_step)
 
-    step_fn = make_train_step(api, opt_cfg, train_cfg.microbatches)
     watchdog = StepWatchdog()
     history = []
 
     for step in range(start_step, train_cfg.total_steps):
         t0 = time.perf_counter()
-        batch = {k: torch.from_numpy(v).to(dev)
-                 for k, v in batch_fn(step).items()}
+        batch = to_device(batch_fn(step))
         params, opt_state, metrics = step_fn(params, opt_state, batch)
         loss = float(metrics["loss"])
         dt = time.perf_counter() - t0

@@ -1,11 +1,13 @@
 """Train and eval step builders.
 
 Port of :mod:`repro.train.step` for every family (dense, ``moe``,
-``hybrid``, RWKV-6 ``ssm``, ``encdec`` and ``vlm``; the serving steps
-stay with ``serve/engine.py``).  A batch holds what the family's
+``hybrid``, RWKV-6 ``ssm``, ``encdec`` and ``vlm``).  A batch holds what the family's
 ``input_specs`` names: the encoder-decoder's ``frames`` beside its
 target tokens, the vlm's ``image_embeds`` beside its text tokens, whose
 labels cover the image positions too (:func:`_align_labels`).
+:func:`make_prefill_step` and :func:`make_serve_step` are the reference's
+serving steps (the engine has its own); the sharded train step over a
+mesh is :func:`repro_torch.launch.shardings.make_sharded_train_step`.
 ``make_train_step(api, opt_cfg)`` returns ``(params, opt_state, batch)
 -> (params', opt_state', metrics)``; the optimizer updates ``params`` and
 ``opt_state`` in place (:func:`repro_torch.optim.adamw.adamw_update`), so
@@ -188,12 +190,57 @@ def make_eval_step(api: ModelApi) -> Callable:
     return eval_step
 
 
+def make_prefill_step(api: ModelApi, batch_chunks: int = 8) -> Callable:
+    """Serving prefill: the LAST position's logits only (the decode
+    bootstrap), the forward mapped over batch chunks (full-sequence
+    logits of a 32k-token prefill batch have no consumer, and chunking
+    bounds the activation peak as microbatching does in training).  The
+    chunk count keeps each chunk's rows divisible by the data-parallel
+    degree of :func:`~repro_torch.distributed.sharding.current_mesh`
+    (pod × data), as the reference does."""
+    from repro_torch.distributed.sharding import axis_sizes, current_mesh
+
+    @torch.no_grad()
+    def prefill_step(params, batch):
+        b = next(iter(batch.values())).shape[0]
+        mesh = current_mesh()
+        dp = 1
+        if mesh is not None:
+            sizes = axis_sizes(mesh)
+            for ax in ("pod", "data"):
+                dp *= sizes.get(ax, 1)
+        n = max(1, min(batch_chunks, b // dp))
+        while b % n or (b // n) % dp:
+            n -= 1
+        if n <= 1:
+            return api.forward(params, batch)[:, -1:]
+        chunks = {k: v.chunk(n, dim=0) for k, v in batch.items()}
+        return torch.cat([api.forward(params, {k: v[i] for k, v in
+                                               chunks.items()})[:, -1:]
+                          for i in range(n)], dim=0)
+
+    return prefill_step
+
+
+def make_serve_step(api: ModelApi) -> Callable:
+    """One decode step: the greedy next token against the KV cache /
+    recurrent state.  Returns (next tokens (b, 1) int32, logits, states')."""
+
+    @torch.no_grad()
+    def serve_step(params, tokens, states, batch=None):
+        logits, new_states = api.step(params, tokens, states, batch)
+        next_tokens = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+        return next_tokens, logits, new_states
+
+    return serve_step
+
+
 def init_train_state(api: ModelApi, opt_cfg: AdamWConfig,
                      gen: torch.Generator, *, device=None):
     """Initialize (params, opt_state): parameters from ``gen`` (a
     generator on the CPU or on ``device``) on ``device`` (default
-    ``cuda``), as leaf tensors that require grad.  The reference also returns the logical sharding axes;
-    the single-device port has none."""
+    ``cuda``), as leaf tensors that require grad.  The reference also
+    returns the logical sharding axes; here they are ``api.axes()``."""
     params = api.init(gen, device=device)
     for p in tree_leaves(params):
         p.requires_grad_(True)

@@ -1,0 +1,240 @@
+"""Rank programs for the port's multi-rank CPU tests (gloo, spawned);
+this module holds no test of its own.
+
+No JAX here: every rank imports only ``torch`` and ``repro_torch``.  The
+test processes compute the JAX reference and pass plain numpy trees in.
+
+:func:`run_ranks` spawns ``world`` processes, each joining a gloo group
+through a file under the test's ``tmp_path`` (no TCP port to collide
+under xdist), runs one of the programs below, and returns the results of
+every rank in rank order.  A rank that fails or hangs fails the call
+within ``timeout`` seconds.
+"""
+
+from __future__ import annotations
+
+import multiprocessing as mp
+import os
+import queue as queue_mod
+import traceback
+
+TIMEOUT = 300
+
+
+def _entry(rank, world, init_file, program, args, q):
+    try:
+        import torch
+        import torch.distributed as dist
+
+        torch.set_num_threads(1)
+        dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                                rank=rank, world_size=world)
+        try:
+            out = globals()[program](rank, world, *args)
+        finally:
+            dist.destroy_process_group()
+        q.put((rank, "ok", out))
+    except BaseException:  # noqa: BLE001 — report to the parent, then exit
+        q.put((rank, "error", traceback.format_exc()))
+
+
+def run_ranks(world: int, program: str, args: tuple, tmp_path,
+              timeout: float = TIMEOUT) -> list:
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    init_file = os.path.join(str(tmp_path), f"pg_{program}_{os.getpid()}")
+    procs = [ctx.Process(target=_entry, args=(r, world, init_file, program,
+                                              args, q))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    results = {}
+    try:
+        for _ in range(world):
+            rank, status, out = q.get(timeout=timeout)
+            if status != "ok":
+                raise AssertionError(f"rank {rank} failed:\n{out}")
+            results[rank] = out
+    except queue_mod.Empty:
+        raise AssertionError(f"ranks did not finish in {timeout} s "
+                             f"(done: {sorted(results)})")
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    return [results[r] for r in range(world)]
+
+
+def _mesh(shape, names):
+    from torch.distributed.device_mesh import init_device_mesh
+
+    return init_device_mesh("cpu", tuple(shape), mesh_dim_names=tuple(names))
+
+
+def _np(tree):
+    from repro_torch.tree import tree_map
+
+    return tree_map(lambda t: None if t is None else
+                    t.detach().float().numpy().copy()
+                    if t.is_floating_point() else t.detach().numpy().copy(),
+                    tree)
+
+
+# ---------------------------------------------------------------------------
+# programs
+# ---------------------------------------------------------------------------
+
+def sharded_train(rank, world, shape, names, arch, overrides, jax_params,
+                  batch, steps, microbatches, opt_kw, cfg_kw=None):
+    """``steps`` sharded train steps from the converted reference
+    parameters.  Every rank returns its local shards of the embedding
+    table, its first moment and the tokens (the placement check); rank 0
+    also the losses, metrics and the gathered parameters."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.convert import params_from_jax
+    from repro_torch.launch import shardings as shlib
+    from repro_torch.models.registry import get_model
+    from repro_torch.nn.module import box_like
+    from repro_torch.optim import AdamWConfig, init_adamw
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config(arch).reduced(**overrides)
+    if cfg_kw:
+        cfg = dataclasses.replace(cfg, **cfg_kw)
+    api = get_model(cfg)
+    mesh = _mesh(shape, names)
+    opt = AdamWConfig(**opt_kw)
+    params = params_from_jax(jax_params, cfg, device="cpu")
+    state = init_adamw(params, opt)
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    _, psh = shlib.params_shardings(box_like(params, api.axes()), mesh)
+    dp = shlib.place(params, psh, requires_grad=True)
+    do = shlib.place(state, shlib.opt_shardings(state, psh, mesh))
+    db = shlib.place(tb, shlib.batch_shardings(tb, mesh))
+    step = shlib.make_sharded_train_step(api, opt, mesh, microbatches)
+    metrics = []
+    for _ in range(steps):
+        dp, do, m = step(dp, do, db)
+        metrics.append({k: float(v) for k, v in m.items()})
+    out = {"embed_local": shlib.local(dp["embed"]["table"]).detach().numpy(),
+           "mu_local": shlib.local(do.mu["embed"]["table"]).numpy(),
+           "tokens_local": shlib.local(db["tokens"]).numpy(),
+           "coord": mesh.get_coordinate()}
+    full = [p.full_tensor().detach().numpy() for p in tree_leaves(dp)]
+    mu = [p.full_tensor().numpy() for p in tree_leaves(do.mu)]
+    if rank == 0:
+        out.update(metrics=metrics, params=full, mu=mu,
+                   step=int(shlib.local(do.step)))
+    return out
+
+
+def dtensor_to_kernel(rank, world):
+    """A DTensor handed to a kernel wrapper raises TypeError."""
+    import torch
+    from torch.distributed.tensor import Shard, distribute_tensor
+
+    from repro_torch.kernels import ops as kops
+
+    mesh = _mesh((world,), ("data",))
+    q = distribute_tensor(torch.randn(world * 2, 2, 16, 8), mesh, [Shard(0)],
+                          src_data_rank=None)
+    try:
+        kops.flash_attention(q, q, q)
+    except TypeError as e:
+        return str(e)
+    return None
+
+
+def constrain_dtensor(rank, world):
+    """``constrain`` lays a replicated DTensor activation out by its
+    logical axes on a (2, 2) mesh and returns a plain tensor unchanged."""
+    import torch
+    from torch.distributed.tensor import Replicate, distribute_tensor
+
+    from repro_torch.distributed.sharding import (constrain, placements,
+                                                  use_mesh)
+
+    mesh = _mesh((2, 2), ("data", "model"))
+    x = torch.arange(4 * 6 * 8 * 2, dtype=torch.float32).reshape(4, 6, 8, 2)
+    dx = distribute_tensor(x, mesh, [Replicate(), Replicate()],
+                           src_data_rank=None)
+    plain = torch.ones(3)
+    with use_mesh(mesh):
+        y = constrain(dx, "batch", "heads", "seq_sp")
+        z = constrain(dx, "batch", None, "vocab")
+        same = constrain(plain, "batch") is plain
+    return {"y": list(y.placements) == placements(("data", "model"), mesh),
+            "z": list(z.placements) == placements(("data", None, "model"),
+                                                  mesh),
+            "y_full_equal": bool(torch.equal(y.full_tensor(), x)),
+            "plain_unchanged": same}
+
+
+def serving_steps(rank, world, shape, names, arch, overrides, jax_params,
+                  tokens, prompt):
+    """The sharded prefill and decode steps against the single-device
+    ones on the same parameters (every rank computes both)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.convert import params_from_jax
+    from repro_torch.launch import shardings as shlib
+    from repro_torch.models.registry import get_model
+    from repro_torch.nn.module import box_like
+    from repro_torch.train.step import make_prefill_step, make_serve_step
+
+    cfg = get_config(arch).reduced(**overrides)
+    api = get_model(cfg)
+    mesh = _mesh(shape, names)
+    params = params_from_jax(jax_params, cfg, device="cpu")
+    _, psh = shlib.params_shardings(box_like(params, api.axes()), mesh)
+    dp = shlib.place(params, psh)
+    batch = {"tokens": torch.from_numpy(prompt)}
+    ref_pre = make_prefill_step(api)(params, batch)
+    got_pre = shlib.make_sharded_prefill_step(api, mesh)(
+        dp, shlib.place(batch, shlib.batch_shardings(batch, mesh)))
+    b = tokens.shape[0]
+    states = api.init_states(b, 16, device="cpu")
+    tok = torch.from_numpy(tokens)
+    ref_nxt, ref_logits, _ = make_serve_step(api)(params, tok, states)
+    ds = shlib.place(api.init_states(b, 16, device="cpu"),
+                     shlib.state_shardings(states, mesh, b))
+    dtok = shlib.place(tok, shlib.batch_shardings({"t": tok}, mesh)["t"])
+    nxt, logits, new = shlib.make_sharded_serve_step(api, mesh)(dp, dtok, ds)
+    return {"prefill": (ref_pre.numpy(), got_pre.full_tensor().numpy()),
+            "next": (ref_nxt.numpy(), nxt.full_tensor().numpy()),
+            "logits": (ref_logits.numpy(), logits.full_tensor().numpy()),
+            "length": int(new.kv.length.full_tensor().reshape(-1)[0])}
+
+
+def collectives(rank, world, grads, x, w, ws, xs):
+    """On 8 ranks: compressed_grad_sync on (2, 2, 2) ("pod", "data",
+    "model") with each rank's own gradients, the ring all-gather matmul
+    on an 8-way ``model`` axis (each rank passes its k / n slices), the
+    GPipe schedule on a (4, 2) ("pipe", "data") mesh."""
+    import torch
+
+    from repro_torch.distributed.collectives import (allgather_matmul,
+                                                     compressed_grad_sync)
+    from repro_torch.distributed.pipeline import pipeline_apply
+
+    mesh = _mesh((2, 2, 2), ("pod", "data", "model"))
+    mine = {k: torch.from_numpy(v[rank]) for k, v in grads.items()}
+    out = {"sync": _np(compressed_grad_sync(mine, mesh))}
+    mesh = _mesh((world,), ("model",))
+    kx, nw = x.shape[1] // world, w.shape[1] // world
+    out["matmul"] = allgather_matmul(
+        torch.from_numpy(x[:, rank * kx:(rank + 1) * kx]),
+        torch.from_numpy(w[:, rank * nw:(rank + 1) * nw]), mesh).numpy()
+    mesh = _mesh((4, 2), ("pipe", "data"))
+    s = mesh.get_local_rank("pipe")
+    out["pipeline"] = pipeline_apply(
+        lambda wt, v: torch.tanh(v @ wt), torch.from_numpy(ws[s:s + 1]),
+        torch.from_numpy(xs), mesh, num_microbatches=xs.shape[0]).numpy()
+    return out

@@ -146,3 +146,25 @@ def test_importing_the_encdec_vlm_and_conv_modules_loads_no_jax():
         "api.forward(api.init(g, device='cpu'), {'tokens': torch.zeros("
         "(1, 4), dtype=torch.int64), 'image_embeds': torch.zeros("
         "(1, 16, 32))}); ")
+
+
+def test_importing_the_distributed_layer_loads_no_jax():
+    """The sharding rules, collectives, pipeline, the mesh, shardings and
+    dry-run launchers, the Param box and gradient compression, and the
+    spec of one full-width parameter tree on the production mesh."""
+    _loads_no_jax(
+        "repro_torch.distributed, repro_torch.distributed.sharding, "
+        "repro_torch.distributed.collectives, "
+        "repro_torch.distributed.pipeline, repro_torch.distributed.fault, "
+        "repro_torch.launch.mesh, repro_torch.launch.shardings, "
+        "repro_torch.launch.dryrun, repro_torch.nn.module, "
+        "repro_torch.optim.compress, torch",
+        "from repro_torch.configs import get_config; "
+        "from repro_torch.models.registry import get_model; "
+        "from repro_torch.distributed.sharding import AbstractMesh; "
+        "from repro_torch.launch.shardings import params_shardings; "
+        "from repro_torch.nn.module import box_like; "
+        "api = get_model(get_config('smollm-135m')); "
+        "params_shardings(box_like(api.init(torch.Generator(), "
+        "device='meta'), api.axes()), AbstractMesh((16, 16), "
+        "('data', 'model'))); ")
