@@ -270,6 +270,23 @@ Phases, each printing one JSON line; any failure exits non-zero:
                ``allgather_matmul`` and ``pipeline_apply`` on one-rank
                meshes (the sends go to the rank itself) against the card's
                own products and, within GRAD_REL, the CPU's;
+               ``train()`` under the mesh with checkpoints, both arms at
+               the same depths: 8 steps of ``lm_batch_at(seed 0, step)``
+               with async commits every 4 (keep 2), then the same run
+               cut at 6 and resumed to 8: losses, parameters and moments
+               equal (0.0), the resumed leaves DTensors with the fresh
+               placements, the last commit restored without a mesh onto
+               the card equal to the gathered state, the card's memory
+               during a save at most one leaf above its level before;
+               commit bytes, write and read seconds; then qwen2-moe-a2.7b
+               at depth 2, b 4 x 1024, 4 microbatches (each 1 x 1024,
+               through ``flash_attention``), 2 AdamW steps sharded and
+               then unsharded (``make_train_step(..., microbatches=4)``),
+               the card freed between them: losses and parameters within
+               DIST_MOE_REL, launches steps x 4 x 2 x 2 in each run, the
+               dropped fraction printed (at one batch rank the global
+               re-split is the identity; multi-rank microbatches are held
+               on the CPU over gloo);
                the process group is destroyed; then the dry-run CLI for
                smollm-135m decode_32k --multi-pod in a subprocess (host
                only): rc 0, "[OK]", its record printed.
@@ -4154,7 +4171,7 @@ DIST_STEPS = 4
 #: DIST_REL of the leaf's largest |b| (expected: equal up to float32
 #: rounding at mesh size 1, where every gather is a no-op)
 DIST_REL = 1e-5
-DIST_PRED_S = 90.0                          # the phase's predicted wall
+DIST_PRED_S = 110.0                         # the phase's predicted wall
 #: the error-feedback residual's bound, in scales: 1/2, plus the float32
 #: rounding of the division and the subtraction (2 · 127 · 2^-24)
 COMPRESS_RESID = 0.5 + 2 * 127 * 2.0 ** -24
@@ -4398,6 +4415,256 @@ def dist_dryrun() -> dict:
     return rec
 
 
+#: the microbatched MoE sharded step: (arch, depth, batch, seq), its
+#: microbatches and AdamW steps; sharded against unsharded, each loss and
+#: parameter leaf within DIST_MOE_REL of the unsharded one's (expected
+#: equal: at one batch rank the global re-split is the identity and the
+#: MoE layer takes its one-process arithmetic)
+DIST_MOE = ("qwen2-moe-a2.7b", 2, 4, 1024)
+DIST_MOE_MB, DIST_MOE_STEPS = 4, 2
+DIST_MOE_REL = 1e-6
+
+
+def dist_resume_arm(torch, kops, mesh, arch: str, depth) -> dict:
+    """``train()`` under the mesh with checkpoints, at phase 15's steps,
+    cut and cadence: RESUME_STEPS steps uninterrupted (async commits
+    every RESUME_EVERY, keep 2), then the same run cut at RESUME_CUT and
+    resumed.  Held: losses,
+    parameters and moments of the resumed run equal to the uninterrupted
+    run's (0.0), its leaves DTensors with the uninterrupted run's
+    placements; the last commit restored in this process without a mesh
+    onto the card equal to the gathered state; the card's memory during
+    a save of the live state at most one leaf above its level before;
+    the arm's flash kernel launched steps run x layers x 2 times, the
+    rest never."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.checkpoint import (CheckpointConfig, CheckpointManager,
+                                        committed_steps, store)
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import PipelineConfig, lm_batch_at
+    from repro_torch.distributed.sharding import use_mesh
+    from repro_torch.launch.shardings import local
+    from repro_torch.models.registry import get_model
+    from repro_torch.optim import AdamWConfig, warmup_cosine
+    from repro_torch.train.loop import TrainConfig, train
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config(arch)
+    if depth:
+        cfg = cfg.with_layers(depth)
+    api = get_model(cfg)
+    pipe = PipelineConfig(TRAIN_B, TRAIN_N, cfg.vocab_size, seed=0)
+    opt = AdamWConfig(lr=warmup_cosine(TRAIN_LR, 10, RESUME_STEPS))
+    kernel = train_kernel(cfg)
+    steps_run = [0]
+
+    def run(total, root):
+        ck = CheckpointConfig(root, every_steps=RESUME_EVERY, keep=2,
+                              async_save=True)
+        t0 = time.perf_counter()
+        with use_mesh(mesh):
+            r = train(api, opt, TrainConfig(total_steps=total, seed=0,
+                                            checkpoint=ck),
+                      lambda step: lm_batch_at(pipe, step), device="cuda")
+        torch.cuda.synchronize()
+        steps_run[0] += len(r["history"])
+        return r, time.perf_counter() - t0
+
+    def state(r):
+        return tree_leaves((r["params"], r["opt_state"]))
+
+    out = {"arch": arch, "kernel": kernel, "layers": cfg.num_layers,
+           "steps": RESUME_STEPS, "cut": RESUME_CUT,
+           "every": RESUME_EVERY, "batch": [TRAIN_B, TRAIN_N]}
+    io_log = {}
+    kops.reset_counts()
+    with tempfile.TemporaryDirectory() as tmp, timed_store(store, io_log):
+        a, out["uninterrupted_s"] = run(RESUME_STEPS, f"{tmp}/full")
+        live = state(a)
+        ref = [local(x).detach().clone() for x in live]
+        ref_placements = [tuple(x.placements) for x in live]
+        ref_losses = [h["loss"] for h in a["history"]]
+        # one save of the live state, timed, and the card's memory over
+        # it against its level before (the writer is rank 0 here)
+        mgr = CheckpointManager(CheckpointConfig(f"{tmp}/save",
+                                                 async_save=False),
+                                mesh=mesh)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        mgr.save(RESUME_STEPS, (a["params"], a["opt_state"]))
+        out["live_save_s"] = time.perf_counter() - t0
+        out["save_peak_growth_bytes"] = torch.cuda.max_memory_allocated() - base
+        out["largest_leaf_bytes"] = max(x.numel() * x.element_size()
+                                        for x in live)
+        del a, live, mgr
+        c, out["cut_s"] = run(RESUME_CUT, f"{tmp}/cut")
+        out["committed_after_cut"] = committed_steps(f"{tmp}/cut")
+        del c
+        d, out["resumed_s"] = run(RESUME_STEPS, f"{tmp}/cut")
+        out["resumed_from"] = d["history"][0]["step"]
+        out["committed_after_resume"] = committed_steps(f"{tmp}/cut")
+        got = state(d)
+        out["losses"] = ref_losses
+        out["resumed_losses"] = [h["loss"] for h in d["history"]]
+        out["resumed_vs_uninterrupted_max_abs"] = max(
+            float((local(x).detach().double() - r.double()).abs().max())
+            for x, r in zip(got, ref))
+        out["dtensor_placements_equal"] = all(
+            isinstance(x, DTensor) and tuple(x.placements) == p
+            for x, p in zip(got, ref_placements))
+        out["params_require_grad"] = all(
+            p.requires_grad for p in tree_leaves(d["params"]))
+        last = Path(tmp) / "cut" / f"step_{RESUME_STEPS:08d}"
+        out["checkpoint_bytes"] = sum(f.stat().st_size
+                                      for f in last.iterdir())
+        t0 = time.perf_counter()
+        plain, step = store.restore(f"{tmp}/cut", (d["params"],
+                                                   d["opt_state"]),
+                                    device="cuda")
+        out["in_process_restore_s"] = time.perf_counter() - t0
+        out["in_process_restore_equal"] = step == RESUME_STEPS and all(
+            not isinstance(p, DTensor) and p.device.type == "cuda"
+            and torch.equal(p, x.detach().full_tensor())
+            for p, x in zip(tree_leaves(plain), got))
+        del d, got, plain, ref
+    counts = kops.counts()
+    out.update(io_log)
+    out["launches"] = counts
+    out["steps_run"] = steps_run[0]
+    expected = steps_run[0] * cfg.num_layers * 2
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "distributed", "resume": out})
+    check(out["resumed_losses"] == ref_losses[RESUME_CUT:],
+          f"{arch}: resumed losses {out['resumed_losses']} vs "
+          f"{ref_losses}")
+    check(out["resumed_vs_uninterrupted_max_abs"] == 0.0,
+          f"{arch}: resumed state off by "
+          f"{out['resumed_vs_uninterrupted_max_abs']}")
+    check(out["dtensor_placements_equal"] and out["params_require_grad"],
+          f"{arch}: resumed leaves not the fresh placement")
+    check(out["in_process_restore_equal"],
+          f"{arch}: the commit restored without a mesh differs")
+    check(out["committed_after_cut"] == [RESUME_EVERY, RESUME_CUT]
+          and out["committed_after_resume"] == [RESUME_CUT,
+                                                RESUME_STEPS]
+          and out["resumed_from"] == RESUME_CUT,
+          f"{arch}: commits {out['committed_after_cut']} / "
+          f"{out['committed_after_resume']}, resumed from "
+          f"{out['resumed_from']}")
+    check(out["save_peak_growth_bytes"] <= out["largest_leaf_bytes"],
+          f"{arch}: a save grew the card's memory by "
+          f"{out['save_peak_growth_bytes']} bytes")
+    check(counts[kernel] == expected and all(
+        n == 0 for name, n in counts.items() if name != kernel),
+          f"{arch}: launches {counts}, expected {kernel} {expected}")
+    return {"kernel": kernel, "launches": counts[kernel]}
+
+
+def dist_moe_microbatched(torch, kops, mesh) -> dict:
+    """DIST_MOE at DIST_MOE_MB microbatches, DIST_MOE_STEPS AdamW steps of
+    one batch: the sharded step on the mesh, its results kept on the
+    host and the card freed, then the unsharded ``make_train_step`` from
+    the same parameters.  Held: losses and every parameter within
+    DIST_MOE_REL; ``flash_attention`` launched steps x microbatches x
+    layers x 2 times in each run, every other count 0.  Printed: the MoE
+    layer's dropped fraction in each forward of the sharded run."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import shardings as shlib
+    from repro_torch.models.registry import get_model
+    from repro_torch.nn import moe
+    from repro_torch.nn.module import box_like
+    from repro_torch.optim import AdamWConfig, init_adamw
+    from repro_torch.train.step import make_train_step
+    from repro_torch.tree import tree_leaves
+
+    arch, depth, b, n = DIST_MOE
+    cfg = get_config(arch).with_layers(depth)
+    check(cfg.remat == "full", f"{arch}: remat is {cfg.remat!r}")
+    api = get_model(cfg)
+    opt = AdamWConfig(lr=TRAIN_LR)
+    kernel = train_kernel(cfg)
+    out = {"arch": arch, "layers": depth, "batch": [b, n],
+           "microbatches": DIST_MOE_MB, "steps": DIST_MOE_STEPS,
+           "kernel": kernel, "rel": DIST_MOE_REL}
+    expected = DIST_MOE_STEPS * DIST_MOE_MB * depth * 2
+
+    def params():
+        p = family_params(torch, api, cfg)
+        for t in tree_leaves(p):
+            t.requires_grad_(True)
+        return p
+
+    def steps(step_fn, p, state, batch):
+        losses, walls = [], []
+        torch.cuda.reset_peak_memory_stats()
+        kops.reset_counts()
+        for _ in range(DIST_MOE_STEPS):
+            t0 = time.perf_counter()
+            p, state, m = step_fn(p, state, batch)
+            losses.append(float(m["loss"]))
+            walls.append(time.perf_counter() - t0)
+        return p, losses, {"step_wall_ms": [w * 1e3 for w in walls],
+                           "peak_memory_bytes":
+                           torch.cuda.max_memory_allocated(),
+                           "launches": kops.counts()}
+
+    batch = family_batch(torch, api, cfg, b, n, 0, "cuda")
+    p = params()
+    state = init_adamw(p, opt)
+    _, psh = shlib.params_shardings(box_like(p, api.axes()), mesh)
+    dp = shlib.place(p, psh, requires_grad=True)
+    ds = shlib.place(state, shlib.opt_shardings(state, psh, mesh))
+    db = shlib.place(batch, shlib.batch_shardings(batch, mesh))
+    del p, state
+    torch.cuda.empty_cache()
+    # the dropped fraction of every MoE call (the recomputes included);
+    # the layer's output is not kept, which would hold its graph
+    dropped, orig = [], moe.apply_moe
+
+    def counted(*a, **kw):
+        y, aux = orig(*a, **kw)
+        dropped.append(aux.dropped_fraction.detach())
+        return y, aux
+
+    moe.apply_moe = counted
+    try:
+        dp, losses, out["sharded"] = steps(shlib.make_sharded_train_step(
+            api, opt, mesh, DIST_MOE_MB), dp, ds, db)
+    finally:
+        moe.apply_moe = orig
+    out["dropped_fraction"] = [float(x) for x in dropped]
+    host = [shlib.local(x).detach().cpu() for x in tree_leaves(dp)]
+    del dp, ds, db, dropped
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    p = params()
+    p, ref_losses, out["unsharded"] = steps(
+        make_train_step(api, opt, DIST_MOE_MB), p, init_adamw(p, opt), batch)
+    out["losses"], out["unsharded_losses"] = losses, ref_losses
+    out["loss_rel"] = max(abs(a - b) / max(abs(b), 1e-30)
+                          for a, b in zip(losses, ref_losses))
+    out["param_rel_max"] = max(leaf_rel(h, x.detach().cpu())
+                               for h, x in zip(host, tree_leaves(p)))
+    del p, host, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "distributed", "moe_microbatched": out})
+    check(out["loss_rel"] <= DIST_MOE_REL and out["param_rel_max"]
+          <= DIST_MOE_REL, f"{arch}: microbatched sharded step off: losses "
+          f"{losses} vs {ref_losses}, parameters {out['param_rel_max']}")
+    for run in ("sharded", "unsharded"):
+        counts = out[run]["launches"]
+        check(counts[kernel] == expected and all(
+            v == 0 for k, v in counts.items() if k != kernel),
+            f"{arch} {run}: launches {counts}, expected {kernel} {expected}")
+    return {"kernel": kernel, "launches": out["sharded"]["launches"][kernel]}
+
+
 def phase_distributed(torch, kops, smi: str) -> dict:
     """23. The distributed layer on a one-rank NCCL process group."""
     import torch.distributed as dist
@@ -4421,6 +4688,11 @@ def phase_distributed(torch, kops, smi: str) -> dict:
             dist_compress(torch, first["api"], first["batch"])
             del first
             dist_collectives(torch)
+            for arch, depth in DIST_ARMS:
+                arm = dist_resume_arm(torch, kops, mesh, arch, depth)
+                launches[arm["kernel"]] += arm["launches"]
+            arm = dist_moe_microbatched(torch, kops, mesh)
+            launches[arm["kernel"]] += arm["launches"]
         finally:
             dist.destroy_process_group()
     dist_dryrun()

@@ -29,9 +29,16 @@ reference's inventory, and each package restores the other's commit
 ``|V2`` array it wrote, which the port reads).
 The model parameters differ in structure (the reference stacks the
 layers under ``blocks``, the port lists them), so a model commit crosses
-over through :func:`repro_torch.convert.params_from_jax`.  One process
-writes full tensors; :func:`restore` places every leaf on one device
-(sharded placement comes with the distributed layer).
+over through :func:`repro_torch.convert.params_from_jax`.
+
+A commit always holds full tensors.  Under a mesh the manager
+(:mod:`repro_torch.checkpoint.manager`) gathers each DTensor leaf whole
+and rank 0 alone writes, so a commit made under a mesh is a one-process
+commit, layout, inventory and names included.  :func:`restore` puts
+every leaf on one device, or, given ``shardings`` (the reference's
+argument), keeps on each rank its own shard of each leaf as a DTensor
+(:func:`repro_torch.launch.shardings.place`): every rank reads the
+commit.
 """
 
 from __future__ import annotations
@@ -130,15 +137,20 @@ def latest_step(root: str) -> Optional[int]:
 
 
 def restore(root: str, tree_like: Any, *, step: Optional[int] = None,
-            device=None):
+            device=None, shardings: Any = None):
     """Restore into the structure of ``tree_like``; returns (tree, step).
 
     Every leaf becomes a tensor on ``device`` (default: the card) with
     the dtype it was saved with; a leaf of ``tree_like`` that has a
     ``shape`` must match the saved shape.  ``step`` defaults to the
-    newest committed checkpoint.
+    newest committed checkpoint.  ``shardings``: a tree of
+    :class:`~repro_torch.distributed.sharding.NamedSharding` matching
+    ``tree_like`` (as :func:`repro_torch.launch.shardings.params_shardings`
+    / ``opt_shardings`` give it); each leaf then becomes a DTensor of its
+    sharding holding this rank's shard, on the mesh's device, and
+    ``device`` is not used.
     """
-    dev = resolve_device(device)
+    dev = resolve_device(device) if shardings is None else None
     if step is None:
         step = latest_step(root)
         if step is None:
@@ -173,9 +185,14 @@ def restore(root: str, tree_like: Any, *, step: Optional[int] = None,
         if shape is not None and tuple(shape) != tuple(t.shape):
             raise ValueError(f"checkpoint leaf {_name(path)!r} has shape "
                              f"{tuple(t.shape)}, expected {tuple(shape)}")
-        return t.to(dev)
+        return t if dev is None else t.to(dev)
 
-    return tree_map_with_path(place, tree_like), step
+    tree = tree_map_with_path(place, tree_like)
+    if shardings is not None:
+        from repro_torch.launch import shardings as shlib
+
+        tree = shlib.place(tree, shardings)
+    return tree, step
 
 
 def retain(root: str, keep: int):

@@ -133,6 +133,16 @@ def causal_mask(n_q: int, n_k: int, *, q_offset=0,
     return kj <= qi
 
 
+def sliding_window_mask(n_q: int, n_k: int, window: int, *, q_offset=0,
+                        device=None) -> torch.Tensor:
+    """(n_q, n_k) boolean mask of the causal keys within ``window`` of
+    the query: key j attends to query i at q_offset + i when
+    i + q_offset - window < j <= i + q_offset."""
+    qi = torch.arange(n_q, device=device)[:, None] + q_offset
+    kj = torch.arange(n_k, device=device)[None, :]
+    return (kj <= qi) & (kj > qi - window)
+
+
 def _repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
     """(b, s, kv_heads, d) -> (b, s, kv_heads*n_rep, d) for GQA."""
     if n_rep == 1:

@@ -315,3 +315,62 @@ def batch_all_gather(x, mesh):
         dist.all_gather(parts, out.contiguous(), group=mesh.get_group(a))
         out = torch.cat(parts, dim=0)
     return out
+
+
+def batch_group(mesh):
+    """The process group over the batch axes of ``mesh``, its ranks in
+    :func:`batch_index` order, or None where the axes hold one rank.  Two
+    batch axes of more than one rank each (pod and data) are flattened
+    into one sub-mesh, which the mesh keeps for later calls."""
+    axes = tuple(a for a in batch_axes(mesh) if axis_sizes(mesh)[a] > 1)
+    if not axes:
+        return None
+    if len(axes) == 1:
+        return mesh.get_group(axes[0])
+    return mesh[axes]._flatten().get_group()
+
+
+def global_microbatches(x, microbatches: int, mesh) -> list:
+    """This rank's rows of each of ``microbatches`` global microbatches
+    of a batch key ``x``: a DTensor sharded over the batch axes (as
+    :func:`repro_torch.launch.shardings.batch_shardings` places a batch
+    key), or this rank's block of the batch as a plain tensor.
+
+    Of a batch of B rows, rank r of R (:func:`batch_index`) holds global
+    rows [r·B/R, (r+1)·B/R).  Microbatch m is the global rows [m·B/M,
+    (m+1)·B/M), and rank r gets its r-th part of it, rows [m·B/M + r·b,
+    m·B/M + (r+1)·b) with b = B/(M·R): the ranks' parts of a microbatch,
+    in batch-index order, are that microbatch in the global order.  One
+    all-to-all over the batch axes moves the blocks of b rows: local
+    block i (global block j = r·M + i) goes to rank j mod R as its
+    microbatch j div R.  Raises ``ValueError`` unless M·R divides B and
+    this rank holds B/R of the rows."""
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor import DTensor
+
+    r, count = batch_index(mesh)
+    rows = x.shape[0] if isinstance(x, DTensor) else x.shape[0] * count
+    if isinstance(x, DTensor):
+        x = x.to_local()
+    n = x.shape[0]
+    if rows % (microbatches * count) or n * count != rows:
+        raise ValueError(
+            f"a batch of B = {rows} rows does not split into "
+            f"M = {microbatches} microbatches over R = {count} batch "
+            f"ranks: B must be a multiple of M·R = {microbatches * count}")
+    b = n // microbatches
+    blocks = x.reshape(microbatches, b, *x.shape[1:])
+    group = batch_group(mesh)
+    if group is None:
+        return list(blocks)
+    dest = [(r * microbatches + i) % count for i in range(microbatches)]
+    src = [(m * count + r) // microbatches for m in range(microbatches)]
+    # sent in order of destination (then block), received in order of
+    # source (then microbatch), which is microbatch order: the source of
+    # microbatch m never decreases with m
+    order = sorted(range(microbatches), key=lambda i: (dest[i], i))
+    out = funcol.all_to_all_single(
+        blocks[order].reshape(x.shape).contiguous(),
+        [src.count(s) * b for s in range(count)],
+        [dest.count(d) * b for d in range(count)], group)
+    return list(funcol.wait_tensor(out).reshape(blocks.shape))

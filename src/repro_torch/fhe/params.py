@@ -82,8 +82,8 @@ def select_params_for_report(report, *, static_report=None) -> TfheParams:
     add a rescale before its LUT).
 
     ``static_report``, when given, is the per-scope report of the static
-    interval analysis of the same circuit (the reference's
-    ``repro.analysis``, not ported yet): every measured width is
+    interval analysis of the same circuit
+    (:mod:`repro_torch.analysis`): every measured width is
     cross-checked against the proven bound, and a measured width *exceeding* the static bound fails loudly — observing
     what the analysis proved impossible means the analysis is unsound
     (or the two traces ran different circuits), and parameters derived

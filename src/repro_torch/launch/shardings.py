@@ -35,7 +35,12 @@ layer (ROADMAP queue 1 item [7b]).
 Global semantics the local compute keeps, so that the sharded step
 equals the single-device one: the loss is the all-reduced NLL sum over
 the all-reduced count of valid labels; the MoE layer's capacity, slots
-and auxiliary losses are global (:mod:`repro_torch.nn.moe`).
+and auxiliary losses are global (:mod:`repro_torch.nn.moe`).  With
+microbatches, microbatch m is the reference's: the global rows
+[m·B/M, (m+1)·B/M), each batch rank holding its part of them in the
+global order, moved there by one all-to-all of each batch key over the
+batch axes (:func:`repro_torch.distributed.sharding.global_microbatches`);
+so those semantics hold within each microbatch, for every family.
 """
 
 from __future__ import annotations
@@ -47,8 +52,8 @@ from typing import Callable
 import torch
 
 from repro_torch.distributed.sharding import (
-    NamedSharding, axis_sizes, batch_all_reduce, param_spec, placements,
-    use_mesh)
+    NamedSharding, axis_sizes, batch_all_reduce, global_microbatches,
+    param_spec, placements, use_mesh)
 from repro_torch.distributed.sharding import batch_axes as batch_axes_for
 from repro_torch.nn.module import axes_of, unbox
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
@@ -258,25 +263,18 @@ def make_sharded_train_step(api, opt_cfg, mesh,
     :func:`repro_torch.train.step.make_train_step` on the gathered
     tensors.  Updates the shards in place.
 
-    ``microbatches`` > 1 splits each rank's rows into N sequential
-    micro-steps, each normalised by its global count of valid labels.
-    The reference's microbatch m is the global rows [m·B/M, (m+1)·B/M),
-    not each rank's m-th slice: for the dense families both give the
-    same mean gradient whenever the microbatches hold equal counts of
-    valid labels (an LM stream's batches do); for the MoE (capacity ties
-    a batch's rows together) they do not, so ``moe`` with microbatches
-    under a mesh raises (ROADMAP queue 1 item [7c])."""
+    ``microbatches`` > 1 runs M sequential micro-steps, microbatch m the
+    reference's global rows [m·B/M, (m+1)·B/M), each rank holding its
+    part of them
+    (:func:`~repro_torch.distributed.sharding.global_microbatches`), each
+    normalised by its global count of valid labels; the gradient is
+    their mean.  Over R batch ranks M·R must divide B, else the step
+    raises ``ValueError``."""
     from torch.distributed.tensor import DTensor, Replicate
 
     from repro_torch.optim.adamw import AdamWState, adamw_update
     from repro_torch.train.step import _unreached
 
-    if api.cfg.moe is not None and microbatches > 1:
-        raise ValueError(
-            "microbatches > 1 under a mesh splits each rank's rows, not "
-            "the reference's global rows, and MoE capacity ties a "
-            "microbatch's rows together: not supported for the moe "
-            "family (ROADMAP queue 1 item [7c])")
     plain_cfg = dataclasses.replace(opt_cfg, grad_clip_norm=None)
 
     def grads_of(params, leaves, batch):
@@ -301,12 +299,12 @@ def make_sharded_train_step(api, opt_cfg, mesh,
 
     def train_step(params, opt_state, batch):
         leaves = tree_leaves(params)
-        rows = {k: local(v) for k, v in batch.items()}
         if microbatches == 1:
-            grads, metrics = grads_of(params, leaves, rows)
+            grads, metrics = grads_of(params, leaves,
+                                      {k: local(v) for k, v in batch.items()})
         else:
-            splits = {k: v.chunk(microbatches, dim=0) for k, v in
-                      rows.items()}
+            splits = {k: global_microbatches(v, microbatches, mesh)
+                      for k, v in batch.items()}
             acc, ms = None, []
             for i in range(microbatches):
                 g, m = grads_of(params, leaves,

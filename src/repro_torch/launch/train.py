@@ -32,7 +32,9 @@ places (:mod:`repro_torch.launch.shardings`), each step the sharded one;
 rank 0 prints the summary.  A mesh larger than the world exits with
 ``mesh DxM needs N devices, have W``.  ``--ckpt-dir DIR`` commits a checkpoint every
 ``--ckpt-every`` steps and at the end, and a rerun resumes from the newest
-commit under DIR (fault tolerance: auto-resume + restart supervision).
+commit under DIR (fault tolerance: auto-resume + restart supervision);
+under a mesh rank 0 writes the gathered state and every rank resumes
+from the step rank 0 finds, into its own shards.
 
 Prints one JSON line: the step it started from, the losses, step wall
 p50, tokens per second and, on a card, the peak device memory.

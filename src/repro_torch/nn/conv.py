@@ -15,29 +15,20 @@ computed here and applied with ``F.pad``.
 
 from __future__ import annotations
 
-import math
 from typing import Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.nn.init import truncated_normal
-
-
-def _he_normal(gen: torch.Generator, shape: Sequence[int], fan_in: int, *,
-               dtype, device) -> torch.Tensor:
-    """Truncated normal of variance 2 / fan_in (the reference's
-    ``he_normal``: the receptive field times the input channels)."""
-    return truncated_normal(gen, shape, math.sqrt(2.0 / max(1, fan_in)),
-                            dtype=dtype, device=device)
+from repro_torch.nn.init import he_normal
 
 
 def init_conv2d(gen: torch.Generator, in_ch: int, out_ch: int,
                 kernel: Tuple[int, int], *, use_bias: bool = True,
                 dtype=torch.float32, device=None) -> dict:
     kh, kw = kernel
-    p = {"kernel": _he_normal(gen, (kh, kw, in_ch, out_ch), kh * kw * in_ch,
-                              dtype=dtype, device=device)}
+    p = {"kernel": he_normal()(gen, (kh, kw, in_ch, out_ch), dtype=dtype,
+                               device=device)}
     if use_bias:
         p["bias"] = torch.zeros((out_ch,), dtype=dtype, device=device)
     return p
@@ -46,8 +37,8 @@ def init_conv2d(gen: torch.Generator, in_ch: int, out_ch: int,
 def init_conv1d(gen: torch.Generator, in_ch: int, out_ch: int, kernel: int,
                 *, use_bias: bool = True, dtype=torch.float32,
                 device=None) -> dict:
-    p = {"kernel": _he_normal(gen, (kernel, in_ch, out_ch), kernel * in_ch,
-                              dtype=dtype, device=device)}
+    p = {"kernel": he_normal()(gen, (kernel, in_ch, out_ch), dtype=dtype,
+                               device=device)}
     if use_bias:
         p["bias"] = torch.zeros((out_ch,), dtype=dtype, device=device)
     return p

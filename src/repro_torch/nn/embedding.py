@@ -1,18 +1,19 @@
-"""Token embedding with optional logit tying."""
+"""Token embedding with optional logit tying, and a learned position
+table."""
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.nn.init import normal
+from repro_torch.nn.init import embedding_init
 
 
 def init_embedding(gen: torch.Generator, vocab_size: int, embed_dim: int,
                    *, dtype=torch.float32, device=None,
                    stddev: float = 0.02) -> dict:
-    return {"table": normal(gen, (vocab_size, embed_dim), stddev,
-                            dtype=dtype, device=device)}
+    return {"table": embedding_init(stddev)(gen, (vocab_size, embed_dim),
+                                            dtype=dtype, device=device)}
 
 
 def embedding_axes() -> dict:
@@ -36,3 +37,23 @@ def attend_logits(params: dict, x: torch.Tensor,
         table = table.to(compute_dtype)
         x = x.to(compute_dtype)
     return x @ table.t()
+
+
+def init_positional(gen: torch.Generator, max_len: int, embed_dim: int,
+                    *, dtype=torch.float32, device=None,
+                    stddev: float = 0.02) -> dict:
+    """A learned (max_len, embed) position table."""
+    return {"table": embedding_init(stddev)(gen, (max_len, embed_dim),
+                                            dtype=dtype, device=device)}
+
+
+def positional_axes() -> dict:
+    return {"table": (None, "embed")}
+
+
+def apply_positional(params: dict, positions: torch.Tensor,
+                     compute_dtype=None) -> torch.Tensor:
+    """Lookup: (...,) int positions -> (..., embed), gathered before the
+    cast as :func:`apply_embedding` does."""
+    out = F.embedding(positions.long(), params["table"])
+    return out if compute_dtype is None else out.to(compute_dtype)

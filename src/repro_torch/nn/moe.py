@@ -134,9 +134,12 @@ def apply_moe(params: dict, x: torch.Tensor, *, top_k: int,
     tokens = x.reshape(n_tok, d)
     num_experts = params["wg"]["kernel"].shape[0]
     dev = x.device
-    # under a mesh the rows are this rank's block of the global batch:
-    # capacity, slots and the auxiliary losses are the global ones
+    # under a mesh of several batch ranks the rows are this rank's block
+    # of the global batch: capacity, slots and the auxiliary losses are
+    # the global ones (one batch rank holds the whole batch: no mesh)
     mesh = current_mesh()
+    if mesh is not None and batch_index(mesh)[1] == 1:
+        mesh = None
     n_global = n_tok * (batch_index(mesh)[1] if mesh is not None else 1)
 
     logits, probs = _router_probs(params, tokens,

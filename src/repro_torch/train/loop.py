@@ -12,8 +12,10 @@ launcher runs the loop under ``torchrun``) every rank draws the same
 parameters, keeps its shard of them and of the AdamW moments as
 DTensors (:mod:`repro_torch.launch.shardings`), takes its rows of each
 batch, and trains through the sharded step; the history holds the global
-loss.  Checkpoints are single-process only: a mesh with a checkpoint
-config raises.
+loss.  Checkpoints work there too: rank 0 writes one-process commits of
+the gathered state (:mod:`repro_torch.checkpoint.manager`), and a
+resumed run reads the step rank 0 names, each rank keeping its shards,
+which are copied shard into shard into the fresh placement.
 """
 
 from __future__ import annotations
@@ -50,25 +52,30 @@ class TrainConfig:
 
 @torch.no_grad()
 def _load_into(state, restored) -> None:
-    """Copy a restored tree into the live one, leaf for leaf."""
+    """Copy a restored tree into the live one, leaf for leaf; DTensors
+    shard into shard, which needs the live leaf's placements."""
+    from repro_torch.launch.shardings import local
+
     for dst, src in zip(tree_leaves(state), tree_leaves(restored)):
-        if dst.shape != src.shape or dst.dtype != src.dtype:
+        if (dst.shape != src.shape or dst.dtype != src.dtype
+                or getattr(dst, "placements", None)
+                != getattr(src, "placements", None)):
             raise ValueError(f"checkpoint leaf {tuple(src.shape)} "
                              f"{src.dtype} does not fit {tuple(dst.shape)} "
                              f"{dst.dtype}")
-        dst.copy_(src)
+        local(dst).copy_(local(src))
 
 
 def _sharded(api, opt_cfg, train_cfg, mesh, params, opt_state, to_device):
     """Place the state on ``mesh`` and build the sharded step; returns
-    (params, opt_state, step_fn, batch placer)."""
+    (params, opt_state, step_fn, batch placer, the state's shardings)."""
     from repro_torch.launch import shardings as shlib
     from repro_torch.nn.module import box_like
 
     _, psh = shlib.params_shardings(box_like(params, api.axes()), mesh)
+    osh = shlib.opt_shardings(opt_state, psh, mesh)
     params = shlib.place(params, psh, requires_grad=True)
-    opt_state = shlib.place(opt_state,
-                            shlib.opt_shardings(opt_state, psh, mesh))
+    opt_state = shlib.place(opt_state, osh)
     step_fn = shlib.make_sharded_train_step(api, opt_cfg, mesh,
                                             train_cfg.microbatches)
 
@@ -76,7 +83,7 @@ def _sharded(api, opt_cfg, train_cfg, mesh, params, opt_state, to_device):
         b = to_device(b)
         return shlib.place(b, shlib.batch_shardings(b, mesh))
 
-    return params, opt_state, step_fn, placed
+    return params, opt_state, step_fn, placed, (psh, osh)
 
 
 def train(api: ModelApi, opt_cfg: AdamWConfig, train_cfg: TrainConfig,
@@ -93,8 +100,6 @@ def train(api: ModelApi, opt_cfg: AdamWConfig, train_cfg: TrainConfig,
 
     dev = resolve_device(device)
     mesh = current_mesh()
-    if mesh is not None and train_cfg.checkpoint:
-        raise ValueError("checkpoints are not supported under a mesh")
     # parameters drawn on the training device: a CPU generator's one
     # sequential stream takes minutes for billions of parameters
     params, opt_state = init_train_state(
@@ -102,17 +107,18 @@ def train(api: ModelApi, opt_cfg: AdamWConfig, train_cfg: TrainConfig,
         device=dev)
     to_device = lambda b: {k: torch.from_numpy(v).to(dev)  # noqa: E731
                            for k, v in b.items()}
+    shardings = None
     if mesh is None:
         step_fn = make_train_step(api, opt_cfg, train_cfg.microbatches)
     else:
-        params, opt_state, step_fn, to_device = _sharded(
+        params, opt_state, step_fn, to_device, shardings = _sharded(
             api, opt_cfg, train_cfg, mesh, params, opt_state, to_device)
-    mgr = (CheckpointManager(train_cfg.checkpoint)
+    mgr = (CheckpointManager(train_cfg.checkpoint, mesh=mesh)
            if train_cfg.checkpoint else None)
     start_step = saved = 0
     if mgr is not None and mgr.latest_step() is not None:
         restored, start_step = mgr.restore((params, opt_state),
-                                           device="cpu")
+                                           device="cpu", shardings=shardings)
         _load_into((params, opt_state), restored)
         saved = start_step
         log.info("resumed from step %d", start_step)

@@ -238,3 +238,117 @@ def collectives(rank, world, grads, x, w, ws, xs):
         lambda wt, v: torch.tanh(v @ wt), torch.from_numpy(ws[s:s + 1]),
         torch.from_numpy(xs), mesh, num_microbatches=xs.shape[0]).numpy()
     return out
+
+
+def ckpt_resume(rank, world, shape, names, overrides, root, steps, cut,
+                every):
+    """``train()`` under a mesh with async checkpoints every ``every``
+    steps (keep 2), on the reduced smollm-135m LM stream: ``steps``
+    uninterrupted (commits under ``root/full``), then the same run cut at
+    ``cut`` and resumed to ``steps`` (under ``root/cut``).  Every rank
+    returns its ``store.save`` calls, whether its local shards of the
+    two final states are equal, and the placements of the two final
+    states and of a fresh ``params_shardings`` / ``opt_shardings``
+    placement; rank 0 also the losses and the gathered final state of
+    the uninterrupted run."""
+    import os
+
+    import torch
+
+    from repro_torch.checkpoint import CheckpointConfig, store
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import PipelineConfig, lm_batch_at
+    from repro_torch.distributed.sharding import use_mesh
+    from repro_torch.launch import shardings as shlib
+    from repro_torch.models.registry import get_model
+    from repro_torch.nn.module import box_like
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train.loop import TrainConfig, train
+    from repro_torch.train.step import init_train_state
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = get_config("smollm-135m").reduced(**overrides)
+    api = get_model(cfg)
+    mesh = _mesh(shape, names)
+    opt = AdamWConfig(lr=1e-3)
+    pipe = PipelineConfig(global_batch=8, seq_len=16,
+                          vocab_size=cfg.vocab_size, seed=11)
+    calls = {}
+    real_save = store.save
+
+    def counted(path, step, tree, **kw):
+        calls.setdefault(os.path.basename(path), []).append(step)
+        return real_save(path, step, tree, **kw)
+
+    store.save = counted
+
+    def run(total, sub):
+        ck = CheckpointConfig(os.path.join(root, sub), every_steps=every,
+                              keep=2, async_save=True)
+        with use_mesh(mesh):
+            return train(api, opt, TrainConfig(total_steps=total,
+                                               checkpoint=ck),
+                         lambda step: lm_batch_at(pipe, step), device="cpu")
+
+    try:
+        full = run(steps, "full")
+        first = run(cut, "cut")
+        resumed = run(steps, "cut")
+    finally:
+        store.save = real_save
+    a = tree_leaves((full["params"], full["opt_state"]))
+    b = tree_leaves((resumed["params"], resumed["opt_state"]))
+    params, state = init_train_state(api, opt, torch.Generator(),
+                                     device="cpu")
+    _, psh = shlib.params_shardings(box_like(params, api.axes()), mesh)
+    fresh = tree_leaves(tree_map(
+        lambda _, sh: str(tuple(sh.placements)), (params, state),
+        (psh, shlib.opt_shardings(state, psh, mesh))))
+    out = {"saves": calls,
+           "shards_equal": [bool(torch.equal(shlib.local(x).detach(),
+                                             shlib.local(y).detach()))
+                            for x, y in zip(a, b)],
+           "placements": {"full": [str(x.placements) for x in a],
+                          "resumed": [str(y.placements) for y in b],
+                          "fresh": fresh},
+           "resumed_params": [(type(p).__name__, p.requires_grad)
+                              for p in tree_leaves(resumed["params"])]}
+    gathered = [x.detach().full_tensor() for x in a]
+    if rank == 0:
+        out.update(losses={"full": [h["loss"] for h in full["history"]],
+                           "first": [h["loss"] for h in first["history"]],
+                           "resumed": [h["loss"]
+                                       for h in resumed["history"]]},
+                   start=resumed["history"][0]["step"],
+                   gathered=[t.numpy().copy() for t in gathered])
+    return out
+
+
+def microbatch_rows(rank, world, rows, splits):
+    """``global_microbatches`` of a batch whose row i holds i, placed by
+    ``batch_shardings``, on (2, 2, 2) ("pod", "data",
+    "model") and on (4, 2) ("data", "model"): for each M in ``splits``
+    this rank's rows of each microbatch, or the ``ValueError``'s
+    message."""
+    import torch
+
+    from repro_torch.distributed.sharding import (batch_index,
+                                                  global_microbatches)
+    from repro_torch.launch import shardings as shlib
+
+    out = {}
+    for shape, names in (((2, 2, 2), ("pod", "data", "model")),
+                         ((4, 2), ("data", "model"))):
+        mesh = _mesh(shape, names)
+        x = torch.arange(rows * 3, dtype=torch.int32).reshape(rows, 3) // 3
+        dx = shlib.place({"x": x}, shlib.batch_shardings({"x": x}, mesh))
+        got = {}
+        for m in splits:
+            try:
+                got[m] = [t[:, 0].tolist() for t in
+                          global_microbatches(dx["x"], m, mesh)]
+            except ValueError as e:
+                got[m] = str(e)
+        out["x".join(map(str, shape))] = {"index": batch_index(mesh),
+                                          "rows": got}
+    return out

@@ -3,14 +3,14 @@ over spawned gloo ranks) against the JAX package's single-device
 ``jax.jit(make_train_step)`` from the same parameters, on the reduced
 dense config of tests/test_distributed.py: meshes (2, 2, 2) ("pod",
 "data", "model"), (4, 1) and (1, 4) ("data", "model"), 2 steps each, and
-2 microbatches on (2, 2).  Tolerances and AdamW's eps: see
+2 microbatches on (2, 2) (the batch as it is: its ranks' counts of valid
+labels differ).  Tolerances and AdamW's eps: see
 tests/test_torch_sharded_ref.py.
 
 Also: each rank's local shards of a parameter, its first moment and the
 batch equal the reference's layout (the slices its ``param_spec`` /
-``batch_spec`` name for the rank's mesh coordinate); ``moe`` with
-microbatches under a mesh raises; a DTensor handed to a kernel wrapper
-raises ``TypeError`` instead of computing on one shard.
+``batch_spec`` name for the rank's mesh coordinate); a DTensor handed to
+a kernel wrapper raises ``TypeError`` instead of computing on one shard.
 """
 
 import numpy as np
@@ -63,12 +63,12 @@ def test_sharded_step_matches_single_device_reference(tmp_path, batch, mesh):
 
 
 def test_microbatched_sharded_step_matches_reference(tmp_path, batch):
-    """Every label valid: a rank's m-th slice and the reference's global
-    microbatch m then hold equal counts, where the two splits give the
-    same mean gradient (make_sharded_train_step's docstring)."""
-    b = dict(batch, labels=np.abs(batch["labels"]))
-    ranks = _run(tmp_path, "2x2", b, microbatches=2)
-    ref.check_against_reference(ranks[0], ARCH, ref.DENSE, b, steps=2,
+    """The batch's rows 0 and 5 leave labels out, so the microbatches'
+    parts on the two batch ranks hold different counts of valid labels:
+    each microbatch is normalised by its global count, as the
+    reference's is."""
+    ranks = _run(tmp_path, "2x2", batch, microbatches=2)
+    ref.check_against_reference(ranks[0], ARCH, ref.DENSE, batch, steps=2,
                                 microbatches=2)
 
 
@@ -122,17 +122,6 @@ def test_local_shards_follow_the_reference_layout(tmp_path, batch):
                                       batch["tokens"][bsl])
         seen.add((sl[0].start, sl[1].start))
     assert len(seen) == 4          # 4 distinct shards, 2 copies each
-
-
-def test_moe_with_microbatches_under_a_mesh_raises():
-    from repro_torch.configs import get_config
-    from repro_torch.launch.shardings import make_sharded_train_step
-    from repro_torch.models.registry import get_model
-    from repro_torch.optim import AdamWConfig
-
-    api = get_model(get_config("qwen2-moe-a2.7b").reduced())
-    with pytest.raises(ValueError, match=r"\[7c\]"):
-        make_sharded_train_step(api, AdamWConfig(), None, microbatches=2)
 
 
 def test_dtensor_reaching_a_kernel_wrapper_raises(tmp_path):
