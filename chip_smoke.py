@@ -259,11 +259,15 @@ Phases, each printing one JSON line; any failure exits non-zero:
                and depth, then @inhibitor at depth 2, DIST_STEPS AdamW
                steps of one batch TRAIN_B x TRAIN_N (remat "full")
                through the sharded train step (DTensor parameters and
-               moments) against the unsharded ``make_train_step`` from
-               the same parameters: losses and every parameter within
-               DIST_REL, a perturbed shard outside, the arm's flash
-               kernel launched steps x layers x 2 times and its plain
-               version never; step walls, device times, peak memory.
+               moments; the tensor-parallel path: every attention, MLP
+               and the tied embedding handed split over the size-1
+               ``model`` axis, the vocab-parallel NLL) against the
+               unsharded ``make_train_step`` from the same parameters:
+               losses and every parameter within DIST_REL, a perturbed
+               shard outside, the arm's flash kernel launched steps x
+               layers x 2 times and its plain version never; the layers
+               handed split, the measured differences, the wall ratio,
+               step walls, device times, peak memory.
                Then ``compress_tree`` / ``decompress_tree`` on the
                full-width gradient tree bit-equal to the CPU port (each
                residual within scale / 2); ``compressed_grad_sync``,
@@ -283,13 +287,15 @@ Phases, each printing one JSON line; any failure exits non-zero:
                through ``flash_attention``), 2 AdamW steps sharded and
                then unsharded (``make_train_step(..., microbatches=4)``),
                the card freed between them: losses and parameters within
-               DIST_MOE_REL, launches steps x 4 x 2 x 2 in each run, the
+               DIST_MOE_REL, launches steps x 4 x 2 x 2 in each run,
+               every MoE call of the sharded run on split experts, the
                dropped fraction printed (at one batch rank the global
                re-split is the identity; multi-rank microbatches are held
                on the CPU over gloo);
                the process group is destroyed; then the dry-run CLI for
                smollm-135m decode_32k --multi-pod in a subprocess (host
-               only): rc 0, "[OK]", its record printed.
+               only): rc 0, "[OK]", its record printed with its per-rank
+               FLOPs and its all-reduce count.
 
 Then the ``kernels`` summary line, the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``.  TF32 is off for matmuls and cuDNN.
@@ -4178,6 +4184,35 @@ COMPRESS_RESID = 0.5 + 2 * 127 * 2.0 ** -24
 DRYRUN_CELL = ("smollm-135m", "decode_32k")
 
 
+def split_layers(dparams, mesh) -> dict:
+    """The layers the sharded steps hand split over ``model``
+    (``ModelShards``), counted by kind: what shows that the
+    tensor-parallel path runs on this mesh."""
+    import torch
+
+    from repro_torch.distributed.sharding import is_split
+    from repro_torch.launch import shardings as shlib
+
+    counts = {}
+
+    def walk(node, key=None):
+        if is_split(node):
+            kind = ("attention" if "wq" in node else "moe" if "router" in
+                    node else "embedding" if "table" in node else "head"
+                    if key == "lm_head" else "mlp")
+            counts[kind] = counts.get(kind, 0) + 1
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, k)
+        elif isinstance(node, (list, tuple)):
+            for v in node:
+                walk(v)
+
+    with torch.no_grad():
+        walk(shlib.gather_params(dparams, mesh, grad=False))
+    return counts
+
+
 def leaf_rel(a, b) -> float:
     return float((a.float() - b.float()).abs().max()
                  / max(float(b.float().abs().max()), 1e-30))
@@ -4251,6 +4286,7 @@ def dist_arm(torch, kops, mesh, arch: str, depth) -> dict:
     dstate = shlib.place(state, shlib.opt_shardings(state, psh, mesh))
     dbatch = shlib.place(batch, shlib.batch_shardings(batch, mesh))
     del params, state
+    out["split_layers"] = split_layers(dparams, mesh)
     torch.cuda.empty_cache()
     kops.reset_counts()
     dparams, losses, out["sharded"] = run(
@@ -4276,6 +4312,14 @@ def dist_arm(torch, kops, mesh, arch: str, depth) -> dict:
     out["wall_ratio"] = (out["sharded"]["step_wall_ms_p50"]
                          / out["unsharded"]["step_wall_ms_p50"])
     emit({"phase": "distributed", "arm": out})
+    emit({"phase": "distributed", "split_path": {
+        "arch": arch, "split_layers": out["split_layers"],
+        "loss_rel": out["loss_rel"], "param_rel_max": out["param_rel_max"],
+        "bound": DIST_REL, "wall_ratio": out["wall_ratio"]}})
+    want = {"attention": cfg.num_layers, "mlp": cfg.num_layers,
+            "embedding": 1}
+    check(out["split_layers"] == want, f"{arch}: the tensor-parallel path "
+          f"was not taken: split {out['split_layers']}, expected {want}")
     check(out["loss_rel"] <= DIST_REL, f"{arch}: sharded losses {losses} "
           f"vs {ref_losses}")
     check(out["param_rel_max"] <= DIST_REL,
@@ -4406,10 +4450,16 @@ def dist_dryrun() -> dict:
     wall = time.perf_counter() - t0
     path = out_dir / f"{arch}_{shape}_2x16x16.json"
     rec = json.loads(path.read_text()) if path.exists() else None
+    per_rank = None if rec is None or not rec.get("ok") else {
+        "flops": rec["cost_raw"]["flops"],
+        "all_reduces": rec["collectives"]["counts"]["all-reduce"]}
     emit({"phase": "distributed", "dryrun": {"rc": r.returncode,
                                              "wall_s": wall,
                                              "stdout": r.stdout[-400:],
+                                             "per_rank": per_rank,
                                              "record": rec}})
+    emit({"phase": "distributed", "dryrun_per_rank": {
+        "cell": [arch, shape, "2x16x16"], **(per_rank or {})}})
     check(r.returncode == 0 and "[OK]" in r.stdout and rec
           and rec.get("ok"), f"dry-run failed: {r.stderr[-2000:]}")
     return rec
@@ -4573,6 +4623,7 @@ def dist_moe_microbatched(torch, kops, mesh) -> dict:
     layers x 2 times in each run, every other count 0.  Printed: the MoE
     layer's dropped fraction in each forward of the sharded run."""
     from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import is_split
     from repro_torch.launch import shardings as shlib
     from repro_torch.models.registry import get_model
     from repro_torch.nn import moe
@@ -4625,9 +4676,12 @@ def dist_moe_microbatched(torch, kops, mesh) -> dict:
     # the layer's output is not kept, which would hold its graph
     dropped, orig = [], moe.apply_moe
 
+    split_calls = []
+
     def counted(*a, **kw):
         y, aux = orig(*a, **kw)
         dropped.append(aux.dropped_fraction.detach())
+        split_calls.append(is_split(a[0]))
         return y, aux
 
     moe.apply_moe = counted
@@ -4637,6 +4691,7 @@ def dist_moe_microbatched(torch, kops, mesh) -> dict:
     finally:
         moe.apply_moe = orig
     out["dropped_fraction"] = [float(x) for x in dropped]
+    out["split_moe_calls"] = [sum(split_calls), len(split_calls)]
     host = [shlib.local(x).detach().cpu() for x in tree_leaves(dp)]
     del dp, ds, db, dropped
     gc.collect()
@@ -4654,6 +4709,14 @@ def dist_moe_microbatched(torch, kops, mesh) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     emit({"phase": "distributed", "moe_microbatched": out})
+    emit({"phase": "distributed", "split_path": {
+        "arch": arch, "microbatches": DIST_MOE_MB,
+        "split_moe_calls": out["split_moe_calls"],
+        "loss_rel": out["loss_rel"], "param_rel_max": out["param_rel_max"],
+        "bound": DIST_MOE_REL}})
+    check(out["split_moe_calls"][1] > 0 and out["split_moe_calls"][0]
+          == out["split_moe_calls"][1],
+          f"{arch}: MoE calls on split experts {out['split_moe_calls']}")
     check(out["loss_rel"] <= DIST_MOE_REL and out["param_rel_max"]
           <= DIST_MOE_REL, f"{arch}: microbatched sharded step off: losses "
           f"{losses} vs {ref_losses}, parameters {out['param_rel_max']}")

@@ -11,6 +11,15 @@ functional ``.at[].set``), and the returned cache shares that storage
 with only its cursor advanced.  A layer-stacked state must therefore own
 real per-layer storage (``models.transformer.init_states`` allocates it
 with ``torch.zeros``), never a broadcast view.
+
+Tensor-parallel over ``model`` (parameters handed as a
+:class:`~repro_torch.distributed.sharding.ModelShards`): ``wq`` / ``wk``
+/ ``wv`` are column-parallel, ``wo`` row-parallel (its bias added once,
+after the reduce), and every count comes from the local weights.  Where
+``wk`` / ``wv`` are whole (the kv heads do not divide over ``model``),
+K and V are projected whole, enter the region, and each rank keeps the
+kv heads its query heads attend (:func:`split_kv_heads`); a cache then
+holds those heads only.
 """
 
 from __future__ import annotations
@@ -24,6 +33,8 @@ from repro_torch.core.mechanism import (
     DEFAULT_BLOCKED_THRESHOLD, DEFAULT_CHUNKED_THRESHOLD,
     MASK_FREE_BACKENDS, AttnShapes, PagedLayout, Structural, execute_plan,
     get_mechanism, plan_attention)
+from repro_torch.distributed.sharding import (into_model, is_split,
+                                              model_rank, model_size)
 from repro_torch.nn.linear import apply_dense, dense_axes, init_dense
 
 
@@ -133,6 +144,22 @@ def attention_axes(cfg: AttentionConfig) -> dict:
     }
 
 
+def split_kv_heads(params, rank: Optional[int] = None) -> tuple:
+    """(first, count): the kv heads that the query heads of ``model``
+    rank ``rank`` (default this rank's) attend, for a split attention's
+    gathered parameters.  The gather splits only where a rank's h/M
+    query heads fall into whole groups of g = h/h_kv (h/M a multiple of
+    g, or g of h/M), so they attend max(h/M / g, 1) kv heads from
+    (rank · h/M) / g on."""
+    m = model_size()
+    h_local = params["wq"]["kernel"].shape[1]
+    hk = params["wk"]["kernel"].shape[1] * (1 if "wk" in params.whole
+                                            else m)
+    group = h_local * m // hk
+    rank = model_rank() if rank is None else rank
+    return rank * h_local // group, max(h_local // group, 1)
+
+
 def structural_mask_predicate(causal: bool, window, qi, kj):
     """Attendability of (query index ``qi``, key index ``kj``) under the
     causal / sliding-window structure: a window implies causality.
@@ -222,9 +249,20 @@ def apply_attention(params: dict, cfg: AttentionConfig, x: torch.Tensor, *,
     dev = x.device
     src = x if x_kv is None else x_kv
 
-    q = apply_dense(params["wq"], x, 1, cdt)          # (b, n_q, h, d)
+    split = is_split(params)
+    kv_whole = split and "wk" in params.whole
+    xq = into_model(x) if split else x
+    if split and not kv_whole:
+        src = xq if x_kv is None else into_model(x_kv)
+    q = apply_dense(params["wq"], xq, 1, cdt)         # (b, n_q, h, d)
     k = apply_dense(params["wk"], src, 1, cdt)        # (b, n_kv, hk, d)
     v = apply_dense(params["wv"], src, 1, cdt)
+    if kv_whole:
+        # projected whole on every model rank: the gradient of K and V
+        # summed over the ranks, each keeping its query heads' kv heads
+        first, count = split_kv_heads(params)
+        k = into_model(k)[:, :, first:first + count]
+        v = into_model(v)[:, :, first:first + count]
 
     if positions is None:
         ar = torch.arange(n_q, device=dev)[None, :]
@@ -269,7 +307,7 @@ def apply_attention(params: dict, cfg: AttentionConfig, x: torch.Tensor, *,
     scalar_cursor = cache is None or cache.length.dim() == 0
 
     shapes = AttnShapes(
-        batch=b, n_q=n_q, n_k=n_k, num_heads=cfg.num_heads,
+        batch=b, n_q=n_q, n_k=n_k, num_heads=q.shape[2],
         num_kv_heads=k.shape[2], head_dim=cfg.head_dim, dtype=q.dtype,
         has_explicit_mask=attn_mask is not None, is_cross=x_kv is not None,
         has_cache=cache is not None, scalar_cursor=scalar_cursor,
@@ -301,5 +339,6 @@ def apply_attention(params: dict, cfg: AttentionConfig, x: torch.Tensor, *,
         out = execute_plan(plan, q, k, v, mask=mask, params=mech_params,
                            paged=paged_layout)
 
-    y = apply_dense(params["wo"], out, 2, cdt)        # out: (b, n_q, h, d)
+    y = apply_dense(params["wo"], out, 2, cdt,        # out: (b, n_q, h, d)
+                    reduce=split)
     return y, new_cache

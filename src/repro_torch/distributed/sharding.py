@@ -23,9 +23,17 @@ mesh order (major first), which is the reference's layout.
 
 :func:`constrain` redistributes a DTensor activation to its logical
 layout and returns any other tensor, and every tensor when no mesh is
-active, unchanged.  The port's sharded train step
-(:mod:`repro_torch.launch.shardings`) runs the model on plain local
-tensors, so its ``constrain`` calls are no-ops.
+active, unchanged.  The port's sharded steps
+(:mod:`repro_torch.launch.shardings`) run the model on plain local
+tensors, so their ``constrain`` calls are no-ops.
+
+Tensor-parallel regions over ``model`` (Megatron form, on plain
+tensors): the sharded steps hand a layer whose parameters they keep
+sharded over ``model`` as a :class:`ModelShards`; its input enters the
+region through :func:`into_model` (the identity forward, the gradient
+all-reduced over ``model`` backward) and its partial output leaves it
+through :func:`out_of_model` (all-reduced forward, the identity
+backward).  With no mesh, or one ``model`` rank, both are the identity.
 """
 
 from __future__ import annotations
@@ -35,6 +43,8 @@ import dataclasses
 import math
 import threading
 from typing import NamedTuple, Tuple
+
+import torch
 
 # ---------------------------------------------------------------------------
 # Rules tables
@@ -374,3 +384,126 @@ def global_microbatches(x, microbatches: int, mesh) -> list:
         [src.count(s) * b for s in range(count)],
         [dest.count(d) * b for d in range(count)], group)
     return list(funcol.wait_tensor(out).reshape(blocks.shape))
+
+
+# ---------------------------------------------------------------------------
+# Tensor-parallel regions over ``model``
+# ---------------------------------------------------------------------------
+
+class ModelShards(dict):
+    """A layer's gathered parameters whose tensor-parallel dims hold this
+    rank's shard over the mesh's ``model`` axis (built by
+    :func:`repro_torch.launch.shardings.gather_params`): the layer takes
+    its counts (heads, hidden width, vocabulary rows, experts) from the
+    local weight shapes.  ``whole`` names the entries that hold no shard
+    over ``model`` (the mixed GQA case's ``wk`` / ``wv``, the MoE
+    router)."""
+
+    def __init__(self, items=(), whole=()):
+        super().__init__(items)
+        self.whole = frozenset(whole)
+
+
+def is_split(params) -> bool:
+    """Is ``params`` a layer computed tensor-parallel over ``model``?"""
+    return isinstance(params, ModelShards)
+
+
+def model_size(mesh=None) -> int:
+    """The size of the active (or given) mesh's ``model`` axis; 1 with no
+    mesh or no such axis."""
+    mesh = mesh if mesh is not None else _CTX.mesh
+    return 1 if mesh is None else axis_sizes(mesh).get("model", 1)
+
+
+def model_rank(mesh=None) -> int:
+    """This rank's coordinate on the ``model`` axis (0 with no mesh)."""
+    mesh = mesh if mesh is not None else _CTX.mesh
+    if model_size(mesh) == 1:
+        return 0
+    return mesh.get_local_rank("model")
+
+
+def model_group(mesh=None):
+    """The process group of the ``model`` axis, or None where it holds
+    one rank (every region operator is then the identity)."""
+    mesh = mesh if mesh is not None else _CTX.mesh
+    return None if model_size(mesh) == 1 else mesh.get_group("model")
+
+
+def _all_reduce(x, group, op=None):
+    import torch.distributed as dist
+
+    out = x.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(out, op=op or dist.ReduceOp.SUM, group=group)
+    return out
+
+
+class _IntoModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group), None
+
+
+class _OutOfModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def into_model(x):
+    """``x`` entering a tensor-parallel region: unchanged, its gradient
+    summed over the ``model`` ranks (each computed the part of it that
+    its shard of the layer reaches)."""
+    group = model_group()
+    return x if group is None else _IntoModel.apply(x, group)
+
+
+def out_of_model(x):
+    """A row-parallel partial sum leaving the region: the sum over the
+    ``model`` ranks, the gradient passed through unchanged."""
+    group = model_group()
+    return x if group is None else _OutOfModel.apply(x, group)
+
+
+def into_region(params, x):
+    """``x`` through :func:`into_model` where ``params`` is a split layer,
+    else unchanged."""
+    return into_model(x) if is_split(params) else x
+
+
+def model_all_reduce_max(x):
+    """The elementwise maximum over the ``model`` ranks (no gradient)."""
+    import torch.distributed as dist
+
+    group = model_group()
+    return x if group is None else _all_reduce(x, group, dist.ReduceOp.MAX)
+
+
+def model_all_reduce(x):
+    """The sum over the ``model`` ranks (no gradient)."""
+    group = model_group()
+    return x if group is None else _all_reduce(x, group)
+
+
+def model_all_gather(x, dim: int = -1):
+    """The ``model`` ranks' ``x`` concatenated along ``dim``, in rank
+    order (no gradient)."""
+    import torch.distributed as dist
+
+    group = model_group()
+    if group is None:
+        return x
+    parts = [torch.empty_like(x, memory_format=torch.contiguous_format)
+             for _ in range(model_size())]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return torch.cat(parts, dim=dim)

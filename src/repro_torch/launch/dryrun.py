@@ -26,9 +26,16 @@ walk charges every layer: ``cost_per_chip`` equals ``cost_raw``, with no
 depth-1 / depth-2 extrapolation (the reference extrapolates because XLA's
 cost analysis counts a scan body once).  Nothing is compiled:
 ``compile_s`` is 0 and ``generated_code_bytes`` null.  The sharded step
-gathers each parameter whole and runs every layer on the rank's batch
-rows (no tensor-parallel compute, ROADMAP queue 1 item [7b]), so the
-per-rank FLOPs are those of the local rows over the whole model.
+runs on the rank's batch rows and computes tensor-parallel over
+``model`` wherever a layer's placements put its heads, hidden width,
+vocabulary rows or experts there (:func:`repro_torch.launch.shardings.
+gather_params`), so the per-rank FLOPs are the local rows over the
+rank's share of those layers, and the record lists the regions'
+all-reduces over the ``model`` groups.  The layers that compute whole
+on every ``model`` rank are charged whole: an attention whose heads per
+rank do not fall into whole kv groups (smollm-135m's 9 / 3 heads on 16),
+any dim that does not divide over ``model``, and the RWKV-6 and Mamba
+mixers (ROADMAP [7b-ssm]).
 
 Usage:
   python -m repro_torch.launch.dryrun --arch smollm-135m --shape train_4k

@@ -20,17 +20,32 @@ rank keeps its own shard of a host tree that every rank holds (no
 communication).
 
 The sharded steps (the reference's GSPMD program, in FSDP / ZeRO-3
-form).  Parameters and AdamW moments live as DTensors.  The model runs
-unchanged on plain local tensors, on the rank's batch rows: each
-parameter is gathered at use (a differentiable ``redistribute`` to
-``Replicate``, then ``to_local``), its gradient comes back ``Partial``
-over the batch axes and ``Replicate`` over ``model`` (every model rank
-computed the same rows), and DTensor's autograd reduce-scatters it to
-the parameter's placements.  AdamW updates the local shards; the
-global-norm clip reduces across them.  The hand-written kernels see
-plain tensors only.  Tensor-parallel *compute* (heads / mlp / experts
-split over ``model``) is not done: every model rank computes the whole
-layer (ROADMAP queue 1 item [7b]).
+form with tensor parallelism over ``model``).  Parameters and AdamW
+moments live as DTensors.  The model runs on plain local tensors, on the
+rank's batch rows: each parameter is gathered at use (a differentiable
+``redistribute``, then ``to_local``) over the batch axes, and its
+gradient comes back ``Partial`` over them, which DTensor's autograd
+reduce-scatters to the parameter's placements.  AdamW updates the local
+shards; the global-norm clip reduces across them.  The hand-written
+kernels see plain tensors only.
+
+Tensor-parallel compute (:func:`gather_params`): a layer whose
+placements put its tensor-parallel dim on ``model`` keeps that shard and
+is handed to the model as a
+:class:`~repro_torch.distributed.sharding.ModelShards`, so each ``model``
+rank computes its attention heads, its slice of the MLP hidden width,
+its vocabulary rows of the embedding and the logits, and its experts,
+between Megatron-style regions (``distributed/sharding.py``); the loss
+is a vocab-parallel NLL.  The layers that compute whole on every
+``model`` rank: an attention whose query heads per rank do not fall into
+whole kv groups, any layer whose dim does not divide over ``model``
+(``param_spec``'s fallback), and the RWKV-6 time-mix and channel-mix and
+the Mamba branch, whose ``heads_mlp`` / ``mlp`` shards are not a rank's
+share of their computation (Mamba's ``in_proj`` concatenates x and z on
+the sharded dim; RWKV's ``u``, ``w_base`` and ``ln_x`` lie on ``embed``
+but act per head: ROADMAP [7b-ssm]).  Regions all-reduce their output;
+the sequence-parallel norm regions (``seq_sp``) are not taken (ROADMAP
+[7b-sp]).
 
 Global semantics the local compute keeps, so that the sharded step
 equals the single-device one: the loss is the all-reduced NLL sum over
@@ -52,8 +67,10 @@ from typing import Callable
 import torch
 
 from repro_torch.distributed.sharding import (
-    NamedSharding, axis_sizes, batch_all_reduce, global_microbatches,
-    param_spec, placements, use_mesh)
+    ModelShards, NamedSharding, axis_sizes, batch_all_reduce,
+    global_microbatches, is_split, model_all_gather, model_all_reduce,
+    model_all_reduce_max, model_group, model_rank, param_spec, placements,
+    use_mesh)
 from repro_torch.distributed.sharding import batch_axes as batch_axes_for
 from repro_torch.nn.module import axes_of, unbox
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
@@ -173,23 +190,137 @@ def local(x):
     return x.to_local() if isinstance(x, DTensor) else x
 
 
+def _on_model(p, dim: int, m: int) -> bool:
+    """Is DTensor ``p``'s tensor dim ``dim`` sharded over mesh dim ``m``
+    (``model``)?"""
+    from torch.distributed.tensor import Shard
+
+    pl = p.placements[m]
+    return isinstance(pl, Shard) and pl.dim == dim
+
+
+def _splits(node: dict, key, m: int) -> bool:
+    """Does the layer ``node`` (a dict of DTensor parameters, reached by
+    ``key``) compute tensor-parallel over mesh dim ``m``: are its
+    tensor-parallel dims all sharded over ``model``?"""
+    def kern(name):
+        return node[name]["kernel"]
+
+    if key == "embed" and set(node) == {"table"}:
+        return _on_model(node["table"], 0, m)
+    if key == "lm_head" and set(node) == {"kernel"}:
+        return _on_model(node["kernel"], 1, m)
+    if {"wq", "wk", "wv", "wo"} <= set(node):
+        if not (_on_model(kern("wq"), 1, m) and _on_model(kern("wo"), 0, m)):
+            return False
+        # a rank's h/M query heads must fall into whole kv groups
+        n = kern("wq").device_mesh.shape[m]
+        h, hk = kern("wq").shape[1], kern("wk").shape[1]
+        h_local, group = h // n, h // hk
+        return h_local % group == 0 or group % h_local == 0
+    if set(node) == {"wi", "wo"}:
+        return _on_model(kern("wi"), 1, m) and _on_model(kern("wo"), 0, m)
+    if set(node) == {"wg", "wu", "wd"} and kern("wg").dim() == 2:
+        return (_on_model(kern("wg"), 1, m) and _on_model(kern("wu"), 1, m)
+                and _on_model(kern("wd"), 0, m))
+    if "router" in node:
+        return all(_on_model(kern(k), 0, m) for k in ("wg", "wu", "wd"))
+    return False
+
+
 def gather_params(params, mesh, *, grad: bool = True):
-    """Each parameter whole on every rank, as plain tensors.  With
-    ``grad`` the gather is differentiable and the local gradient is
-    declared ``Partial`` over the batch axes and ``Replicate`` over the
-    others, so the backward reduce-scatters it to the shard."""
+    """The parameters as plain tensors for the model: each leaf whole over
+    the batch axes, and over ``model`` either whole or, for a layer that
+    :func:`_splits`, this rank's shard, the layer handed as a
+    :class:`~repro_torch.distributed.sharding.ModelShards` (its MoE
+    ``shared`` expert decided on its own).  With ``grad`` the gather is
+    differentiable and the local gradient is declared ``Partial`` over
+    the batch axes and, over ``model``, the shard (``Shard``) or
+    ``Replicate`` (every model rank computed the same), so the backward
+    reduce-scatters it to the parameter's placements."""
     from torch.distributed.tensor import Partial, Replicate
 
+    names = list(mesh.mesh_dim_names)
     ba = batch_axes_for(mesh)
-    repl = [Replicate()] * mesh.ndim
-    gp = [Partial() if n in ba else Replicate()
-          for n in mesh.mesh_dim_names]
+    m = names.index("model") if "model" in names else None
 
-    def one(p):
-        full = p.redistribute(mesh, repl)
-        return full.to_local(grad_placements=gp) if grad else full.to_local()
+    def one(p, keep: bool):
+        target = [p.placements[i] if keep and i == m else Replicate()
+                  for i in range(mesh.ndim)]
+        full = p.redistribute(mesh, target)
+        if not grad:
+            return full.to_local()
+        return full.to_local(grad_placements=[
+            Partial() if n in ba else target[i]
+            for i, n in enumerate(names)])
 
-    return tree_map(one, params)
+    def walk(node, key=None):
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(x) for x in node)
+        if not isinstance(node, dict):
+            return one(node, False)
+        if m is None or not _splits(node, key, m):
+            return {k: walk(node[k], k) for k in sorted(node)}
+        return ModelShards(
+            {k: walk(v, k) if k == "shared" else
+             tree_map(lambda p: one(p, True), v)
+             for k, v in sorted(node.items())},
+            whole=[k for k, v in node.items() if all(
+                isinstance(p.placements[m], Replicate)
+                for p in tree_leaves(v))])
+
+    return walk(params)
+
+
+def _vocab_split(params) -> bool:
+    """Are these gathered parameters' logits this rank's vocabulary
+    columns (a split ``lm_head``, or a split tied table)?"""
+    return is_split(params.get("lm_head", params.get("embed")))
+
+
+class _VocabNLL(torch.autograd.Function):
+    """Per-token NLL of vocab-parallel logits (each ``model`` rank holds
+    the vocabulary columns [lo, lo + V/M)), as lean as
+    :class:`repro_torch.train.step._TokenNLL`: the maximum all-reduced
+    without a gradient, then the sum of exponentials and the gold logit
+    (from the rank that holds the label) all-reduced; it saves the
+    compute-dtype logits and the (b, s) float32 lse, and its backward is
+    softmax_local − onehot_local times g, with no (b, s, V) one-hot."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, lo: int):
+        lf = logits.float()
+        cols = lf.shape[-1]
+        mx = model_all_reduce_max(lf.amax(-1))
+        # exp in place: one float32 logits-sized temporary, as
+        # torch.logsumexp takes
+        lse = mx + torch.log(model_all_reduce(
+            (lf - mx[..., None]).exp_().sum(-1)))
+        idx = labels.long() - lo
+        mine = (idx >= 0) & (idx < cols)
+        idx = idx.clamp(0, cols - 1)
+        gold = model_all_reduce(
+            torch.gather(lf, -1, idx[..., None])[..., 0] * mine)
+        ctx.save_for_backward(logits, idx, mine, lse)
+        return lse - gold
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, idx, mine, lse = ctx.saved_tensors
+        grad = (torch.exp(logits.float() - lse[..., None])
+                * g[..., None]).to(logits.dtype)
+        grad.scatter_add_(-1, idx[..., None],
+                          -(g * mine)[..., None].to(grad.dtype))
+        return grad, None, None
+
+
+def _token_nll(logits, labels, vocab_split: bool):
+    """Per-token NLL of whole or vocab-parallel logits."""
+    from repro_torch.train.step import _TokenNLL
+
+    if not vocab_split:
+        return _TokenNLL.apply(logits, labels)
+    return _VocabNLL.apply(logits, labels, model_rank() * logits.shape[-1])
 
 
 # ---------------------------------------------------------------------------
@@ -199,10 +330,11 @@ def gather_params(params, mesh, *, grad: bool = True):
 def _sharded_loss(api, params, batch, mesh):
     """(this rank's share of the loss, global metrics).  The shares add up
     over the batch ranks to the single-device loss: the NLL of the
-    rank's rows over the global count of valid labels, plus (MoE) the
-    global auxiliary losses, whose gradient each rank takes for its own
-    rows only (``batch_sum``)."""
-    from repro_torch.train.step import _align_labels, _TokenNLL
+    rank's rows over the global count of valid labels (vocab-parallel
+    where the head is split over ``model``), plus (MoE) the global
+    auxiliary losses, whose gradient each rank takes for its own rows
+    only (``batch_sum``)."""
+    from repro_torch.train.step import _align_labels
 
     cfg = api.cfg
     if cfg.moe is None:
@@ -211,8 +343,8 @@ def _sharded_loss(api, params, batch, mesh):
         logits, aux = api.forward(params, batch, return_aux=True)
     labels = _align_labels(logits, batch["labels"])
     mask = labels >= 0
-    nll = (_TokenNLL.apply(logits, torch.clamp(labels, min=0))
-           * mask.float()).sum()
+    nll = (_token_nll(logits, torch.clamp(labels, min=0),
+                      _vocab_split(params)) * mask.float()).sum()
     count = torch.clamp(batch_all_reduce(mask.sum(), mesh), min=1)
     share = nll / count
     xent = batch_all_reduce(share.detach(), mesh)
@@ -278,13 +410,16 @@ def make_sharded_train_step(api, opt_cfg, mesh,
     plain_cfg = dataclasses.replace(opt_cfg, grad_clip_norm=None)
 
     def grads_of(params, leaves, batch):
+        # the backward under the mesh too: a checkpointed block's forward
+        # runs again there, and its regions and the MoE's global slots
+        # read the mesh
         with use_mesh(mesh):
             share, metrics = _sharded_loss(api, gather_params(params, mesh),
                                            batch, mesh)
+            grads = torch.autograd.grad(share, leaves, allow_unused=True)
         unreached = _unreached(params, batch)
         out = []
-        for p, g in zip(leaves, torch.autograd.grad(share, leaves,
-                                                    allow_unused=True)):
+        for p, g in zip(leaves, grads):
             if g is None:
                 if id(p) not in unreached:
                     raise RuntimeError(f"a parameter of shape "
@@ -349,51 +484,122 @@ def _batch_placements(mesh) -> list:
 def make_sharded_prefill_step(api, mesh, batch_chunks: int = 8) -> Callable:
     """``(params, batch) -> last-position logits`` over DTensor
     parameters and a batch sharded over ("pod", "data"): the gathered
-    parameters, :func:`repro_torch.train.step.make_prefill_step` on the
-    rank's rows, the logits a batch-sharded DTensor."""
+    parameters (split layers computed tensor-parallel),
+    :func:`repro_torch.train.step.make_prefill_step` on the rank's rows
+    under the mesh, each chunk's last-position logits all-gathered over
+    ``model`` where they are vocab-parallel; the logits a batch-sharded
+    DTensor."""
     from torch.distributed.tensor import DTensor
 
     from repro_torch.train.step import make_prefill_step
 
-    inner = make_prefill_step(api, batch_chunks)
-
     @torch.no_grad()
     def prefill_step(params, batch):
-        out = inner(gather_params(params, mesh, grad=False),
-                    {k: local(v) for k, v in batch.items()})
+        gp = gather_params(params, mesh, grad=False)
+        forward = api.forward
+        if _vocab_split(gp):
+            def forward(p, b):
+                return model_all_gather(api.forward(p, b)[:, -1:])
+        with use_mesh(mesh):
+            out = make_prefill_step(api._replace(forward=forward),
+                                    batch_chunks)(
+                gp, {k: local(v) for k, v in batch.items()})
         return DTensor.from_local(out, mesh, _batch_placements(mesh))
 
     return prefill_step
 
 
+def _split_attention(params):
+    """The first split attention of a gathered tree (every attention of a
+    model has the same heads, so the same split), or None."""
+    if isinstance(params, dict):
+        if is_split(params) and "wq" in params:
+            return params
+        found = (_split_attention(params[k]) for k in sorted(params))
+    elif isinstance(params, (list, tuple)):
+        found = (_split_attention(x) for x in params)
+    else:
+        return None
+    return next((f for f in found if f is not None), None)
+
+
+def _kv_heads_of(params, mesh):
+    """(first, count, order) of a split attention's decode cache: this
+    rank's kv heads, and where each of the model's kv heads lies in the
+    ranks' heads gathered in rank order (from the first rank that holds
+    it); None where the attention computes whole or ``model`` has one
+    rank."""
+    from repro_torch.core.attention import split_kv_heads
+
+    attn = _split_attention(params)
+    if attn is None or model_group(mesh) is None:
+        return None
+    with use_mesh(mesh):
+        spans = [split_kv_heads(attn, r)
+                 for r in range(axis_sizes(mesh)["model"])]
+        first, count = spans[model_rank()]
+    order = []
+    for j in range(spans[-1][0] + count):
+        r = next(r for r, (f, _) in enumerate(spans) if f <= j < f + count)
+        order.append(r * count + j - spans[r][0])
+    return first, count, order
+
+
 def make_sharded_serve_step(api, mesh) -> Callable:
     """``(params, tokens, states, batch) -> (next tokens, logits,
     states')``: the decode states gathered over ``model`` to the rank's
-    batch rows, :func:`repro_torch.train.step.make_serve_step` on them,
-    and the new states put back in each state's sharding."""
+    batch rows, :func:`repro_torch.train.step.make_serve_step` under the
+    mesh (split layers computed tensor-parallel; where the attention
+    splits, each rank's cache holds the kv heads its query heads attend,
+    and the new states' kv heads are all-gathered over ``model``), the
+    last position's logits all-gathered over ``model`` before the
+    argmax where they are vocab-parallel, and the new states put back in
+    each state's sharding."""
     from torch.distributed.tensor import DTensor, Replicate, Shard
 
-    from repro_torch.train.step import make_serve_step
-
-    inner = make_serve_step(api)
+    from repro_torch.tree import tree_map_with_path
 
     def rows_only(dt):
         return [p if isinstance(p, Shard) and name in batch_axes_for(mesh)
                 else Replicate()
                 for name, p in zip(mesh.mesh_dim_names, dt.placements)]
 
+    def is_kv(path) -> bool:
+        return path[-2:] in ((".kv", ".k"), (".kv", ".v"))
+
     @torch.no_grad()
     def serve_step(params, tokens, states, batch=None):
-        local_states = tree_map(
-            lambda s: None if s is None else
-            s.redistribute(mesh, rows_only(s)).to_local(), states)
-        nxt, logits, new = inner(
-            gather_params(params, mesh, grad=False), local(tokens),
-            local_states,
-            None if batch is None else {k: local(v)
-                                        for k, v in batch.items()})
+        gp = gather_params(params, mesh, grad=False)
+        heads = _kv_heads_of(gp, mesh)
 
-        def back(n, s):
+        def mine(path, s):
+            if s is None:
+                return None
+            s = s.redistribute(mesh, rows_only(s)).to_local()
+            if heads is not None and is_kv(path):
+                s = s[..., heads[0]:heads[0] + heads[1], :]
+            return s
+
+        with use_mesh(mesh):
+            logits, new = api.step(
+                gp, local(tokens), tree_map_with_path(mine, states),
+                None if batch is None else {k: local(v)
+                                            for k, v in batch.items()})
+            logits = logits[:, -1:]
+            if _vocab_split(gp):
+                logits = model_all_gather(logits)
+            nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+
+            def back(path, n):
+                if n is None:
+                    return None
+                if heads is not None and is_kv(path):
+                    n = model_all_gather(n, dim=-2)[..., heads[2], :]
+                return n
+
+            new = tree_map_with_path(back, new)
+
+        def put(n, s):
             if s is None:
                 return None
             return DTensor.from_local(n, mesh, rows_only(s)).redistribute(
@@ -402,6 +608,6 @@ def make_sharded_serve_step(api, mesh) -> Callable:
         bp = _batch_placements(mesh)
         return (DTensor.from_local(nxt, mesh, bp),
                 DTensor.from_local(logits, mesh, bp),
-                tree_map(back, new, states))
+                tree_map(put, new, states))
 
     return serve_step

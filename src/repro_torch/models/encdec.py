@@ -24,6 +24,10 @@ The decode cache (:func:`init_states`) is one contiguous ``KVCache`` per
 decoder layer, stacked on a leading layer axis, with one scalar cursor
 per layer (``length`` of shape (L,)); :func:`decode_step` writes each
 layer's new rows into its slice in place and advances every cursor.
+
+Under the sharded steps the self- and cross-attentions, the MLPs, the
+embedding and the head compute tensor-parallel over ``model`` through
+the same layers as the decoder-only families.
 """
 
 from __future__ import annotations
@@ -38,7 +42,7 @@ from repro_torch.core.attention import (AttentionConfig, KVCache,
                                         apply_attention, attention_axes,
                                         init_attention)
 from repro_torch.device import resolve_device
-from repro_torch.distributed.sharding import constrain
+from repro_torch.distributed.sharding import constrain, into_region
 from repro_torch.models import transformer as tfm
 from repro_torch.nn import embedding as emb
 from repro_torch.nn import mlp as mlpnn
@@ -188,7 +192,8 @@ def _dec_block(lp, cfg: ModelConfig, h, memory, positions, cache=None):
 
 def _head(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     x = tfm._apply_norm(cfg, params["dec_norm"], x)
-    return apply_dense(params["lm_head"], x, 1, cfg.cdtype)
+    return apply_dense(params["lm_head"], into_region(params["lm_head"], x),
+                       1, cfg.cdtype)
 
 
 def decode_train(params: dict, cfg: ModelConfig, memory: torch.Tensor,

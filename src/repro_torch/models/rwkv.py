@@ -22,6 +22,11 @@ forward, the WKV kernel included, runs again in the backward.
 Decode state (:class:`RwkvLayerState`) is O(1) in the sequence length:
 per layer the (b, h, n, n) WKV state and the last token each mixer saw,
 stacked on a leading layer axis.
+
+Under the sharded steps only the embedding and the logits head split
+over ``model`` (vocabulary rows); the time-mix and channel-mix compute
+whole on every ``model`` rank: their ``u``, ``w_base`` and ``ln_x`` lie
+on ``embed`` but act per head (ROADMAP [7b-ssm]).
 """
 
 from __future__ import annotations
@@ -33,7 +38,7 @@ import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.distributed.sharding import constrain
+from repro_torch.distributed.sharding import constrain, into_region
 from repro_torch.nn import embedding as emb
 from repro_torch.nn import norm as normnn
 from repro_torch.nn import ssm as ssmnn
@@ -162,7 +167,8 @@ def _logits(params, cfg: ModelConfig, x):
     x = normnn.apply_layernorm(params["final_norm"], x, eps=cfg.norm_eps)
     if cfg.tie_embeddings:
         return emb.attend_logits(params["embed"], x, compute_dtype=cfg.cdtype)
-    return apply_dense(params["lm_head"], x, 1, cfg.cdtype)
+    return apply_dense(params["lm_head"], into_region(params["lm_head"], x),
+                       1, cfg.cdtype)
 
 
 def _embed(params, cfg: ModelConfig, tokens):

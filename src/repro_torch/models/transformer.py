@@ -35,6 +35,14 @@ cursor serve every layer.  The hybrid family's Mamba carries (``ssm``,
 ``conv``) are real storage too; :func:`lm_step` returns them as new
 tensors, which a caller that keeps its state's storage (the serving
 engine) copies back.
+
+Under the sharded steps (:mod:`repro_torch.launch.shardings`) a layer
+handed as a :class:`~repro_torch.distributed.sharding.ModelShards`
+computes tensor-parallel over ``model`` (attention heads, MLP hidden,
+experts, vocabulary rows: the logits are then this rank's vocabulary
+columns); the hybrid family's Mamba branch computes whole on every
+``model`` rank (ROADMAP [7b-ssm]).  Outside a mesh every layer is whole
+and the logits cover the vocabulary.
 """
 
 from __future__ import annotations
@@ -50,7 +58,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.attention import (
     KVCache, PagedKVCache, apply_attention, attention_axes, init_attention)
 from repro_torch.device import resolve_device
-from repro_torch.distributed.sharding import constrain
+from repro_torch.distributed.sharding import constrain, into_region
 from repro_torch.nn import embedding as emb
 from repro_torch.nn import mlp as mlpnn
 from repro_torch.nn import moe as moenn
@@ -325,7 +333,8 @@ def _logits(params, cfg: ModelConfig, x):
     x = _apply_norm(cfg, params["final_norm"], x)
     if cfg.tie_embeddings:
         return emb.attend_logits(params["embed"], x, compute_dtype=cfg.cdtype)
-    return apply_dense(params["lm_head"], x, 1, cfg.cdtype)
+    return apply_dense(params["lm_head"], into_region(params["lm_head"], x),
+                       1, cfg.cdtype)
 
 
 def lm_forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,

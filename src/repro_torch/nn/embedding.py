@@ -1,11 +1,18 @@
 """Token embedding with optional logit tying, and a learned position
-table."""
+table.
+
+A table handed as a :class:`~repro_torch.distributed.sharding.ModelShards`
+holds this ``model`` rank's vocabulary rows: the lookup reads the ids
+that fall in them (the others give zero rows) and sums over the ranks;
+the tied logits are the rank's vocabulary columns."""
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import (into_region, is_split,
+                                              model_rank, out_of_model)
 from repro_torch.nn.init import embedding_init
 
 
@@ -25,13 +32,23 @@ def apply_embedding(params: dict, token_ids: torch.Tensor,
     """Lookup: (...,) int -> (..., embed).  Gathers rows first, then casts
     (the same values as casting the table first, without casting rows no
     token reads)."""
-    out = F.embedding(token_ids.long(), params["table"])
+    ids = token_ids.long()
+    if is_split(params):
+        rows = params["table"].shape[0]
+        ids = ids - model_rank() * rows
+        mine = (ids >= 0) & (ids < rows)
+        out = F.embedding(torch.where(mine, ids, 0), params["table"])
+        out = out_of_model(out * mine[..., None].to(out.dtype))
+    else:
+        out = F.embedding(ids, params["table"])
     return out if compute_dtype is None else out.to(compute_dtype)
 
 
 def attend_logits(params: dict, x: torch.Tensor,
                   compute_dtype=None) -> torch.Tensor:
-    """Tied-softmax logits: (..., embed) @ table.T -> (..., vocab)."""
+    """Tied-softmax logits: (..., embed) @ table.T -> (..., vocab) (this
+    rank's vocabulary columns of a split table)."""
+    x = into_region(params, x)
     table = params["table"]
     if compute_dtype is not None:
         table = table.to(compute_dtype)

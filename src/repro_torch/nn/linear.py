@@ -8,6 +8,7 @@ from typing import Sequence
 
 import torch
 
+from repro_torch.distributed.sharding import out_of_model
 from repro_torch.nn.init import truncated_normal
 
 
@@ -36,8 +37,12 @@ def dense_axes(in_axes: Sequence, out_axes: Sequence, *,
 
 
 def apply_dense(params: dict, x: torch.Tensor, n_in_dims: int = 1,
-                compute_dtype=None) -> torch.Tensor:
-    """Contract the last ``n_in_dims`` dims of ``x`` with the kernel."""
+                compute_dtype=None, *, reduce: bool = False) -> torch.Tensor:
+    """Contract the last ``n_in_dims`` dims of ``x`` with the kernel.
+    ``reduce``: the kernel is this rank's rows of a row-parallel layer,
+    so the product is summed over the ``model`` ranks
+    (:func:`~repro_torch.distributed.sharding.out_of_model`) before the
+    bias is added, once."""
     kernel = params["kernel"]
     if compute_dtype is not None:
         kernel = kernel.to(compute_dtype)
@@ -48,6 +53,8 @@ def apply_dense(params: dict, x: torch.Tensor, n_in_dims: int = 1,
     y = x.reshape(*lead, math.prod(in_shape)) @ kernel.reshape(
         math.prod(in_shape), math.prod(out_shape))
     y = y.reshape(*lead, *out_shape)
+    if reduce:
+        y = out_of_model(y)
     if "bias" in params:
         b = params["bias"]
         if compute_dtype is not None:

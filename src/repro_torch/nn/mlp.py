@@ -1,11 +1,17 @@
 """Feed-forward blocks: classic ReLU/GELU MLP (paper eq. 4) and the gated
-SiLU (SwiGLU) variant of the llama family."""
+SiLU (SwiGLU) variant of the llama family.
+
+A block handed as a :class:`~repro_torch.distributed.sharding.ModelShards`
+holds this ``model`` rank's slice of the hidden width: the up projections
+are column-parallel, the down projection row-parallel, its bias added
+after the reduce."""
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import into_region, is_split
 from repro_torch.nn.linear import apply_dense, dense_axes, init_dense
 
 _ACT = {
@@ -33,8 +39,10 @@ def mlp_axes(*, use_bias: bool = False) -> dict:
 
 def apply_mlp(params: dict, x: torch.Tensor, *, activation: str = "relu",
               compute_dtype=None) -> torch.Tensor:
+    x = into_region(params, x)
     h = _ACT[activation](apply_dense(params["wi"], x, 1, compute_dtype))
-    return apply_dense(params["wo"], h, 1, compute_dtype)
+    return apply_dense(params["wo"], h, 1, compute_dtype,
+                       reduce=is_split(params))
 
 
 def init_gated_mlp(gen: torch.Generator, embed_dim: int, hidden_dim: int,
@@ -54,8 +62,13 @@ def gated_mlp_axes(*, use_bias: bool = False) -> dict:
 
 
 def apply_gated_mlp(params: dict, x: torch.Tensor, *,
-                    activation: str = "silu",
-                    compute_dtype=None) -> torch.Tensor:
+                    activation: str = "silu", compute_dtype=None,
+                    reduce: bool = True) -> torch.Tensor:
+    """``reduce`` False: a split block returns its row-parallel partial
+    sum, for the caller to reduce with other partials (a block without
+    biases: the MoE's shared expert)."""
+    x = into_region(params, x)
     g = _ACT[activation](apply_dense(params["wg"], x, 1, compute_dtype))
     u = apply_dense(params["wu"], x, 1, compute_dtype)
-    return apply_dense(params["wd"], g * u, 1, compute_dtype)
+    return apply_dense(params["wd"], g * u, 1, compute_dtype,
+                       reduce=reduce and is_split(params))

@@ -26,17 +26,31 @@ the global tokens, an assignment's slot is its position in the global
 token order (the one-hot cumsum offset by the per-expert counts of the
 lower batch ranks, an all-gather of an (E,) vector), and the auxiliary
 losses and the dropped fraction come from sums over the batch ranks.
+
+Expert-parallel over ``model`` (parameters handed as a
+:class:`~repro_torch.distributed.sharding.ModelShards`, the expert
+stacks this rank's E/M experts): the router, top-k, capacity, slots and
+auxiliary losses stay global and are computed alike on every ``model``
+rank (the global E is the router's width); every rank builds the same
+(E, C, d) buffer of its rows, runs its experts' products on its slice of
+it, and combines the assignments its experts took.  That partial and
+the shared expert's row-parallel partial leave the region through one
+all-reduce; the tokens and the gates enter it, so that the router and
+the layer's input get the gradient of every rank's experts.
 """
 
 from __future__ import annotations
 
+import functools
+import operator
 from typing import NamedTuple
 
 import torch
 
 from repro_torch.distributed.sharding import (
     batch_all_gather, batch_all_reduce, batch_index, batch_sum, constrain,
-    current_mesh)
+    current_mesh, into_model, into_region, is_split, model_rank,
+    out_of_model)
 from repro_torch.nn.init import truncated_normal
 from repro_torch.nn.linear import apply_dense, dense_axes, init_dense
 from repro_torch.nn.mlp import (_ACT, apply_gated_mlp, gated_mlp_axes,
@@ -132,7 +146,11 @@ def apply_moe(params: dict, x: torch.Tensor, *, top_k: int,
     b, s, d = x.shape
     n_tok = b * s
     tokens = x.reshape(n_tok, d)
-    num_experts = params["wg"]["kernel"].shape[0]
+    # the global expert count; a split layer holds E/M of the experts
+    num_experts = params["router"]["kernel"].shape[-1]
+    split = is_split(params)
+    local_experts = params["wg"]["kernel"].shape[0]
+    lo = model_rank() * local_experts if split else 0
     dev = x.device
     # under a mesh of several batch ranks the rows are this rank's block
     # of the global batch: capacity, slots and the auxiliary losses are
@@ -178,8 +196,8 @@ def apply_moe(params: dict, x: torch.Tensor, *, top_k: int,
     # row C, which is cut off, so every write below is to its own row
     buf = torch.zeros((num_experts, cap + 1, d), dtype=cdt, device=dev)
     buf[flat_expert, torch.where(keep, flat_pos, cap)] = (
-        tokens[flat_token].to(cdt))
-    buf = constrain(buf[:, :cap], "expert", None, None)
+        into_region(params, tokens)[flat_token].to(cdt))
+    buf = constrain(buf[lo:lo + local_experts, :cap], "expert", None, None)
 
     # expert compute: the gated MLP batched over the expert axis
     wg = params["wg"]["kernel"].to(cdt)
@@ -190,20 +208,35 @@ def apply_moe(params: dict, x: torch.Tensor, *, top_k: int,
     out_buf = torch.bmm(h, wd)                                  # (E, C, d)
     out_buf = constrain(out_buf, "expert", None, None)
 
-    # gather back and combine with the gates, token by token
+    # gather back and combine with the gates, token by token (a split
+    # layer: the assignments its experts took)
     safe_pos = torch.where(keep, flat_pos, cap - 1)
-    gathered = out_buf[flat_expert, safe_pos]                   # (T·k, d)
-    gathered = gathered * (flat_gate.to(cdt) * keep.to(cdt))[:, None]
+    taken = keep
+    if split:
+        taken = keep & (flat_expert >= lo) & (flat_expert < lo
+                                               + local_experts)
+    gathered = out_buf[(flat_expert - lo).clamp(0, local_experts - 1),
+                       safe_pos]                                # (T·k, d)
+    gate = into_region(params, flat_gate)
+    gathered = gathered * (gate.to(cdt) * taken.to(cdt))[:, None]
     combined = gathered.view(n_tok, top_k, d).sum(1)
 
+    # partial sums over the model ranks, reduced once, and whole terms
+    partial, whole = ([combined], []) if split else ([], [combined])
     if "shared" in params:
+        shared_split = is_split(params["shared"])
         shared_out = apply_gated_mlp(params["shared"], tokens,
-                                     activation=activation, compute_dtype=cdt)
+                                     activation=activation, compute_dtype=cdt,
+                                     reduce=False)
         if "shared_gate" in params:
             g = torch.sigmoid(apply_dense(params["shared_gate"], tokens, 1,
                                           cdt))
-            shared_out = shared_out * g
-        combined = combined + shared_out
+            shared_out = shared_out * (into_model(g) if shared_split else g)
+        (partial if shared_split else whole).append(shared_out)
+    if partial:
+        whole.insert(0, out_of_model(functools.reduce(operator.add,
+                                                      partial)))
+    combined = functools.reduce(operator.add, whole)
 
     # auxiliary losses (Switch Transformer): the fraction of tokens whose
     # top-1 choice is each expert, against the mean router probability

@@ -352,3 +352,163 @@ def microbatch_rows(rank, world, rows, splits):
         out["x".join(map(str, shape))] = {"index": batch_index(mesh),
                                           "rows": got}
     return out
+
+
+def _get(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def tp_train(rank, world, shape, names, arch, overrides, jax_params, batch,
+             steps, opt_kw, probe, cfg_kw=None):
+    """:func:`sharded_train`'s steps, then what shows the tensor-parallel
+    split on this rank: whether the first block's layers and the
+    embedding were handed split (``ModelShards``), its local query heads
+    and experts, the calls to the "out of the region" operator in one
+    forward of the sharded loss, and the gradient of the leaf at
+    ``probe`` = (path, dim) as the rank computes it (summed over the
+    batch ranks) against the same slice of the one-process gradient of
+    the whole batch."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.convert import params_from_jax
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch import shardings as shlib
+    from repro_torch.models.registry import get_model
+    from repro_torch.nn.module import box_like
+    from repro_torch.train.step import make_loss_fn
+    from repro_torch.tree import tree_leaves
+
+    out = sharded_train(rank, world, shape, names, arch, overrides,
+                        jax_params, batch, steps, 1, opt_kw, cfg_kw)
+    cfg = get_config(arch).reduced(**overrides)
+    if cfg_kw:
+        cfg = dataclasses.replace(cfg, **cfg_kw)
+    api = get_model(cfg)
+    mesh = _mesh(shape, names)
+    params = params_from_jax(jax_params, cfg, device="cpu")
+    for t in tree_leaves(params):
+        t.requires_grad_(True)
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    path, dim = probe
+    full = torch.autograd.grad(make_loss_fn(api)(params, tb)[0],
+                               _get(params, path))[0]
+    _, psh = shlib.params_shardings(box_like(params, api.axes()), mesh)
+    dp = shlib.place(params, psh, requires_grad=True)
+    db = shlib.place(tb, shlib.batch_shardings(tb, mesh))
+    calls = [0]
+    forward = sh._OutOfModel.forward
+
+    def counting(ctx, x, group):
+        calls[0] += 1
+        return forward(ctx, x, group)
+
+    sh._OutOfModel.forward = staticmethod(counting)
+    with sh.use_mesh(mesh):
+        gp = shlib.gather_params(dp, mesh)
+        try:
+            share, _ = shlib._sharded_loss(api, gp, {k: shlib.local(v)
+                                                     for k, v in db.items()},
+                                           mesh)
+        finally:
+            sh._OutOfModel.forward = staticmethod(forward)
+        leaf = _get(gp, path)
+        grad = sh.batch_all_reduce(torch.autograd.grad(share, leaf)[0],
+                                   mesh)
+    n = leaf.shape[dim]
+    want = full.narrow(dim, sh.model_rank(mesh) * n, n) if n < full.shape[
+        dim] else full
+    block = gp["blocks"][0]
+    ffn = block.get("ffn", block.get("moe"))
+    out.update(
+        split={"attn": sh.is_split(block["attn"]),
+               "kv_whole": "wk" in getattr(block["attn"], "whole", ()),
+               "ffn": sh.is_split(ffn),
+               "shared": sh.is_split(ffn.get("shared")),
+               "embed": sh.is_split(gp["embed"])},
+        q_heads=block["attn"]["wq"]["kernel"].shape[1],
+        experts=(ffn["wg"]["kernel"].shape[0] if "router" in ffn else None),
+        out_calls=calls[0],
+        probe_shape=list(grad.shape), probe_full_shape=list(full.shape),
+        probe_err=float((grad - want).abs().max() / full.abs().max()))
+    return out
+
+
+def vocab_nll(rank, world, logits, labels, weights):
+    """The vocab-parallel NLL on a ``model`` axis of ``world`` ranks, each
+    holding its columns of ``logits``: per dtype, the per-token NLL and
+    the gradient of Σ weights · NLL with respect to the rank's columns."""
+    import torch
+
+    from repro_torch.distributed.sharding import use_mesh
+    from repro_torch.launch import shardings as shlib
+
+    mesh = _mesh((world,), ("model",))
+    cols = logits.shape[-1] // world
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.from_numpy(logits[..., rank * cols:(rank + 1) * cols]).to(
+            dtype).requires_grad_(True)
+        with use_mesh(mesh):
+            nll = shlib._token_nll(x, torch.from_numpy(labels), True)
+            grad = torch.autograd.grad(
+                (nll * torch.from_numpy(weights)).sum(), x)[0]
+        out[str(dtype)] = (nll.detach().numpy(), grad.float().numpy())
+    return out
+
+
+def tp_serving(rank, world, cases):
+    """The sharded prefill and serve steps against the single-device ones
+    on the same parameters, per case (mesh shape, arch, overrides, JAX
+    parameters, prompt, decode tokens (steps, b, 1)): the prefill's
+    last-position logits, each decode step's logits and next tokens, and
+    after the last step the whole KV cache (each rank's kv heads gathered
+    back over ``model``) and its cursor."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.convert import params_from_jax
+    from repro_torch.launch import shardings as shlib
+    from repro_torch.models.registry import get_model
+    from repro_torch.nn.module import box_like
+    from repro_torch.train.step import make_prefill_step, make_serve_step
+
+    out = []
+    for shape, arch, overrides, jax_params, prompt, tokens in cases:
+        cfg = get_config(arch).reduced(**overrides)
+        api = get_model(cfg)
+        mesh = _mesh(shape, ("data", "model"))
+        params = params_from_jax(jax_params, cfg, device="cpu")
+        _, psh = shlib.params_shardings(box_like(params, api.axes()), mesh)
+        dp = shlib.place(params, psh)
+        batch = {"tokens": torch.from_numpy(prompt)}
+        got = {"prefill": (make_prefill_step(api)(params, batch).numpy(),
+                           shlib.make_sharded_prefill_step(api, mesh)(
+                               dp, shlib.place(batch, shlib.batch_shardings(
+                                   batch, mesh))).full_tensor().numpy())}
+        b = tokens.shape[1]
+        states = api.init_states(b, 16, device="cpu")
+        ds = shlib.place(api.init_states(b, 16, device="cpu"),
+                         shlib.state_shardings(states, mesh, b))
+        ref_step = make_serve_step(api)
+        step = shlib.make_sharded_serve_step(api, mesh)
+        got["steps"] = []
+        for t in tokens:
+            tok = torch.from_numpy(t)
+            ref_nxt, ref_logits, states = ref_step(params, tok, states)
+            nxt, logits, ds = step(dp, shlib.place(tok, shlib.batch_shardings(
+                {"t": tok}, mesh)["t"]), ds)
+            got["steps"].append((ref_logits.numpy(),
+                                 logits.full_tensor().numpy(),
+                                 ref_nxt.numpy(), nxt.full_tensor().numpy()))
+        got["kv"] = [(getattr(states.kv, f).numpy(),
+                      getattr(ds.kv, f).full_tensor().numpy())
+                     for f in ("k", "v")]
+        got["length"] = (states.kv.length.numpy(),
+                         ds.kv.length.full_tensor().numpy())
+        out.append(got)
+    return out

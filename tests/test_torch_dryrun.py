@@ -129,6 +129,55 @@ def test_train_cell_argument_bytes_are_the_local_shards(tmp_path):
     assert out["got"] < out["params"] * 12 / 4
 
 
+def test_split_layers_do_a_quarter_of_the_matmul_flops_at_model_4():
+    """A reduced dense train cell (4 / 4 heads, d_ff 128, vocab 256: every
+    layer splits over 4) on fake (1, 1) and (1, 4) ("data", "model")
+    meshes, the same 8 rows on every rank: each rank of (1, 4) does
+    exactly a quarter of the matmul FLOPs, forward and backward, and the
+    record lists all-reduces over groups of 4 (the regions and the
+    vocab-parallel NLL)."""
+    code = textwrap.dedent("""
+        import json
+        import torch.distributed as dist
+        from torch.distributed.device_mesh import init_device_mesh
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+        import torch.distributed._tools.fake_collectives
+        from repro_torch.analysis.costmodel import MATMUL_OPS
+        from repro_torch.configs import get_config
+        from repro_torch.configs.base import ShapeConfig
+        from repro_torch.launch import dryrun
+
+        cfg = get_config("smollm-135m").reduced(num_kv_heads=4)
+        shape = ShapeConfig("tiny_train", 32, 8, "train")
+        out = {}
+        for m in (1, 4):
+            dist.init_process_group("fake", store=FakeStore(), rank=0,
+                                    world_size=m)
+            mesh = init_device_mesh("cpu", (1, m),
+                                    mesh_dim_names=("data", "model"))
+            rec, _ = dryrun._lower_one(cfg, shape, mesh, {"microbatches": 1})
+            dist.destroy_process_group()
+            out[m] = {"matmul": rec["costs"].flops_of(MATMUL_OPS),
+                      "flops": rec["costs"].flops,
+                      "all_reduce_groups": sorted({
+                          g for k, _, g in rec["collectives"]
+                          if k == "all-reduce"}),
+                      "all_reduces": sum(k == "all-reduce" for k, _, _
+                                         in rec["collectives"])}
+        print(json.dumps(out))
+    """)
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=ENV,
+                       capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0, r.stderr[-3000:]
+    out = json.loads(r.stdout.strip().splitlines()[-1])
+    one, four = out["1"], out["4"]
+    assert one["matmul"] > 0
+    assert four["matmul"] * 4 == one["matmul"], (one, four)
+    assert four["flops"] < one["flops"]
+    assert 4 in four["all_reduce_groups"]
+    assert four["all_reduces"] > one["all_reduces"]
+
+
 KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
          "collective-permute")
 
