@@ -267,7 +267,14 @@ Phases, each printing one JSON line; any failure exits non-zero:
                shard outside, the arm's flash kernel launched steps x
                layers x 2 times and its plain version never; the layers
                handed split, the measured differences, the wall ratio,
-               step walls, device times, peak memory.
+               step walls, device times, peak memory.  The same for the
+               RWKV-6 and Mamba mixers split over ``model``
+               (DIST_MIXER_ARMS): rwkv6-7b at full width, depth 2, b 8 x
+               1,024, its time-mix and channel-mix handed split and
+               ``wkv6`` launched steps x layers x 2 times (on the
+               time-mix's heads); hymba-1.5b at full width, depth 2,
+               b 4 x 256, its attention, Mamba branch and MLP handed
+               split (no kernel at 256 positions).
                Then ``compress_tree`` / ``decompress_tree`` on the
                full-width gradient tree bit-equal to the CPU port (each
                residual within scale / 2); ``compressed_grad_sync``,
@@ -4172,19 +4179,24 @@ def phase_resume(torch, kops):
 
 
 DIST_ARMS = (("smollm-135m", None), ("smollm-135m@inhibitor", 2))
+#: the RWKV-6 and Mamba mixers split over ``model``: (arch, depth, batch,
+#: seq) at full width; rwkv6-7b through the WKV kernel at the train
+#: phase's batch, hymba-1.5b at phase 22's (its Mamba branch is an eager
+#: Python loop over time)
+DIST_MIXER_ARMS = (("rwkv6-7b", 2, 8, 1024), ("hymba-1.5b", 2, 4, 256))
 DIST_STEPS = 4
 #: sharded vs unsharded, each parameter leaf and each loss: |a - b| within
 #: DIST_REL of the leaf's largest |b| (expected: equal up to float32
 #: rounding at mesh size 1, where every gather is a no-op)
 DIST_REL = 1e-5
-DIST_PRED_S = 110.0                         # the phase's predicted wall
+DIST_PRED_S = 150.0                         # the phase's predicted wall
 #: the error-feedback residual's bound, in scales: 1/2, plus the float32
 #: rounding of the division and the subtraction (2 · 127 · 2^-24)
 COMPRESS_RESID = 0.5 + 2 * 127 * 2.0 ** -24
 DRYRUN_CELL = ("smollm-135m", "decode_32k")
 
 
-def split_layers(dparams, mesh) -> dict:
+def split_layers(dparams, mesh, cfg) -> dict:
     """The layers the sharded steps hand split over ``model``
     (``ModelShards``), counted by kind: what shows that the
     tensor-parallel path runs on this mesh."""
@@ -4195,11 +4207,17 @@ def split_layers(dparams, mesh) -> dict:
 
     counts = {}
 
+    def kind_of(node, key):
+        for name, kind in (("wq", "attention"), ("router", "moe"),
+                           ("table", "embedding"), ("ln_x", "time_mix"),
+                           ("mu_k", "channel_mix"), ("A_log", "mamba")):
+            if name in node:
+                return kind
+        return "head" if key == "lm_head" else "mlp"
+
     def walk(node, key=None):
         if is_split(node):
-            kind = ("attention" if "wq" in node else "moe" if "router" in
-                    node else "embedding" if "table" in node else "head"
-                    if key == "lm_head" else "mlp")
+            kind = kind_of(node, key)
             counts[kind] = counts.get(kind, 0) + 1
         if isinstance(node, dict):
             for k, v in node.items():
@@ -4209,8 +4227,24 @@ def split_layers(dparams, mesh) -> dict:
                 walk(v)
 
     with torch.no_grad():
-        walk(shlib.gather_params(dparams, mesh, grad=False))
+        walk(shlib.gather_params(dparams, mesh, grad=False, cfg=cfg))
     return counts
+
+
+def split_layers_expected(cfg) -> dict:
+    """Every layer of ``cfg`` split at one ``model`` rank (where every dim
+    divides): the RWKV-6 mixers, or the attention, the MLP and (hybrid)
+    the Mamba branch, in every block; the embedding, and the head where
+    it is not tied."""
+    n = cfg.num_layers
+    want = ({"time_mix": n, "channel_mix": n} if cfg.family == "ssm"
+            else {"attention": n, "mlp": n})
+    if cfg.family == "hybrid":
+        want["mamba"] = n
+    want["embedding"] = 1
+    if not cfg.tie_embeddings:
+        want["head"] = 1
+    return want
 
 
 def leaf_rel(a, b) -> float:
@@ -4218,13 +4252,17 @@ def leaf_rel(a, b) -> float:
                  / max(float(b.float().abs().max()), 1e-30))
 
 
-def dist_arm(torch, kops, mesh, arch: str, depth) -> dict:
-    """DIST_STEPS AdamW steps of one fixed batch TRAIN_B x TRAIN_N of the
-    seeded LM stream (remat "full"), unsharded (``make_train_step``) and
-    through the sharded step on the one-rank mesh, from the same
-    parameters: losses and every parameter within DIST_REL; the arm's
-    flash kernel launched steps x layers x 2 times in the sharded run,
-    its plain version never; a perturbed shard outside DIST_REL."""
+def dist_arm(torch, kops, mesh, arch: str, depth, b: int = TRAIN_B,
+             n: int = TRAIN_N) -> dict:
+    """DIST_STEPS AdamW steps of one fixed batch b x n (default TRAIN_B x
+    TRAIN_N) of the seeded LM stream (remat "full"), unsharded
+    (``make_train_step``) and through the sharded step on the one-rank
+    mesh, from the same parameters: every layer handed split; losses and
+    every parameter within DIST_REL; the arm's kernel (the flash kernel
+    of its attention where the planner sends it there, the WKV kernel of
+    the RWKV-6 family) launched steps x kernel sites x 2 (forward and
+    recompute) times in the sharded run, no other kernel and no plain
+    version; a perturbed shard outside DIST_REL."""
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import PipelineConfig, lm_batch_at
     from repro_torch.launch import shardings as shlib
@@ -4241,11 +4279,13 @@ def dist_arm(torch, kops, mesh, arch: str, depth) -> dict:
     api = get_model(cfg)
     opt = AdamWConfig(lr=TRAIN_LR)
     batch = {k: torch.from_numpy(v).cuda() for k, v in lm_batch_at(
-        PipelineConfig(TRAIN_B, TRAIN_N, cfg.vocab_size, seed=0),
-        0).items()}
-    kernel = train_kernel(cfg)
+        PipelineConfig(b, n, cfg.vocab_size, seed=0), 0).items()}
+    if cfg.family == "ssm":
+        kernel, sites = "wkv6", cfg.num_layers
+    else:
+        kernel, sites = train_kernel(cfg), kernel_sites(cfg, batch)
     out = {"arch": arch, "layers": cfg.num_layers, "steps": DIST_STEPS,
-           "batch": [TRAIN_B, TRAIN_N], "kernel": kernel, "rel": DIST_REL}
+           "batch": [b, n], "kernel": kernel, "rel": DIST_REL}
 
     def init():
         return init_train_state(api, opt, torch.Generator(
@@ -4286,7 +4326,7 @@ def dist_arm(torch, kops, mesh, arch: str, depth) -> dict:
     dstate = shlib.place(state, shlib.opt_shardings(state, psh, mesh))
     dbatch = shlib.place(batch, shlib.batch_shardings(batch, mesh))
     del params, state
-    out["split_layers"] = split_layers(dparams, mesh)
+    out["split_layers"] = split_layers(dparams, mesh, cfg)
     torch.cuda.empty_cache()
     kops.reset_counts()
     dparams, losses, out["sharded"] = run(
@@ -4308,16 +4348,18 @@ def dist_arm(torch, kops, mesh, arch: str, depth) -> dict:
     bad.view(-1)[0] += 1e-3 * float(bad.abs().max())
     out["control_rel"] = leaf_rel(bad, ref[0])
     out["launches"] = counts
-    expected = DIST_STEPS * cfg.num_layers * 2
+    expected = DIST_STEPS * sites * 2
     out["wall_ratio"] = (out["sharded"]["step_wall_ms_p50"]
                          / out["unsharded"]["step_wall_ms_p50"])
     emit({"phase": "distributed", "arm": out})
     emit({"phase": "distributed", "split_path": {
         "arch": arch, "split_layers": out["split_layers"],
         "loss_rel": out["loss_rel"], "param_rel_max": out["param_rel_max"],
-        "bound": DIST_REL, "wall_ratio": out["wall_ratio"]}})
-    want = {"attention": cfg.num_layers, "mlp": cfg.num_layers,
-            "embedding": 1}
+        "bound": DIST_REL, "wall_ratio": out["wall_ratio"],
+        "peak_memory_bytes": {"sharded": out["sharded"]["peak_memory_bytes"],
+                              "unsharded": out["unsharded"][
+                                  "peak_memory_bytes"]}}})
+    want = split_layers_expected(cfg)
     check(out["split_layers"] == want, f"{arch}: the tensor-parallel path "
           f"was not taken: split {out['split_layers']}, expected {want}")
     check(out["loss_rel"] <= DIST_REL, f"{arch}: sharded losses {losses} "
@@ -4746,10 +4788,18 @@ def phase_distributed(torch, kops, smi: str) -> dict:
             first = None
             for arch, depth in DIST_ARMS:
                 arm = dist_arm(torch, kops, mesh, arch, depth)
-                launches[arm["kernel"]] = arm["launches"]
+                launches[arm["kernel"]] = (launches.get(arm["kernel"], 0)
+                                           + arm["launches"])
                 first = first or arm
             dist_compress(torch, first["api"], first["batch"])
-            del first
+            del first, arm
+            gc.collect()
+            for arch, depth, b, n in DIST_MIXER_ARMS:
+                arm = dist_arm(torch, kops, mesh, arch, depth, b, n)
+                launches[arm["kernel"]] = (launches.get(arm["kernel"], 0)
+                                           + arm["launches"])
+                del arm
+                gc.collect()
             dist_collectives(torch)
             for arch, depth in DIST_ARMS:
                 arm = dist_resume_arm(torch, kops, mesh, arch, depth)
@@ -4983,6 +5033,8 @@ def main() -> int:
                 for arch, t in timings["serve_shapes"].items()}
     # the WKV kernel's other main path: the full-depth eval forward
     kernels[-1]["launches_full_depth_forward"] = forward_launches
+    # and the sharded train step of phase 23, on the time-mix's heads
+    kernels[-1]["launches_distributed"] = dist_launches.get("wkv6", 0)
     kernels[-1].update(forward_ms=timings["wkv6"]["forward_ms"],
                        forward_device_us=timings["wkv6"]["forward_device_us"],
                        forward_bound_ms=timings["wkv6"]["forward_bound_ms"])

@@ -34,6 +34,20 @@ region through :func:`into_model` (the identity forward, the gradient
 all-reduced over ``model`` backward) and its partial output leaves it
 through :func:`out_of_model` (all-reduced forward, the identity
 backward).  With no mesh, or one ``model`` rank, both are the identity.
+
+Sequence-parallel norm regions (the reference's ``seq_sp``): where
+:func:`seq_split` holds (``activation_spec`` shards the sequence over
+``model``, which has more than one rank), a model's no-cache forward runs
+under :func:`seq_parallel`, and its residual stream, adds and norms lie
+on (rows, s/M, d), each ``model`` rank its s/M positions (the whole
+parameters applied there through :func:`at_positions`).  A region is
+entered by :func:`enter_seq` (an all-gather over the sequence) and a
+split layer leaves it by :func:`region_exit` (a reduce-scatter over the
+sequence, which replaces :func:`out_of_model`'s all-reduce); a layer
+computed whole returns to the rank's positions by :func:`own_positions`.
+Outside :func:`seq_parallel` (a sequence that does not divide over
+``model`` or is shorter than M, every decode step) :func:`region_exit`
+all-reduces and the other two are the identity.
 """
 
 from __future__ import annotations
@@ -113,6 +127,7 @@ class _ShardingCtx(threading.local):
         self.mesh = None
         self.param_rules = dict(PARAM_RULES)
         self.act_rules = dict(ACT_RULES)
+        self.seq = False       # the residual stream split over the sequence
 
 
 _CTX = _ShardingCtx()
@@ -463,9 +478,13 @@ class _OutOfModel(torch.autograd.Function):
 def into_model(x):
     """``x`` entering a tensor-parallel region: unchanged, its gradient
     summed over the ``model`` ranks (each computed the part of it that
-    its shard of the layer reaches)."""
+    its shard of the layer reaches).  A sequence gathered by
+    :func:`enter_seq` for split layers alone has entered already: its
+    all-gather's backward sums the gradient."""
     group = model_group()
-    return x if group is None else _IntoModel.apply(x, group)
+    if group is None or getattr(x, "_entered_model", False):
+        return x
+    return _IntoModel.apply(x, group)
 
 
 def out_of_model(x):
@@ -507,3 +526,159 @@ def model_all_gather(x, dim: int = -1):
              for _ in range(model_size())]
     dist.all_gather(parts, x.contiguous(), group=group)
     return torch.cat(parts, dim=dim)
+
+
+# ---------------------------------------------------------------------------
+# Sequence-parallel norm regions over ``model``
+# ---------------------------------------------------------------------------
+
+def seq_split(seq_len: int, mesh=None) -> bool:
+    """Does a (rows, ``seq_len``, d) residual lie split over the sequence:
+    does ``activation_spec`` shard its ("batch", "seq_sp", "embed")
+    sequence dim over ``model``, of more than one rank?  Not where the
+    sequence does not divide over ``model`` or is shorter than M (every
+    decode step), where the reference replicates it; nor on an
+    :class:`AbstractMesh`, which has no process group to gather over."""
+    mesh = mesh if mesh is not None else _CTX.mesh
+    if model_size(mesh) == 1 or isinstance(mesh, AbstractMesh):
+        return False
+    spec = activation_spec((1, seq_len, 1), ("batch", "seq_sp", "embed"),
+                           mesh)
+    return spec[1:2] == ("model",)
+
+
+@contextlib.contextmanager
+def seq_parallel(on: bool):
+    """Run the residual stream split over the sequence (``on``) or whole,
+    for this thread; the previous setting comes back on exit."""
+    prev = _CTX.seq
+    _CTX.seq = bool(on)
+    try:
+        yield
+    finally:
+        _CTX.seq = prev
+
+
+def seq_parallel_on() -> bool:
+    """Is the residual stream split over the sequence here?"""
+    return _CTX.seq and model_group() is not None
+
+
+def _seq_gather(x, group, size: int):
+    """The ``model`` ranks' positions (dim 1) concatenated in rank order."""
+    import torch.distributed as dist
+
+    parts = [torch.empty_like(x, memory_format=torch.contiguous_format)
+             for _ in range(size)]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return torch.cat(parts, dim=1)
+
+
+def _seq_scatter(x, group, size: int):
+    """The sum over the ``model`` ranks of ``x`` (b, s, ...), this rank's
+    s/M positions of it."""
+    import torch.distributed as dist
+
+    chunks = [c.contiguous() for c in x.chunk(size, dim=1)]
+    out = torch.empty_like(chunks[0])
+    dist.reduce_scatter(out, chunks, group=group)
+    return out
+
+
+def _seq_own(x, rank: int, size: int):
+    """This rank's s/M positions of ``x`` (b, s, ...), a copy."""
+    n = x.shape[1] // size
+    return x[:, rank * n:(rank + 1) * n].clone(
+        memory_format=torch.contiguous_format)
+
+
+class _EnterSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, rank: int, size: int, summed: bool):
+        ctx.args, ctx.summed = (group, rank, size), summed
+        return _seq_gather(x, group, size)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, rank, size = ctx.args
+        g = (_seq_scatter(g, group, size) if ctx.summed
+             else _seq_own(g, rank, size))
+        return g, None, None, None, None
+
+
+class _ExitSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, size: int):
+        ctx.args = (group, size)
+        return _seq_scatter(x, group, size)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _seq_gather(g, *ctx.args), None, None
+
+
+class _OwnSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, rank: int, size: int):
+        ctx.args = (group, size)
+        return _seq_own(x, rank, size)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _seq_gather(g, *ctx.args), None, None, None
+
+
+def enter_seq(x, summed: bool):
+    """The rank's positions ``x`` (b, s/M, ...) of a norm output entering
+    the layers that read it: the whole sequence (b, s, ...), gathered over
+    ``model`` (identity outside :func:`seq_parallel`).  The all-gather's
+    backward must match what the gathered tensor feeds:
+
+      * ``summed``: only split layers read it, each rank's gradient a
+        partial sum, so the backward is a reduce-scatter, and the layers'
+        :func:`into_model` passes the tensor through (it has entered);
+      * else some reader computes alike on every rank (a whole layer, the
+        RWKV ddlerp, the MoE's routing, K / V projected whole) and every
+        reader's gradient is whole and the same on every rank (the split
+        ones sum theirs in :func:`into_model`), so the backward is the
+        rank's own positions of it, no sum: a sum would count it M
+        times."""
+    if not seq_parallel_on():
+        return x
+    out = _EnterSeq.apply(x, model_group(), model_rank(), model_size(),
+                          summed)
+    if summed:
+        out._entered_model = True
+    return out
+
+
+def region_exit(y):
+    """A split layer's partial output (b, s, ...) leaving its region: the
+    sum over the ``model`` ranks, at the rank's s/M positions under
+    :func:`seq_parallel` (a reduce-scatter forward, an all-gather
+    backward), else whole (:func:`out_of_model`)."""
+    if seq_parallel_on():
+        return _ExitSeq.apply(y, model_group(), model_size())
+    return out_of_model(y)
+
+
+def at_positions(p):
+    """A whole parameter applied at the rank's positions of a
+    sequence-parallel stream (a norm's scale and bias, a bias added after
+    :func:`region_exit`, the hybrid's branch scales): its gradient is the
+    part of the rank's positions, summed over the ``model`` ranks
+    (:func:`into_model`) so that it is whole and the same on every rank,
+    as ``gather_params`` declares.  Unchanged where the stream is
+    whole."""
+    return into_model(p) if seq_parallel_on() else p
+
+
+def own_positions(y, n: int):
+    """A whole layer's output ``y`` (b, s, ...), computed alike on every
+    rank, at the rank's ``n`` = s/M positions of the residual under
+    :func:`seq_parallel` (a slice forward, an all-gather backward, so the
+    layer's gradient is whole and the same on every rank); unchanged
+    where it already has ``n`` positions or the stream is whole."""
+    if not seq_parallel_on() or y.shape[1] == n:
+        return y
+    return _OwnSeq.apply(y, model_group(), model_rank(), model_size())

@@ -30,15 +30,22 @@ runs on the rank's batch rows and computes tensor-parallel over
 ``model`` wherever a layer's placements put its heads, hidden width,
 vocabulary rows or experts there (:func:`repro_torch.launch.shardings.
 gather_params`), so the per-rank FLOPs are the local rows over the
-rank's share of those layers, and the record lists the regions'
-all-reduces over the ``model`` groups.  The layers that compute whole
-on every ``model`` rank are charged whole: an attention whose heads per
-rank do not fall into whole kv groups (smollm-135m's 9 / 3 heads on 16),
-any dim that does not divide over ``model``, and the RWKV-6 and Mamba
-mixers (ROADMAP [7b-ssm]).
+rank's share of those layers (the RWKV-6 time-mix's h/M heads, the
+channel-mix's and the Mamba block's d_ff/M and c/M channels among
+them), and the record lists the regions' all-reduces over the ``model``
+groups.  The layers that compute whole on every ``model`` rank are
+charged whole: an attention whose heads per rank do not fall into whole
+kv groups (smollm-135m's 9 / 3 heads, hymba-1.5b's 25 / 5 on 16), the
+channel-mix's ``receptance`` gate, and any dim that does not divide over
+``model``.  Where ``model`` divides the sequence (the train and prefill
+cells) the norm regions are sequence-parallel, and the record lists the
+all-gathers that enter the regions and the reduce-scatters that leave
+them where an all-reduce left them before.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch smollm-135m --shape train_4k
+  python -m repro_torch.launch.dryrun --arch rwkv6-7b --shape train_4k \
+      --layers 2 --microbatches 1
   python -m repro_torch.launch.dryrun --all [--multi-pod-all]
   python -m repro_torch.launch.dryrun --list
 """
@@ -294,6 +301,8 @@ def build_cell(arch: str, shape_name: str, multi_pod: bool,
                      else f"{arch}@{attention_kind}")
     if opts.get("remat"):
         cfg = dataclasses.replace(cfg, remat=opts["remat"])
+    if opts.get("layers"):
+        cfg = cfg.with_layers(opts["layers"])
     shape = SHAPES_BY_NAME[shape_name]
     chips = 512 if multi_pod else 256
     dist.init_process_group("fake", store=FakeStore(), rank=0,
@@ -335,6 +344,7 @@ def build_cell(arch: str, shape_name: str, multi_pod: bool,
 def _tag(arch, shape_name, multi_pod, attention_kind, opts) -> str:
     return (f"{arch}_{shape_name}_{'2x16x16' if multi_pod else '16x16'}"
             + (f"_{attention_kind}" if attention_kind else "")
+            + (f"_L{opts['layers']}" if opts and opts.get("layers") else "")
             + (f"_{opts['tag']}" if opts and opts.get("tag") else ""))
 
 
@@ -394,6 +404,10 @@ def main(argv=None):
     ap.add_argument("--tag", default=None)
     ap.add_argument("--microbatches", type=int, default=4,
                     help="gradient-accumulation microbatches (train shapes)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the config to this depth (the walk charges "
+                    "every layer; the eager scans of rwkv6-7b and "
+                    "hymba-1.5b at full depth take hours on fake tensors)")
     args = ap.parse_args(argv)
 
     if args.list:
@@ -407,6 +421,8 @@ def main(argv=None):
         opts["remat"] = args.remat
     if args.tag:
         opts["tag"] = args.tag
+    if args.layers:
+        opts["layers"] = args.layers
 
     if args.all or args.multi_pod_all:
         import subprocess
@@ -434,6 +450,8 @@ def main(argv=None):
                     cmd += ["--remat", args.remat]
                 if args.tag:
                     cmd += ["--tag", args.tag]
+                if args.layers:
+                    cmd += ["--layers", str(args.layers)]
                 r = subprocess.run(cmd, timeout=3600)
                 failures += 0 if r.returncode == 0 else 1
         print(f"done; {failures} failures", flush=True)

@@ -34,18 +34,23 @@ placements put its tensor-parallel dim on ``model`` keeps that shard and
 is handed to the model as a
 :class:`~repro_torch.distributed.sharding.ModelShards`, so each ``model``
 rank computes its attention heads, its slice of the MLP hidden width,
-its vocabulary rows of the embedding and the logits, and its experts,
-between Megatron-style regions (``distributed/sharding.py``); the loss
-is a vocab-parallel NLL.  The layers that compute whole on every
-``model`` rank: an attention whose query heads per rank do not fall into
-whole kv groups, any layer whose dim does not divide over ``model``
-(``param_spec``'s fallback), and the RWKV-6 time-mix and channel-mix and
-the Mamba branch, whose ``heads_mlp`` / ``mlp`` shards are not a rank's
-share of their computation (Mamba's ``in_proj`` concatenates x and z on
-the sharded dim; RWKV's ``u``, ``w_base`` and ``ln_x`` lie on ``embed``
-but act per head: ROADMAP [7b-ssm]).  Regions all-reduce their output;
-the sequence-parallel norm regions (``seq_sp``) are not taken (ROADMAP
-[7b-sp]).
+its vocabulary rows of the embedding and the logits, its experts, its
+RWKV-6 time-mix heads, its slice of the channel-mix hidden width and its
+Mamba inner channels, between Megatron-style regions
+(``distributed/sharding.py``); the loss is a vocab-parallel NLL.  A
+layer may hold some entries whole although they are stored sharded (the
+channel-mix ``receptance``, Mamba's ``in_proj``, whose [x | z] halves a
+contiguous shard does not split): :func:`_split_plan` names them.  The
+layers that compute whole on every ``model`` rank: an attention whose
+query heads per rank do not fall into whole kv groups, an RWKV-6
+time-mix whose heads do not divide over ``model``, and any layer whose
+dim does not divide over ``model`` (``param_spec``'s fallback).  Where
+``model`` divides the sequence, the no-cache forwards (the train and
+prefill steps) keep the norm regions sequence-parallel (the reference's
+``seq_sp``): the residual on each rank's s/M positions, each region
+entered by an all-gather and left by a reduce-scatter over the
+sequence; elsewhere (every decode step) regions all-reduce their
+output.
 
 Global semantics the local compute keeps, so that the sharded step
 equals the single-device one: the loss is the all-reduced NLL sum over
@@ -67,7 +72,7 @@ from typing import Callable
 import torch
 
 from repro_torch.distributed.sharding import (
-    ModelShards, NamedSharding, axis_sizes, batch_all_reduce,
+    ModelShards, NamedSharding, axis_sizes, batch_all_reduce, current_mesh,
     global_microbatches, is_split, model_all_gather, model_all_reduce,
     model_all_reduce_max, model_group, model_rank, param_spec, placements,
     use_mesh)
@@ -199,41 +204,88 @@ def _on_model(p, dim: int, m: int) -> bool:
     return isinstance(pl, Shard) and pl.dim == dim
 
 
-def _splits(node: dict, key, m: int) -> bool:
-    """Does the layer ``node`` (a dict of DTensor parameters, reached by
-    ``key``) compute tensor-parallel over mesh dim ``m``: are its
-    tensor-parallel dims all sharded over ``model``?"""
+#: the entries of an RWKV-6 time-mix, a channel-mix and a Mamba block
+_TIME_MIX = frozenset({"mu_base", "mix_lora_a", "mix_lora_b", "receptance",
+                       "key", "value", "gate", "w_base", "w_lora_a",
+                       "w_lora_b", "u", "output", "ln_x"})
+_CHANNEL_MIX = frozenset({"mu_k", "mu_r", "key", "receptance", "value"})
+_MAMBA = frozenset({"in_proj", "conv_w", "conv_b", "x_proj", "dt_proj",
+                    "A_log", "D", "out_proj"})
+
+
+def _split_plan(node: dict, key, m: int, heads=None):
+    """How the layer ``node`` (a dict of DTensor parameters, reached by
+    ``key``) computes over mesh dim ``m`` (``model``): None where it
+    computes whole, else the names of its entries that are gathered whole
+    over ``model`` although stored sharded there (an empty set where every
+    sharded entry keeps its shard).  A layer splits where its
+    tensor-parallel dims are all sharded over ``model``; ``heads`` is the
+    RWKV-6 time-mix's head count, which its parameters do not carry (None:
+    the time-mix computes whole)."""
     def kern(name):
         return node[name]["kernel"]
 
+    def on(name, dim):
+        leaf = node[name]
+        return _on_model(leaf["kernel"] if isinstance(leaf, dict) else leaf,
+                         dim, m)
+
+    keep = frozenset()
     if key == "embed" and set(node) == {"table"}:
-        return _on_model(node["table"], 0, m)
+        return keep if on("table", 0) else None
     if key == "lm_head" and set(node) == {"kernel"}:
-        return _on_model(node["kernel"], 1, m)
+        return keep if _on_model(node["kernel"], 1, m) else None
     if {"wq", "wk", "wv", "wo"} <= set(node):
-        if not (_on_model(kern("wq"), 1, m) and _on_model(kern("wo"), 0, m)):
-            return False
+        if not (on("wq", 1) and on("wo", 0)):
+            return None
         # a rank's h/M query heads must fall into whole kv groups
         n = kern("wq").device_mesh.shape[m]
         h, hk = kern("wq").shape[1], kern("wk").shape[1]
         h_local, group = h // n, h // hk
-        return h_local % group == 0 or group % h_local == 0
+        return keep if h_local % group == 0 or group % h_local == 0 else None
     if set(node) == {"wi", "wo"}:
-        return _on_model(kern("wi"), 1, m) and _on_model(kern("wo"), 0, m)
+        return keep if on("wi", 1) and on("wo", 0) else None
     if set(node) == {"wg", "wu", "wd"} and kern("wg").dim() == 2:
-        return (_on_model(kern("wg"), 1, m) and _on_model(kern("wu"), 1, m)
-                and _on_model(kern("wd"), 0, m))
+        return keep if on("wg", 1) and on("wu", 1) and on("wd", 0) else None
     if "router" in node:
-        return all(_on_model(kern(k), 0, m) for k in ("wg", "wu", "wd"))
-    return False
+        return keep if all(on(k, 0) for k in ("wg", "wu", "wd")) else None
+    if set(node) == _TIME_MIX:
+        # a column shard of d/M must be whole heads of d/h columns:
+        # d % M (which param_spec checks) is not enough, h % M is
+        n = kern("receptance").device_mesh.shape[m]
+        if heads is None or heads % n or not (
+                all(on(k, 1) for k in ("receptance", "key", "value", "gate"))
+                and on("output", 0)):
+            return None
+        return keep
+    if set(node) == _CHANNEL_MIX:
+        # the receptance gate multiplies the reduced value output
+        # elementwise, so it is gathered whole and computed outside the
+        # region (nn/ssm.py::apply_rwkv6_channelmix)
+        return (frozenset({"receptance"}) if on("key", 1) and on("value", 0)
+                else None)
+    if set(node) == _MAMBA:
+        # in_proj's out dim is [x | z], two halves of the inner width: its
+        # contiguous shard is not a rank's share of either, so it is
+        # gathered whole and the rank slices its two blocks
+        # (nn/ssm.py::apply_mamba); the other leaves follow the inner
+        # dim's shard as stored
+        if not (on("conv_w", 1) and on("conv_b", 0) and on("dt_proj", 1)
+                and on("A_log", 0) and on("D", 0) and on("x_proj", 0)
+                and on("out_proj", 0) and on("in_proj", 1)):
+            return None
+        return frozenset({"in_proj"})
+    return None
 
 
-def gather_params(params, mesh, *, grad: bool = True):
+def gather_params(params, mesh, *, grad: bool = True, cfg=None):
     """The parameters as plain tensors for the model: each leaf whole over
     the batch axes, and over ``model`` either whole or, for a layer that
-    :func:`_splits`, this rank's shard, the layer handed as a
+    splits (:func:`_split_plan`), this rank's shard, the layer handed as a
     :class:`~repro_torch.distributed.sharding.ModelShards` (its MoE
-    ``shared`` expert decided on its own).  With ``grad`` the gather is
+    ``shared`` expert decided on its own; ``whole`` names its entries
+    that hold no shard over ``model``).  ``cfg``, the model's config,
+    gives the RWKV-6 time-mix's head count.  With ``grad`` the gather is
     differentiable and the local gradient is declared ``Partial`` over
     the batch axes and, over ``model``, the shard (``Shard``) or
     ``Replicate`` (every model rank computed the same), so the backward
@@ -243,6 +295,9 @@ def gather_params(params, mesh, *, grad: bool = True):
     names = list(mesh.mesh_dim_names)
     ba = batch_axes_for(mesh)
     m = names.index("model") if "model" in names else None
+    heads = None
+    if cfg is not None and cfg.family == "ssm":
+        heads = cfg.attention.num_heads
 
     def one(p, keep: bool):
         target = [p.placements[i] if keep and i == m else Replicate()
@@ -259,13 +314,14 @@ def gather_params(params, mesh, *, grad: bool = True):
             return type(node)(walk(x) for x in node)
         if not isinstance(node, dict):
             return one(node, False)
-        if m is None or not _splits(node, key, m):
+        plan = None if m is None else _split_plan(node, key, m, heads)
+        if plan is None:
             return {k: walk(node[k], k) for k in sorted(node)}
         return ModelShards(
             {k: walk(v, k) if k == "shared" else
-             tree_map(lambda p: one(p, True), v)
+             tree_map(lambda p, keep=k not in plan: one(p, keep), v)
              for k, v in sorted(node.items())},
-            whole=[k for k, v in node.items() if all(
+            whole=[k for k, v in node.items() if k in plan or all(
                 isinstance(p.placements[m], Replicate)
                 for p in tree_leaves(v))])
 
@@ -414,8 +470,8 @@ def make_sharded_train_step(api, opt_cfg, mesh,
         # runs again there, and its regions and the MoE's global slots
         # read the mesh
         with use_mesh(mesh):
-            share, metrics = _sharded_loss(api, gather_params(params, mesh),
-                                           batch, mesh)
+            share, metrics = _sharded_loss(
+                api, gather_params(params, mesh, cfg=api.cfg), batch, mesh)
             grads = torch.autograd.grad(share, leaves, allow_unused=True)
         unreached = _unreached(params, batch)
         out = []
@@ -495,7 +551,7 @@ def make_sharded_prefill_step(api, mesh, batch_chunks: int = 8) -> Callable:
 
     @torch.no_grad()
     def prefill_step(params, batch):
-        gp = gather_params(params, mesh, grad=False)
+        gp = gather_params(params, mesh, grad=False, cfg=api.cfg)
         forward = api.forward
         if _vocab_split(gp):
             def forward(p, b):
@@ -509,31 +565,27 @@ def make_sharded_prefill_step(api, mesh, batch_chunks: int = 8) -> Callable:
     return prefill_step
 
 
-def _split_attention(params):
-    """The first split attention of a gathered tree (every attention of a
-    model has the same heads, so the same split), or None."""
+def _split_layer(params, kind):
+    """The first split layer of a gathered tree that ``kind`` accepts
+    (every such layer of a model splits alike), or None."""
     if isinstance(params, dict):
-        if is_split(params) and "wq" in params:
+        if is_split(params) and kind(params):
             return params
-        found = (_split_attention(params[k]) for k in sorted(params))
+        found = (_split_layer(params[k], kind) for k in sorted(params))
     elif isinstance(params, (list, tuple)):
-        found = (_split_attention(x) for x in params)
+        found = (_split_layer(x, kind) for x in params)
     else:
         return None
     return next((f for f in found if f is not None), None)
 
 
-def _kv_heads_of(params, mesh):
+def _kv_heads_of(attn, mesh):
     """(first, count, order) of a split attention's decode cache: this
     rank's kv heads, and where each of the model's kv heads lies in the
     ranks' heads gathered in rank order (from the first rank that holds
-    it); None where the attention computes whole or ``model`` has one
-    rank."""
+    it)."""
     from repro_torch.core.attention import split_kv_heads
 
-    attn = _split_attention(params)
-    if attn is None or model_group(mesh) is None:
-        return None
     with use_mesh(mesh):
         spans = [split_kv_heads(attn, r)
                  for r in range(axis_sizes(mesh)["model"])]
@@ -545,13 +597,53 @@ def _kv_heads_of(params, mesh):
     return first, count, order
 
 
+def _state_splits(params, mesh) -> dict:
+    """Which decode-state leaves each ``model`` rank holds a part of:
+    ``{path: (dim, span)}``, ``span`` the (first, count, order) of
+    :func:`_kv_heads_of` or None for the rank's contiguous 1/M of dim
+    ``dim`` (gathered back in rank order).  A split attention's cache
+    holds the kv heads its query heads attend, a split RWKV-6 time-mix's
+    WKV state (L, b, h, n, n) its h/M heads, a split Mamba block's
+    carries its c/M channels (``ssm`` (L, b, c, n), ``conv`` (L, b,
+    k − 1, c)); the last tokens ``tm_x`` / ``cm_x`` stay whole.  Empty at
+    one ``model`` rank."""
+    if model_group(mesh) is None:
+        return {}
+    out = {}
+    attn = _split_layer(params, lambda p: "wq" in p)
+    if attn is not None:
+        span = _kv_heads_of(attn, mesh)
+        out[(".kv", ".k")] = out[(".kv", ".v")] = (-2, span)
+    if _split_layer(params, lambda p: "ln_x" in p) is not None:
+        out[(".wkv",)] = (-3, None)
+    if _split_layer(params, lambda p: "A_log" in p) is not None:
+        out[(".ssm",)] = (-2, None)
+        out[(".conv",)] = (-1, None)
+    return out
+
+
+def _state_part(s, dim: int, span):
+    """This rank's part of a whole decode-state leaf (:func:`_state_splits`)."""
+    if span is not None:
+        return s.narrow(dim, span[0], span[1])
+    n = s.shape[dim] // axis_sizes(current_mesh())["model"]
+    return s.narrow(dim, model_rank() * n, n)
+
+
+def _state_whole(n, dim: int, span):
+    """The whole leaf from every rank's part (a collective)."""
+    n = model_all_gather(n, dim=dim)
+    return n if span is None else n.index_select(
+        dim, torch.tensor(span[2], device=n.device))
+
+
 def make_sharded_serve_step(api, mesh) -> Callable:
     """``(params, tokens, states, batch) -> (next tokens, logits,
     states')``: the decode states gathered over ``model`` to the rank's
     batch rows, :func:`repro_torch.train.step.make_serve_step` under the
-    mesh (split layers computed tensor-parallel; where the attention
-    splits, each rank's cache holds the kv heads its query heads attend,
-    and the new states' kv heads are all-gathered over ``model``), the
+    mesh (split layers computed tensor-parallel; each rank's part of the
+    states of its split layers, :func:`_state_splits`, and the new states'
+    parts all-gathered over ``model``), the
     last position's logits all-gathered over ``model`` before the
     argmax where they are vocab-parallel, and the new states put back in
     each state's sharding."""
@@ -564,20 +656,17 @@ def make_sharded_serve_step(api, mesh) -> Callable:
                 else Replicate()
                 for name, p in zip(mesh.mesh_dim_names, dt.placements)]
 
-    def is_kv(path) -> bool:
-        return path[-2:] in ((".kv", ".k"), (".kv", ".v"))
-
     @torch.no_grad()
     def serve_step(params, tokens, states, batch=None):
-        gp = gather_params(params, mesh, grad=False)
-        heads = _kv_heads_of(gp, mesh)
+        gp = gather_params(params, mesh, grad=False, cfg=api.cfg)
+        splits = _state_splits(gp, mesh)
 
         def mine(path, s):
             if s is None:
                 return None
             s = s.redistribute(mesh, rows_only(s)).to_local()
-            if heads is not None and is_kv(path):
-                s = s[..., heads[0]:heads[0] + heads[1], :]
+            if path in splits:
+                s = _state_part(s, *splits[path])
             return s
 
         with use_mesh(mesh):
@@ -593,8 +682,8 @@ def make_sharded_serve_step(api, mesh) -> Callable:
             def back(path, n):
                 if n is None:
                     return None
-                if heads is not None and is_kv(path):
-                    n = model_all_gather(n, dim=-2)[..., heads[2], :]
+                if path in splits:
+                    n = _state_whole(n, *splits[path])
                 return n
 
             new = tree_map_with_path(back, new)

@@ -42,7 +42,9 @@ from repro_torch.core.attention import (AttentionConfig, KVCache,
                                         apply_attention, attention_axes,
                                         init_attention)
 from repro_torch.device import resolve_device
-from repro_torch.distributed.sharding import constrain, into_region
+from repro_torch.distributed.sharding import (
+    constrain, enter_seq, into_region, model_size, own_positions,
+    seq_parallel, seq_parallel_on, seq_split)
 from repro_torch.models import transformer as tfm
 from repro_torch.nn import embedding as emb
 from repro_torch.nn import mlp as mlpnn
@@ -151,63 +153,92 @@ def _positions(b: int, t: int, offset, device) -> torch.Tensor:
     return (torch.arange(t, device=device)[None] + offset).expand(b, t)
 
 
-def _enc_block(lp, cfg: ModelConfig, h, positions):
+def _sublayer(lp, h, fn):
+    """``fn`` on the norm output ``h`` (at the residual's positions)
+    gathered over the sequence, its result at the residual's positions
+    (both the identity outside a sequence-parallel stream)."""
+    return own_positions(fn(enter_seq(h, summed=tfm.reads_split(lp))),
+                         h.shape[1])
+
+
+def _enc_block(lp, cfg: ModelConfig, h, positions, sp: bool = False):
     cdt = cfg.cdtype
-    a, _ = apply_attention(lp["attn"], _enc_attn_cfg(cfg),
-                           tfm._apply_norm(cfg, lp["ln1"], h),
-                           positions=positions, compute_dtype=cdt)
-    h = h + a
-    h = h + _apply_ffn(lp["ffn"], tfm._apply_norm(cfg, lp["ln2"], h), cdt)
+    with seq_parallel(sp):
+        h = h + _sublayer(lp["attn"], tfm._apply_norm(cfg, lp["ln1"], h),
+                          lambda g: apply_attention(
+                              lp["attn"], _enc_attn_cfg(cfg), g,
+                              positions=positions, compute_dtype=cdt)[0])
+        h = h + _sublayer(lp["ffn"], tfm._apply_norm(cfg, lp["ln2"], h),
+                          lambda g: _apply_ffn(lp["ffn"], g, cdt))
     return constrain(h, "batch", "seq_sp", "embed")
 
 
 def encode(params: dict, cfg: ModelConfig,
            frames: torch.Tensor) -> torch.Tensor:
-    """frames (b, n_src, frontend embed_dim) -> memory (b, n_src, d)."""
+    """frames (b, n_src, frontend embed_dim) -> memory (b, n_src, d).
+    Sequence-parallel over the frames where ``model`` divides them; the
+    memory comes back whole, for every decoder layer's cross-attention."""
     cdt = cfg.cdtype
     x = apply_dense(params["frontend_proj"], frames.to(cdt), 1, cdt)
     b, s, _ = x.shape
     positions = _positions(b, s, 0, x.device)
     remat = _checkpointed(cfg)
-    for lp in params["encoder"]:
-        x = (tfm.remat_block(cfg, _enc_block, lp, cfg, x, positions) if remat
-             else _enc_block(lp, cfg, x, positions))
-    return tfm._apply_norm(cfg, params["enc_norm"], x)
+    with seq_parallel(seq_split(s)):
+        sp = seq_parallel_on()
+        x = own_positions(x, s // model_size())
+        for lp in params["encoder"]:
+            x = (tfm.remat_block(cfg, _enc_block, lp, cfg, x, positions, sp)
+                 if remat else _enc_block(lp, cfg, x, positions, sp))
+        # gathered whole before the decoder's cross-attentions read it
+        return enter_seq(tfm._apply_norm(cfg, params["enc_norm"], x),
+                         summed=False)
 
 
-def _dec_block(lp, cfg: ModelConfig, h, memory, positions, cache=None):
+def _dec_block(lp, cfg: ModelConfig, h, memory, positions, cache=None,
+               sp: bool = False):
     cdt = cfg.cdtype
-    a, new_kv = apply_attention(
-        lp["self_attn"], cfg.attention, tfm._apply_norm(cfg, lp["ln1"], h),
-        positions=positions, cache=cache, compute_dtype=cdt)
-    h = h + a
-    c, _ = apply_attention(
-        lp["cross_attn"], _cross_attn_cfg(cfg),
-        tfm._apply_norm(cfg, lp["ln_cross"], h), x_kv=memory,
-        compute_dtype=cdt)
-    h = h + c
-    f = _apply_ffn(lp["ffn"], tfm._apply_norm(cfg, lp["ln2"], h), cdt)
-    return constrain(h + f, "batch", "seq_sp", "embed"), new_kv
+    with seq_parallel(sp):
+        sa = lp["self_attn"]
+        a, new_kv = apply_attention(
+            sa, cfg.attention,
+            enter_seq(tfm._apply_norm(cfg, lp["ln1"], h),
+                      summed=tfm.reads_split(sa)),
+            positions=positions, cache=cache, compute_dtype=cdt)
+        h = h + own_positions(a, h.shape[1])
+        h = h + _sublayer(lp["cross_attn"],
+                          tfm._apply_norm(cfg, lp["ln_cross"], h),
+                          lambda g: apply_attention(
+                              lp["cross_attn"], _cross_attn_cfg(cfg), g,
+                              x_kv=memory, compute_dtype=cdt)[0])
+        h = h + _sublayer(lp["ffn"], tfm._apply_norm(cfg, lp["ln2"], h),
+                          lambda g: _apply_ffn(lp["ffn"], g, cdt))
+    return constrain(h, "batch", "seq_sp", "embed"), new_kv
 
 
 def _head(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     x = tfm._apply_norm(cfg, params["dec_norm"], x)
+    x = enter_seq(x, summed=tfm.reads_split(params["lm_head"]))
     return apply_dense(params["lm_head"], into_region(params["lm_head"], x),
                        1, cfg.cdtype)
 
 
 def decode_train(params: dict, cfg: ModelConfig, memory: torch.Tensor,
                  tokens: torch.Tensor) -> torch.Tensor:
-    """Teacher-forced decoder: tokens (b, t) -> logits (b, t, V)."""
-    x = emb.apply_embedding(params["embed"], tokens, compute_dtype=cfg.cdtype)
-    b, t, _ = x.shape
-    positions = _positions(b, t, 0, x.device)
+    """Teacher-forced decoder: tokens (b, t) -> logits (b, t, V),
+    sequence-parallel over the tokens where ``model`` divides them."""
+    b, t = tokens.shape
+    positions = _positions(b, t, 0, tokens.device)
     remat = _checkpointed(cfg)
-    for lp in params["decoder"]:
-        x, _ = (tfm.remat_block(cfg, _dec_block, lp, cfg, x, memory,
-                                positions) if remat
-                else _dec_block(lp, cfg, x, memory, positions))
-    return constrain(_head(params, cfg, x), "batch", None, "vocab")
+    with seq_parallel(seq_split(t)):
+        sp = seq_parallel_on()
+        x = emb.apply_embedding(params["embed"], tokens,
+                                compute_dtype=cfg.cdtype)
+        x = own_positions(x, t // model_size())
+        for lp in params["decoder"]:
+            x, _ = (tfm.remat_block(cfg, _dec_block, lp, cfg, x, memory,
+                                    positions, None, sp) if remat
+                    else _dec_block(lp, cfg, x, memory, positions, sp=sp))
+        return constrain(_head(params, cfg, x), "batch", None, "vocab")
 
 
 def forward_train(params: dict, cfg: ModelConfig, frames: torch.Tensor,

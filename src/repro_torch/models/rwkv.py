@@ -23,10 +23,13 @@ Decode state (:class:`RwkvLayerState`) is O(1) in the sequence length:
 per layer the (b, h, n, n) WKV state and the last token each mixer saw,
 stacked on a leading layer axis.
 
-Under the sharded steps only the embedding and the logits head split
-over ``model`` (vocabulary rows); the time-mix and channel-mix compute
-whole on every ``model`` rank: their ``u``, ``w_base`` and ``ln_x`` lie
-on ``embed`` but act per head (ROADMAP [7b-ssm]).
+Under the sharded steps every layer handed as a
+:class:`~repro_torch.distributed.sharding.ModelShards` computes
+tensor-parallel over ``model`` (:mod:`repro_torch.nn.ssm`): the
+embedding and the logits head their vocabulary rows, the time-mix its
+h/M heads (the WKV kernel on them, its per-head ``embed`` leaves sliced
+to them), the channel-mix its slice of the hidden width; a time-mix whose
+heads do not divide over ``model`` computes whole.
 """
 
 from __future__ import annotations
@@ -38,7 +41,9 @@ import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.distributed.sharding import constrain, into_region
+from repro_torch.distributed.sharding import (
+    at_positions, constrain, enter_seq, into_region, model_size,
+    own_positions, seq_parallel, seq_parallel_on, seq_split)
 from repro_torch.nn import embedding as emb
 from repro_torch.nn import norm as normnn
 from repro_torch.nn import ssm as ssmnn
@@ -53,6 +58,13 @@ class RwkvLayerState(NamedTuple):
 
 def _num_heads(cfg: ModelConfig) -> int:
     return cfg.attention.num_heads
+
+
+def _layernorm(p, x, *, eps):
+    """A layer norm of the residual stream (at the rank's positions of a
+    sequence-parallel stream: :func:`at_positions`)."""
+    return normnn.apply_layernorm({k: at_positions(v) for k, v in p.items()},
+                                  x, eps=eps)
 
 
 def init_block(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
@@ -95,20 +107,24 @@ def apply_block(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
     """One layer.  ``state`` is that layer's (wkv, tm_x, cm_x) or None
     (a zero state).  Returns (x, (wkv', tm_x', cm_x'))."""
     cdt = cfg.cdtype
-    h = normnn.apply_layernorm(params["ln1"], x, eps=cfg.norm_eps)
+    n = x.shape[1]          # the residual's positions: s/M under SP
+    h = _layernorm(params["ln1"], x, eps=cfg.norm_eps)
     h = constrain(h, "batch", "seq_sp", "embed")
     plan = wkv_plan(use_kernel, state is not None)
+    # the token shift and the WKV scan need the whole sequence; the
+    # ddlerp mix is computed alike on every rank, so the gather's
+    # backward takes the rank's own positions (enter_seq)
     a, (wkv_state, tm_x) = ssmnn.apply_rwkv6_timemix(
-        params["time_mix"], h, _num_heads(cfg),
+        params["time_mix"], enter_seq(h, summed=False), _num_heads(cfg),
         state=None if state is None else state[0],
         x_prev=None if state is None else state[1],
         use_kernel=plan.backend == "pallas", compute_dtype=cdt)
-    x = x + a
-    h2 = normnn.apply_layernorm(params["ln2"], x, eps=cfg.norm_eps)
+    x = x + own_positions(a, n)
+    h2 = _layernorm(params["ln2"], x, eps=cfg.norm_eps)
     f, cm_x = ssmnn.apply_rwkv6_channelmix(
-        params["channel_mix"], h2,
+        params["channel_mix"], enter_seq(h2, summed=False),
         x_prev=None if state is None else state[2], compute_dtype=cdt)
-    x = constrain(x + f, "batch", "seq_sp", "embed")
+    x = constrain(x + own_positions(f, n), "batch", "seq_sp", "embed")
     return x, (wkv_state, tm_x, cm_x)
 
 
@@ -141,8 +157,11 @@ def lm_axes(cfg: ModelConfig) -> dict:
     return axes
 
 
-def _checkpointed_block(lp, cfg: ModelConfig, x, use_kernel: bool):
-    return apply_block(lp, cfg, x, use_kernel=use_kernel)[0]
+def _checkpointed_block(lp, cfg: ModelConfig, x, use_kernel: bool,
+                        sp: bool):
+    # the recompute in the backward takes the sequence split again
+    with seq_parallel(sp):
+        return apply_block(lp, cfg, x, use_kernel=use_kernel)[0]
 
 
 def _run_blocks(params, cfg: ModelConfig, x, states=None,
@@ -153,7 +172,8 @@ def _run_blocks(params, cfg: ModelConfig, x, states=None,
 
     if _remat_blocks(cfg, states):
         for lp in params["blocks"]:
-            x = remat_block(cfg, _checkpointed_block, lp, cfg, x, use_kernel)
+            x = remat_block(cfg, _checkpointed_block, lp, cfg, x, use_kernel,
+                            seq_parallel_on())
         return x, None
     new = []
     for layer, lp in enumerate(params["blocks"]):
@@ -164,25 +184,34 @@ def _run_blocks(params, cfg: ModelConfig, x, states=None,
 
 
 def _logits(params, cfg: ModelConfig, x):
-    x = normnn.apply_layernorm(params["final_norm"], x, eps=cfg.norm_eps)
+    """The final norm, gathered over the sequence into the head."""
+    from repro_torch.models.transformer import reads_split
+
+    x = _layernorm(params["final_norm"], x, eps=cfg.norm_eps)
+    head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    x = enter_seq(x, summed=reads_split(head))
     if cfg.tie_embeddings:
-        return emb.attend_logits(params["embed"], x, compute_dtype=cfg.cdtype)
-    return apply_dense(params["lm_head"], into_region(params["lm_head"], x),
-                       1, cfg.cdtype)
+        return emb.attend_logits(head, x, compute_dtype=cfg.cdtype)
+    return apply_dense(head, into_region(head, x), 1, cfg.cdtype)
 
 
 def _embed(params, cfg: ModelConfig, tokens):
     x = emb.apply_embedding(params["embed"], tokens, compute_dtype=cfg.cdtype)
-    return normnn.apply_layernorm(params["ln_in"], x, eps=cfg.norm_eps)
+    x = own_positions(x, tokens.shape[1] // model_size())
+    return _layernorm(params["ln_in"], x, eps=cfg.norm_eps)
 
 
 def lm_forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
                use_kernel: bool = True) -> torch.Tensor:
     """Training / prefill forward from a zero state: tokens (b, s) ->
-    logits (b, s, V)."""
-    x = constrain(_embed(params, cfg, tokens), "batch", "seq_sp", "embed")
-    x, _ = _run_blocks(params, cfg, x, use_kernel=use_kernel)
-    return constrain(_logits(params, cfg, x), "batch", None, "vocab")
+    logits (b, s, V).  Sequence-parallel under a mesh whose ``model``
+    axis divides the sequence, as the transformer's
+    (:func:`repro_torch.models.transformer.lm_forward`)."""
+    with seq_parallel(seq_split(tokens.shape[1])):
+        x = constrain(_embed(params, cfg, tokens), "batch", "seq_sp",
+                      "embed")
+        x, _ = _run_blocks(params, cfg, x, use_kernel=use_kernel)
+        return constrain(_logits(params, cfg, x), "batch", None, "vocab")
 
 
 def init_states(cfg: ModelConfig, batch: int, max_len: int, *,

@@ -39,10 +39,9 @@ engine) copies back.
 Under the sharded steps (:mod:`repro_torch.launch.shardings`) a layer
 handed as a :class:`~repro_torch.distributed.sharding.ModelShards`
 computes tensor-parallel over ``model`` (attention heads, MLP hidden,
-experts, vocabulary rows: the logits are then this rank's vocabulary
-columns); the hybrid family's Mamba branch computes whole on every
-``model`` rank (ROADMAP [7b-ssm]).  Outside a mesh every layer is whole
-and the logits cover the vocabulary.
+experts, the hybrid family's Mamba inner channels, vocabulary rows: the
+logits are then this rank's vocabulary columns).  Outside a mesh every
+layer is whole and the logits cover the vocabulary.
 """
 
 from __future__ import annotations
@@ -58,7 +57,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.attention import (
     KVCache, PagedKVCache, apply_attention, attention_axes, init_attention)
 from repro_torch.device import resolve_device
-from repro_torch.distributed.sharding import constrain, into_region
+from repro_torch.distributed.sharding import (
+    at_positions, constrain, enter_seq, into_region, is_split, model_size,
+    own_positions, seq_parallel, seq_parallel_on, seq_split)
 from repro_torch.nn import embedding as emb
 from repro_torch.nn import mlp as mlpnn
 from repro_torch.nn import moe as moenn
@@ -88,6 +89,7 @@ def _norm_axes(cfg: ModelConfig) -> dict:
 
 
 def _apply_norm(cfg: ModelConfig, p, x):
+    p = {k: at_positions(v) for k, v in p.items()}
     if cfg.norm == "rmsnorm":
         return normnn.apply_rmsnorm(p, x, eps=cfg.norm_eps)
     return normnn.apply_layernorm(p, x, eps=cfg.norm_eps)
@@ -174,32 +176,56 @@ def apply_block(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
     (load-balance, router-z) losses as a (2,) float32 tensor, else None.
     """
     cdt = cfg.cdtype
+    n = x.shape[1]          # the residual's positions: s/M under SP
     h = _apply_norm(cfg, params["ln1"], x)
     h = constrain(h, "batch", "seq_sp", "embed")
+    readers = [params["attn"]] + ([params["mamba"]]
+                                  if cfg.family == "hybrid" else [])
+    h = enter_seq(h, summed=reads_split(*readers))
     a, new_cache = apply_attention(params["attn"], cfg.attention, h,
                                    positions=positions, cache=cache,
                                    compute_dtype=cdt)
+    a = own_positions(a, n)
     carries = None
     if cfg.family == "hybrid":
         m, carries = ssmnn.apply_mamba(
             params["mamba"], h, state_dim=cfg.ssm.state_dim, ssm_state=ssm,
             conv_state=conv, compute_dtype=cdt)
-        s = params["branch_scale"].to(cdt)
-        a = 0.5 * (s[0] * a + s[1] * m)
+        # two branches in one block: each split branch leaves its region
+        # (summed over the ranks) before its scale, so branch_scale's
+        # gradient is whole and the same on every rank
+        s = at_positions(params["branch_scale"]).to(cdt)
+        a = 0.5 * (s[0] * a + s[1] * own_positions(m, n))
     x = x + a
     x = constrain(x, "batch", "seq_sp", "embed")
     h2 = _apply_norm(cfg, params["ln2"], x)
     aux = None
     if cfg.moe is not None:
+        # the MoE's global capacity and slots need the whole sequence,
+        # and its routing is computed alike on every rank
         f, moe_aux = moenn.apply_moe(
-            params["moe"], h2, top_k=cfg.moe.top_k,
+            params["moe"], enter_seq(h2, summed=False), top_k=cfg.moe.top_k,
             capacity_factor=cfg.moe.capacity_factor,
             normalize_topk=cfg.moe.normalize_topk, compute_dtype=cdt)
         aux = torch.stack([moe_aux.load_balance_loss, moe_aux.router_z_loss])
     else:
-        f = _apply_ffn(cfg, params["ffn"], h2, cdt)
-    x = constrain(x + f, "batch", "seq_sp", "embed")
+        f = _apply_ffn(cfg, params["ffn"],
+                       enter_seq(h2, summed=reads_split(params["ffn"])), cdt)
+    x = constrain(x + own_positions(f, n), "batch", "seq_sp", "embed")
     return x, new_cache, carries, aux
+
+
+def reads_split(*layers) -> bool:
+    """Do these layers, which read one gathered norm output, all compute
+    split from it, each rank's gradient of it a partial sum (the
+    all-gather's backward a reduce-scatter,
+    :func:`~repro_torch.distributed.sharding.enter_seq`)?  Not a layer
+    computed whole, an attention that projects K / V whole or an MoE (its
+    router).  (The RWKV-6 blocks gather for their mixers with ``summed``
+    False: the ddlerp mix and the receptance gate compute alike on every
+    rank.)"""
+    return all(is_split(p) and "wk" not in p.whole and "router" not in p
+               for p in layers)
 
 
 def init_lm(gen: torch.Generator, cfg: ModelConfig, *, device=None) -> dict:
@@ -280,8 +306,11 @@ def remat_block(cfg: ModelConfig, fn, *args):
                                              **kw)
 
 
-def _checkpointed_block(lp, cfg: ModelConfig, x, positions):
-    x, _, _, aux = apply_block(lp, cfg, x, positions=positions)
+def _checkpointed_block(lp, cfg: ModelConfig, x, positions, sp: bool):
+    # the recompute in the backward runs outside lm_forward: it takes the
+    # sequence split again, so it runs the same collectives
+    with seq_parallel(sp):
+        x, _, _, aux = apply_block(lp, cfg, x, positions=positions)
     return x, aux
 
 
@@ -303,7 +332,7 @@ def _run_blocks(params, cfg: ModelConfig, x, positions,
     if _remat_blocks(cfg, kv):
         for lp in params["blocks"]:
             x, aux = remat_block(cfg, _checkpointed_block, lp, cfg, x,
-                                 positions)
+                                 positions, seq_parallel_on())
             aux_total = _add_aux(aux_total, aux)
         return x, None, aux_total
     new_length = None
@@ -330,11 +359,15 @@ def _run_blocks(params, cfg: ModelConfig, x, positions,
 
 
 def _logits(params, cfg: ModelConfig, x):
+    """The final norm, gathered over the sequence into the head: logits
+    (b, s, V) for every position (this rank's vocabulary columns where
+    the head is split)."""
     x = _apply_norm(cfg, params["final_norm"], x)
+    head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    x = enter_seq(x, summed=reads_split(head))
     if cfg.tie_embeddings:
-        return emb.attend_logits(params["embed"], x, compute_dtype=cfg.cdtype)
-    return apply_dense(params["lm_head"], into_region(params["lm_head"], x),
-                       1, cfg.cdtype)
+        return emb.attend_logits(head, x, compute_dtype=cfg.cdtype)
+    return apply_dense(head, into_region(head, x), 1, cfg.cdtype)
 
 
 def lm_forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
@@ -347,16 +380,30 @@ def lm_forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
     ``extra_embeds`` (b, n_extra, frontend embed_dim): the vlm family's
     patch embeddings, projected by ``frontend_proj`` and prepended to the
     token embeddings; positions then run over the whole n_extra + s
-    sequence and the logits cover it."""
+    sequence and the logits cover it.
+
+    Under a mesh whose ``model`` axis divides the sequence
+    (:func:`~repro_torch.distributed.sharding.seq_split`) the residual
+    stream between the regions is sequence-parallel: each ``model`` rank
+    holds its (b, s/M, d) positions, the norms run on them, and the
+    logits are gathered whole over the sequence."""
     cdt = cfg.cdtype
-    x = emb.apply_embedding(params["embed"], tokens, compute_dtype=cdt)
+    n = tokens.shape[1] + (0 if extra_embeds is None
+                           else extra_embeds.shape[1])
+    sp = seq_split(n)
+    # the vocab-parallel embedding leaves its region at the rank's
+    # positions; behind image positions it leaves whole
+    with seq_parallel(sp and extra_embeds is None):
+        x = emb.apply_embedding(params["embed"], tokens, compute_dtype=cdt)
     if extra_embeds is not None:
         fe = apply_dense(params["frontend_proj"], extra_embeds.to(cdt), 1,
                          cdt)
         x = torch.cat([fe, x], dim=1)
-    x = constrain(x, "batch", "seq_sp", "embed")
-    x, _, aux = _run_blocks(params, cfg, x, None)
-    logits = constrain(_logits(params, cfg, x), "batch", None, "vocab")
+    with seq_parallel(sp):
+        x = own_positions(x, n // model_size())
+        x = constrain(x, "batch", "seq_sp", "embed")
+        x, _, aux = _run_blocks(params, cfg, x, None)
+        logits = constrain(_logits(params, cfg, x), "batch", None, "vocab")
     if not return_aux:
         return logits
     if aux is None:

@@ -3,8 +3,9 @@ table.
 
 A table handed as a :class:`~repro_torch.distributed.sharding.ModelShards`
 holds this ``model`` rank's vocabulary rows: the lookup reads the ids
-that fall in them (the others give zero rows) and sums over the ranks;
-the tied logits are the rank's vocabulary columns."""
+that fall in them (the others give zero rows) and sums over the ranks
+(at the rank's positions of a sequence-parallel stream); the tied
+logits are the rank's vocabulary columns."""
 
 from __future__ import annotations
 
@@ -12,7 +13,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.distributed.sharding import (into_region, is_split,
-                                              model_rank, out_of_model)
+                                              model_rank, region_exit)
 from repro_torch.nn.init import embedding_init
 
 
@@ -38,7 +39,7 @@ def apply_embedding(params: dict, token_ids: torch.Tensor,
         ids = ids - model_rank() * rows
         mine = (ids >= 0) & (ids < rows)
         out = F.embedding(torch.where(mine, ids, 0), params["table"])
-        out = out_of_model(out * mine[..., None].to(out.dtype))
+        out = region_exit(out * mine[..., None].to(out.dtype))
     else:
         out = F.embedding(ids, params["table"])
     return out if compute_dtype is None else out.to(compute_dtype)

@@ -8,7 +8,7 @@ from typing import Sequence
 
 import torch
 
-from repro_torch.distributed.sharding import out_of_model
+from repro_torch.distributed.sharding import at_positions, region_exit
 from repro_torch.nn.init import truncated_normal
 
 
@@ -40,9 +40,10 @@ def apply_dense(params: dict, x: torch.Tensor, n_in_dims: int = 1,
                 compute_dtype=None, *, reduce: bool = False) -> torch.Tensor:
     """Contract the last ``n_in_dims`` dims of ``x`` with the kernel.
     ``reduce``: the kernel is this rank's rows of a row-parallel layer,
-    so the product is summed over the ``model`` ranks
-    (:func:`~repro_torch.distributed.sharding.out_of_model`) before the
-    bias is added, once."""
+    so the product leaves its region summed over the ``model`` ranks
+    (:func:`~repro_torch.distributed.sharding.region_exit`: whole, or at
+    the rank's positions of a sequence-parallel stream) before the bias
+    is added, once."""
     kernel = params["kernel"]
     if compute_dtype is not None:
         kernel = kernel.to(compute_dtype)
@@ -54,9 +55,9 @@ def apply_dense(params: dict, x: torch.Tensor, n_in_dims: int = 1,
         math.prod(in_shape), math.prod(out_shape))
     y = y.reshape(*lead, *out_shape)
     if reduce:
-        y = out_of_model(y)
+        y = region_exit(y)
     if "bias" in params:
-        b = params["bias"]
+        b = at_positions(params["bias"]) if reduce else params["bias"]
         if compute_dtype is not None:
             b = b.to(compute_dtype)
         y = y + b

@@ -34,9 +34,11 @@ auxiliary losses stay global and are computed alike on every ``model``
 rank (the global E is the router's width); every rank builds the same
 (E, C, d) buffer of its rows, runs its experts' products on its slice of
 it, and combines the assignments its experts took.  That partial and
-the shared expert's row-parallel partial leave the region through one
-all-reduce; the tokens and the gates enter it, so that the router and
-the layer's input get the gradient of every rank's experts.
+the shared expert's row-parallel partial leave the region together
+(one all-reduce, or one reduce-scatter over the sequence of a
+sequence-parallel stream); the tokens and the gates enter it, so that
+the router and the layer's input get the gradient of every rank's
+experts.
 """
 
 from __future__ import annotations
@@ -50,7 +52,7 @@ import torch
 from repro_torch.distributed.sharding import (
     batch_all_gather, batch_all_reduce, batch_index, batch_sum, constrain,
     current_mesh, into_model, into_region, is_split, model_rank,
-    out_of_model)
+    own_positions, region_exit)
 from repro_torch.nn.init import truncated_normal
 from repro_torch.nn.linear import apply_dense, dense_axes, init_dense
 from repro_torch.nn.mlp import (_ACT, apply_gated_mlp, gated_mlp_axes,
@@ -233,10 +235,15 @@ def apply_moe(params: dict, x: torch.Tensor, *, top_k: int,
                                           cdt))
             shared_out = shared_out * (into_model(g) if shared_split else g)
         (partial if shared_split else whole).append(shared_out)
+    out = None
     if partial:
-        whole.insert(0, out_of_model(functools.reduce(operator.add,
-                                                      partial)))
-    combined = functools.reduce(operator.add, whole)
+        out = region_exit(functools.reduce(operator.add, partial).reshape(
+            b, s, d))
+    if whole:
+        # a term computed whole, at the rank's positions of a
+        # sequence-parallel stream when the experts' partial left there
+        w = functools.reduce(operator.add, whole).reshape(b, s, d)
+        out = w if out is None else out + own_positions(w, out.shape[1])
 
     # auxiliary losses (Switch Transformer): the fraction of tokens whose
     # top-1 choice is each expert, against the mean router probability
@@ -253,4 +260,4 @@ def apply_moe(params: dict, x: torch.Tensor, *, top_k: int,
         z_loss = batch_sum(lse2.sum(), mesh) / n_global
     lb_loss = num_experts * (me * ce).sum()
     aux = MoEAux(lb_loss, z_loss, dropped)
-    return combined.reshape(b, s, d).to(x.dtype), aux
+    return out.to(x.dtype), aux

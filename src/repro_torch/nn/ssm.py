@@ -25,6 +25,23 @@ has three forms here:
     states recomputed forward, then autograd through :func:`wkv6_chunk`
     one chunk at a time from the last, so no more than one chunk's
     (L, L, n) cubes are alive at once.
+
+Tensor-parallel over ``model`` (parameters handed as a
+:class:`~repro_torch.distributed.sharding.ModelShards`; every count comes
+from the local weights):
+
+  * the time-mix computes the rank's h/M heads: ``receptance``, ``key``,
+    ``value`` and ``gate`` column-parallel, ``output`` row-parallel; the
+    ddlerp token-shift mix and the decay LoRA's hidden layer are
+    whole-width work, computed alike on every rank outside the region;
+    the per-head leaves on ``embed`` (``u``, ``w_base``, ``ln_x``, the
+    columns of ``w_lora_b``) are sliced to the rank's heads;
+  * the channel-mix splits its squared-ReLU FFN (``key`` column-, ``value``
+    row-parallel); its ``receptance`` gate is gathered whole and computed
+    outside the region;
+  * the Mamba block computes the rank's c/M inner channels: its two blocks
+    of ``in_proj``'s columns, the conv, ``dt_proj`` and the scan on them,
+    ``x_proj`` and ``out_proj`` row-parallel.
 """
 
 from __future__ import annotations
@@ -34,6 +51,9 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import (into_model, into_region,
+                                              is_split, model_rank,
+                                              out_of_model, own_positions)
 from repro_torch.nn.init import normal
 from repro_torch.nn.linear import apply_dense, dense_axes, init_dense
 from repro_torch.nn.norm import (apply_groupnorm, init_groupnorm,
@@ -112,6 +132,20 @@ def _token_shift(x: torch.Tensor,
     return torch.cat([prev.to(x.dtype), x[:, :-1]], dim=1)
 
 
+def _rank_columns(params, leaf: torch.Tensor, width: int) -> torch.Tensor:
+    """This ``model`` rank's ``width`` columns (last dim) of a leaf that a
+    split layer holds whole, else the leaf.  The trap of RWKV-6's
+    per-head leaves on ``embed`` (``u``, ``w_base``, ``ln_x``, the columns
+    of ``w_lora_b``): the leaf is whole on every rank (``Replicate`` over
+    ``model``) but acts per head, and a slice would get a gradient in its
+    columns only; through :func:`into_model` first, the ranks' slices'
+    gradients are summed into the whole leaf's, equal on every rank."""
+    if not is_split(params):
+        return leaf
+    lo = model_rank() * width
+    return into_model(leaf)[..., lo:lo + width]
+
+
 def rwkv6_projections(params: dict, x: torch.Tensor, num_heads: int,
                       x_prev: Optional[torch.Tensor] = None,
                       compute_dtype=None):
@@ -119,11 +153,15 @@ def rwkv6_projections(params: dict, x: torch.Tensor, num_heads: int,
 
     x: (batch, seq, d).  Returns r, k, v (batch, seq, heads, head_dim) in
     the compute dtype, the gate g (batch, seq, d) and the decay
-    w = exp(-exp(w_logit)) (batch, seq, heads, head_dim) in float32.
+    w = exp(-exp(w_logit)) (batch, seq, heads, head_dim) in float32; for
+    a split time-mix the rank's heads (and g its d/M columns).
     """
     cdt = compute_dtype or x.dtype
     b, s, d = x.shape
     hd = d // num_heads
+    split = is_split(params)
+    width = params["receptance"]["kernel"].shape[-1]      # d, or d/M
+    heads = width // hd
     xf = x.float()
     dx = (_token_shift(x, x_prev) - x).float()
 
@@ -136,17 +174,25 @@ def rwkv6_projections(params: dict, x: torch.Tensor, num_heads: int,
     dd = torch.einsum("nbsr,nrd->nbsd", z, lb)
     mixed = base + dx * dd                            # (5, b, s, d)
     xw, xk, xv, xr, xg = (m.to(cdt) for m in mixed)
+    # the decay LoRA's hidden layer, whole width
+    hid = torch.tanh(xw.float() @ params["w_lora_a"].float())
+    if split:
+        # whole-width work that feeds split projections: the ddlerp mix
+        # and the decay LoRA's hidden layer are computed alike on every
+        # rank; each enters the region, so their gradients (and those of
+        # mu_base and the LoRAs) are summed over the ranks, whole and equal
+        xk, xv, xr, xg, hid = (into_model(t) for t in (xk, xv, xr, xg, hid))
 
     r = apply_dense(params["receptance"], xr, 1, cdt).reshape(
-        b, s, num_heads, hd)
-    k = apply_dense(params["key"], xk, 1, cdt).reshape(b, s, num_heads, hd)
-    v = apply_dense(params["value"], xv, 1, cdt).reshape(b, s, num_heads, hd)
+        b, s, heads, hd)
+    k = apply_dense(params["key"], xk, 1, cdt).reshape(b, s, heads, hd)
+    v = apply_dense(params["value"], xv, 1, cdt).reshape(b, s, heads, hd)
     g = F.silu(apply_dense(params["gate"], xg, 1, cdt))
 
-    w_logit = (params["w_base"].float()
-               + torch.tanh(xw.float() @ params["w_lora_a"].float())
-               @ params["w_lora_b"].float())
-    w = torch.exp(-torch.exp(w_logit)).reshape(b, s, num_heads, hd)
+    w_logit = (_rank_columns(params, params["w_base"], width).float()
+               + hid @ _rank_columns(params, params["w_lora_b"],
+                                     width).float())
+    w = torch.exp(-torch.exp(w_logit)).reshape(b, s, heads, hd)
     return r, k, v, g, w
 
 
@@ -309,20 +355,27 @@ def apply_rwkv6_timemix(params: dict, x: torch.Tensor, num_heads: int, *,
                         use_kernel: bool = False, compute_dtype=None):
     """The full RWKV-6 time-mix.  Returns (y, (final wkv state, last
     token)).  ``use_kernel`` runs the WKV through ``kernels.ops.wkv6`` (the
-    CUDA kernel from a zero state), else the exact scan."""
+    CUDA kernel from a zero state), else the exact scan.  A split
+    time-mix runs the WKV on its h/M heads (``state`` and the final state
+    those heads' (b, h/M, n, n)), the same kernel at fewer heads, and its
+    row-parallel output is summed over the ranks."""
     b, s, d = x.shape
     hd = d // num_heads
     cdt = compute_dtype or x.dtype
     r, k, v, g, w = rwkv6_projections(params, x, num_heads, x_prev, cdt)
-    u = params["u"].float().reshape(num_heads, hd)
+    heads, width = r.shape[2], r.shape[2] * hd
+    u = _rank_columns(params, params["u"], width).float().reshape(heads, hd)
     if use_kernel:
         from repro_torch.kernels import ops as kops
         out, final = kops.wkv6(r, k, v, w, u, state)
     else:
         out, final = wkv6_scan_ref(r, k, v, w, u, state)
-    out = apply_groupnorm(params["ln_x"], out.reshape(b, s, d).to(cdt),
-                          num_heads)
-    y = apply_dense(params["output"], out * g.to(cdt), 1, cdt)
+    # ln_x is a group norm with one group per head: the rank's h/M groups
+    ln_x = {n: _rank_columns(params, t, width)
+            for n, t in params["ln_x"].items()}
+    out = apply_groupnorm(ln_x, out.reshape(b, s, width).to(cdt), heads)
+    y = apply_dense(params["output"], out * g.to(cdt), 1, cdt,
+                    reduce=is_split(params))
     return y, (final, x[:, -1])
 
 
@@ -357,15 +410,23 @@ def apply_rwkv6_channelmix(params: dict, x: torch.Tensor, *,
                            x_prev: Optional[torch.Tensor] = None,
                            compute_dtype=None):
     """RWKV channel-mix: squared-ReLU FFN with token shift and a
-    receptance gate.  Returns (y, last token)."""
+    receptance gate.  Returns (y, last token).  Split, the FFN is the
+    rank's slice of the hidden width (``key`` column-, ``value``
+    row-parallel, summed over the ranks); the receptance gate multiplies
+    the *summed* output elementwise, so its ``receptance`` is gathered
+    whole and computed outside the region, alike on every rank (over the
+    whole sequence, then taken at the summed output's positions)."""
     cdt = compute_dtype or x.dtype
     dx = _token_shift(x, x_prev) - x
     xk = x + dx * params["mu_k"].to(cdt)
     xr = x + dx * params["mu_r"].to(cdt)
-    kk = torch.square(F.relu(apply_dense(params["key"], xk, 1, cdt)))
-    vv = apply_dense(params["value"], kk, 1, cdt)
+    kk = torch.square(F.relu(apply_dense(params["key"],
+                                         into_region(params, xk), 1, cdt)))
+    vv = apply_dense(params["value"], kk, 1, cdt, reduce=is_split(params))
     rr = torch.sigmoid(apply_dense(params["receptance"], xr, 1, cdt))
-    return rr * vv, x[:, -1]
+    # the whole gate at the positions the summed output left at (a
+    # sequence-parallel stream's: the rank's own)
+    return own_positions(rr, vv.shape[1]) * vv, x[:, -1]
 
 
 # ---------------------------------------------------------------------------
@@ -463,14 +524,37 @@ def apply_mamba(params: dict, x: torch.Tensor, *, state_dim: int = 16,
                 conv_state: Optional[torch.Tensor] = None,
                 compute_dtype=None):
     """Mamba block forward from the carries (zeros when None).  Returns
-    (y, (ssm state (b, c, n) float32, conv carry (b, k − 1, c)))."""
+    (y, (ssm state (b, c, n) float32, conv carry (b, k − 1, c))); a split
+    block's carries are its c/M channels, and its output is summed over
+    the ranks."""
     cdt = compute_dtype or x.dtype
-    xz = apply_dense(params["in_proj"], x, 1, cdt)
+    split = is_split(params)
+    if split:
+        # in_proj's out dim is [x | z]: a rank's share is its channels'
+        # block of each half, [r·c/M, (r+1)·c/M) and c + the same, sliced
+        # from the leaf gathered whole; through into_model, so the
+        # leaf's gradient (the rank's blocks) is summed over the ranks
+        c = params["conv_b"].shape[0]
+        kernel = into_model(params["in_proj"]["kernel"])
+        half, lo = kernel.shape[-1] // 2, model_rank() * c
+        xz = apply_dense({"kernel": torch.cat(
+            [kernel[:, lo:lo + c], kernel[:, half + lo:half + lo + c]], -1)},
+            into_model(x), 1, cdt)
+    else:
+        xz = apply_dense(params["in_proj"], x, 1, cdt)
     xs, z = xz.chunk(2, dim=-1)
     xs, new_conv = _causal_depthwise_conv(
         xs, params["conv_w"].to(cdt), params["conv_b"].to(cdt), conv_state)
     xs = F.silu(xs)
     proj = apply_dense(params["x_proj"], xs, 1, cdt)
+    if split:
+        # the reduce in the middle of the region: x_proj is row-parallel,
+        # and dt_low, B and C feed split compute (dt_proj's columns, the
+        # rank's channels of the scan), so they are summed over the ranks
+        # forward (whole on every rank, at every position: never a
+        # sequence's reduce-scatter), and their partial gradients summed
+        # backward
+        proj = into_model(out_of_model(proj))
     dt_rank = proj.shape[-1] - 2 * state_dim
     dt_low, B, C = proj.split([dt_rank, state_dim, state_dim], dim=-1)
     dt = F.softplus(apply_dense(params["dt_proj"], dt_low, 1, cdt).float())
@@ -478,4 +562,5 @@ def apply_mamba(params: dict, x: torch.Tensor, *, state_dim: int = 16,
         xs.float(), dt, params["A_log"].float(), B.float(), C.float(),
         params["D"].float(), ssm_state)
     y = y.to(cdt) * F.silu(z)
-    return apply_dense(params["out_proj"], y, 1, cdt), (new_ssm, new_conv)
+    return (apply_dense(params["out_proj"], y, 1, cdt, reduce=split),
+            (new_ssm, new_conv))

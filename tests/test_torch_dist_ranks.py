@@ -365,11 +365,65 @@ def tp_train(rank, world, shape, names, arch, overrides, jax_params, batch,
     """:func:`sharded_train`'s steps, then what shows the tensor-parallel
     split on this rank: whether the first block's layers and the
     embedding were handed split (``ModelShards``), its local query heads
-    and experts, the calls to the "out of the region" operator in one
-    forward of the sharded loss, and the gradient of the leaf at
+    and experts, the region exits (all-reduces or reduce-scatters) and
+    the other region operators in one forward of the sharded loss
+    (:class:`_count_regions`), and the gradient of the leaf at
     ``probe`` = (path, dim) as the rank computes it (summed over the
     batch ranks) against the same slice of the one-process gradient of
     the whole batch."""
+    from repro_torch.distributed import sharding as sh
+
+    out, gp, _ = _tp_run(rank, world, shape, names, arch, overrides,
+                         jax_params, batch, steps, opt_kw, {"probe": probe},
+                         cfg_kw)
+    got = out.pop("probes")["probe"]
+    block = gp["blocks"][0]
+    ffn = block.get("ffn", block.get("moe"))
+    out.update(
+        split={"attn": sh.is_split(block["attn"]),
+               "kv_whole": "wk" in getattr(block["attn"], "whole", ()),
+               "ffn": sh.is_split(ffn),
+               "shared": sh.is_split(ffn.get("shared")),
+               "embed": sh.is_split(gp["embed"])},
+        q_heads=block["attn"]["wq"]["kernel"].shape[1],
+        experts=(ffn["wg"]["kernel"].shape[0] if "router" in ffn else None),
+        out_calls=out["regions"]["exits"], probe_shape=got["shape"],
+        probe_full_shape=got["full_shape"], probe_err=got["err"])
+    return out
+
+
+def tp_probe(rank, world, shape, names, arch, overrides, jax_params, batch,
+             steps, opt_kw, probes, cfg_kw=None):
+    """:func:`sharded_train`'s steps, then what shows the split on this
+    rank: which layers of the first block were handed split
+    (``ModelShards``) and the names they hold whole, the RWKV-6
+    time-mix's local heads and the Mamba block's local channels, the
+    region operators of one forward of the sharded loss
+    (:class:`_count_regions`), and for each leaf path of ``probes`` (name
+    -> (path, dim)) the gradient the rank computes (summed over the batch
+    ranks) against the same slice of the one-process gradient (``dim``
+    None: whole), with the rank's gradient itself."""
+    from repro_torch.distributed import sharding as sh
+
+    out, gp, cfg = _tp_run(rank, world, shape, names, arch, overrides,
+                           jax_params, batch, steps, opt_kw, probes, cfg_kw)
+    block = gp["blocks"][0]
+    out["split"] = {k: sorted(v.whole) for k, v in block.items()
+                    if sh.is_split(v)}
+    if "time_mix" in block:
+        tm = block["time_mix"]
+        out["heads"] = (tm["receptance"]["kernel"].shape[1] * cfg.attention
+                        .num_heads // cfg.d_model)
+    if "mamba" in block:
+        out["channels"] = block["mamba"]["conv_b"].shape[0]
+    return out
+
+
+def _tp_run(rank, world, shape, names, arch, overrides, jax_params, batch,
+            steps, opt_kw, probes, cfg_kw):
+    """(:func:`sharded_train`'s results with the ``regions`` of one forward
+    of the sharded loss and the gradient ``probes``, the gathered
+    parameters, the config) for :func:`tp_train` and :func:`tp_probe`."""
     import dataclasses
 
     import torch
@@ -394,48 +448,85 @@ def tp_train(rank, world, shape, names, arch, overrides, jax_params, batch,
     for t in tree_leaves(params):
         t.requires_grad_(True)
     tb = {k: torch.from_numpy(v) for k, v in batch.items()}
-    path, dim = probe
-    full = torch.autograd.grad(make_loss_fn(api)(params, tb)[0],
-                               _get(params, path))[0]
+    paths = {k: p for k, (p, _) in probes.items()}
+    full = dict(zip(paths, torch.autograd.grad(
+        make_loss_fn(api)(params, tb)[0],
+        [_get(params, p) for p in paths.values()]) if paths else ()))
     _, psh = shlib.params_shardings(box_like(params, api.axes()), mesh)
     dp = shlib.place(params, psh, requires_grad=True)
     db = shlib.place(tb, shlib.batch_shardings(tb, mesh))
-    calls = [0]
-    forward = sh._OutOfModel.forward
-
-    def counting(ctx, x, group):
-        calls[0] += 1
-        return forward(ctx, x, group)
-
-    sh._OutOfModel.forward = staticmethod(counting)
     with sh.use_mesh(mesh):
-        gp = shlib.gather_params(dp, mesh)
-        try:
+        with _count_regions() as counter:
+            gp = shlib.gather_params(dp, mesh, cfg=cfg)
             share, _ = shlib._sharded_loss(api, gp, {k: shlib.local(v)
                                                      for k, v in db.items()},
                                            mesh)
-        finally:
-            sh._OutOfModel.forward = staticmethod(forward)
-        leaf = _get(gp, path)
-        grad = sh.batch_all_reduce(torch.autograd.grad(share, leaf)[0],
-                                   mesh)
-    n = leaf.shape[dim]
-    want = full.narrow(dim, sh.model_rank(mesh) * n, n) if n < full.shape[
-        dim] else full
-    block = gp["blocks"][0]
-    ffn = block.get("ffn", block.get("moe"))
-    out.update(
-        split={"attn": sh.is_split(block["attn"]),
-               "kv_whole": "wk" in getattr(block["attn"], "whole", ()),
-               "ffn": sh.is_split(ffn),
-               "shared": sh.is_split(ffn.get("shared")),
-               "embed": sh.is_split(gp["embed"])},
-        q_heads=block["attn"]["wq"]["kernel"].shape[1],
-        experts=(ffn["wg"]["kernel"].shape[0] if "router" in ffn else None),
-        out_calls=calls[0],
-        probe_shape=list(grad.shape), probe_full_shape=list(full.shape),
-        probe_err=float((grad - want).abs().max() / full.abs().max()))
-    return out
+        leaves = [_get(gp, p) for p in paths.values()]
+        grads = [sh.batch_all_reduce(g, mesh) for g in
+                 (torch.autograd.grad(share, leaves) if leaves else ())]
+    r = sh.model_rank(mesh)
+    got = {}
+    for (name, (_, dim)), g in zip(probes.items(), grads):
+        want = full[name]
+        if dim is not None and g.shape[dim] < want.shape[dim]:
+            n = g.shape[dim]
+            want = want.narrow(dim, r * n, n)
+        got[name] = {"shape": list(g.shape),
+                     "full_shape": list(full[name].shape),
+                     "err": float((g - want).abs().max()
+                                  / full[name].abs().max()),
+                     "grad": g.detach().numpy().copy()}
+    out.update(regions=counter.counts, probes=got)
+    return out, gp, cfg
+
+
+class _count_regions:
+    """Counts, while active, the calls of the region operators over
+    ``model`` in this rank's forwards: ``out_of_model`` (an all-reduce),
+    ``enter_summed`` / ``enter_own`` (a sequence's all-gather whose
+    backward reduce-scatters / takes the rank's positions), ``exit`` (a
+    reduce-scatter over the sequence), ``own`` (a whole output sliced to
+    the rank's positions); ``exits`` is the region exits in either form
+    (``out_of_model`` + ``exit``); ``seq_shapes`` the shapes that enter
+    and leave over the sequence (the residual's)."""
+
+    OPS = (("_OutOfModel", "out_of_model"), ("_EnterSeq", None),
+           ("_ExitSeq", "exit"), ("_OwnSeq", "own"))
+
+    def __enter__(self):
+        from repro_torch.distributed import sharding as sh
+
+        counts = {"out_of_model": 0, "enter_summed": 0, "enter_own": 0,
+                  "exit": 0, "own": 0}
+        shapes = set()
+        self.counts, self.shapes, self.saved = counts, shapes, {}
+        for cls, name in self.OPS:
+            fn = getattr(sh, cls)
+            forward = self.saved[cls] = fn.forward
+
+            def counting(ctx, x, *args, _fwd=forward, _name=name):
+                out = _fwd(ctx, x, *args)
+                if _name is None:
+                    counts["enter_summed" if args[-1] else "enter_own"] += 1
+                    shapes.add(tuple(x.shape))
+                else:
+                    counts[_name] += 1
+                    if _name == "exit":
+                        shapes.add(tuple(out.shape))
+                return out
+
+            fn.forward = staticmethod(counting)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.distributed import sharding as sh
+
+        for cls, forward in self.saved.items():
+            getattr(sh, cls).forward = staticmethod(forward)
+        self.counts["exits"] = self.counts["out_of_model"] + self.counts[
+            "exit"]
+        self.counts["seq_shapes"] = sorted(self.shapes)
+        return False
 
 
 def vocab_nll(rank, world, logits, labels, weights):
@@ -467,7 +558,8 @@ def tp_serving(rank, world, cases):
     parameters, prompt, decode tokens (steps, b, 1)): the prefill's
     last-position logits, each decode step's logits and next tokens, and
     after the last step the whole KV cache (each rank's kv heads gathered
-    back over ``model``) and its cursor."""
+    back over ``model``) and its cursor, and every leaf of the decode
+    state (the WKV state and the Mamba carries whole)."""
     import torch
 
     from repro_torch.configs import get_config
@@ -476,6 +568,7 @@ def tp_serving(rank, world, cases):
     from repro_torch.models.registry import get_model
     from repro_torch.nn.module import box_like
     from repro_torch.train.step import make_prefill_step, make_serve_step
+    from repro_torch.tree import tree_flatten_with_path
 
     out = []
     for shape, arch, overrides, jax_params, prompt, tokens in cases:
@@ -505,10 +598,16 @@ def tp_serving(rank, world, cases):
             got["steps"].append((ref_logits.numpy(),
                                  logits.full_tensor().numpy(),
                                  ref_nxt.numpy(), nxt.full_tensor().numpy()))
-        got["kv"] = [(getattr(states.kv, f).numpy(),
-                      getattr(ds.kv, f).full_tensor().numpy())
-                     for f in ("k", "v")]
-        got["length"] = (states.kv.length.numpy(),
-                         ds.kv.length.full_tensor().numpy())
+        if getattr(states, "kv", None) is not None:
+            got["kv"] = [(getattr(states.kv, f).numpy(),
+                          getattr(ds.kv, f).full_tensor().numpy())
+                         for f in ("k", "v")]
+            got["length"] = (states.kv.length.numpy(),
+                             ds.kv.length.full_tensor().numpy())
+        got["states"] = [
+            ("/".join(map(str, path)), want.float().numpy(),
+             have.full_tensor().float().numpy())
+            for (path, want), (_, have) in zip(
+                tree_flatten_with_path(states), tree_flatten_with_path(ds))]
         out.append(got)
     return out

@@ -71,6 +71,21 @@ def test_multipod_decode_cell_runs_without_a_device(jdry, tmp_path):
     assert rec["memory"]["argument_bytes"] > 0
 
 
+def test_layers_option_cuts_the_walked_depth(tmp_path):
+    """``--layers 2`` walks two layers: smollm-135m's decode cell on 16×16
+    all-reduces once per split MLP and once for the embedding (its 9
+    heads do not divide over 16), and the record's name carries the
+    cut."""
+    r = _cli("--arch", "smollm-135m", "--shape", "decode_32k", "--layers",
+             "2", "--out-dir", str(tmp_path))
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "[OK] smollm-135m_decode_32k_16x16_L2" in r.stdout
+    rec = json.loads((tmp_path / "smollm-135m_decode_32k_16x16_L2.json")
+                     .read_text())
+    assert rec["opts"]["layers"] == 2
+    assert rec["collectives"]["counts"]["all-reduce"] == 2 + 1
+
+
 def test_train_cell_argument_bytes_are_the_local_shards(tmp_path):
     """A (16, 16) train cell of a reduced smollm: the step's argument
     bytes are the local shards of the parameters, both moments, the step

@@ -58,29 +58,30 @@ def jax_params(arch, overrides_items, cfg_kw_items=()):
     return jax.tree.map(np.asarray, p)
 
 
-def make_batch(cfg, seed: int = 0) -> dict:
-    """B rows of the family's inputs.  The labels leave rows out unevenly
-    (row 0 keeps one label, row 5 half), so each rank's count of valid
-    labels differs; the vlm's image positions are ignored (-1)."""
+def make_batch(cfg, seed: int = 0, seq: int = S) -> dict:
+    """B rows of ``seq`` tokens of the family's inputs.  The labels leave
+    rows out unevenly (row 0 keeps one label, row 5 half), so each rank's
+    count of valid labels differs; the vlm's image positions are ignored
+    (-1)."""
     rng = np.random.default_rng(seed)
     v = cfg.vocab_size
     if cfg.family == "encdec":
         batch = {"frames": rng.normal(size=(B, 12, cfg.frontend.embed_dim)
                                       ).astype(np.float32),
-                 "tokens": rng.integers(0, v, (B, S)).astype(np.int32)}
-        labels = rng.integers(0, v, (B, S)).astype(np.int32)
+                 "tokens": rng.integers(0, v, (B, seq)).astype(np.int32)}
+        labels = rng.integers(0, v, (B, seq)).astype(np.int32)
     elif cfg.family == "vlm":
         fe = cfg.frontend
         n_img = fe.tokens_per_item * fe.max_tiles
-        batch = {"tokens": rng.integers(0, v, (B, S)).astype(np.int32),
+        batch = {"tokens": rng.integers(0, v, (B, seq)).astype(np.int32),
                  "image_embeds": rng.normal(size=(B, n_img, fe.embed_dim)
                                             ).astype(np.float32)}
         labels = np.concatenate(
             [np.full((B, n_img), -1, np.int32),
-             rng.integers(0, v, (B, S)).astype(np.int32)], axis=1)
+             rng.integers(0, v, (B, seq)).astype(np.int32)], axis=1)
     else:
-        batch = {"tokens": rng.integers(0, v, (B, S)).astype(np.int32)}
-        labels = rng.integers(0, v, (B, S)).astype(np.int32)
+        batch = {"tokens": rng.integers(0, v, (B, seq)).astype(np.int32)}
+        labels = rng.integers(0, v, (B, seq)).astype(np.int32)
     labels[0, 1:] = -1
     labels[5, ::2] = -1
     batch["labels"] = labels
