@@ -66,6 +66,21 @@ Phases, each printing one JSON line; any failure exits non-zero:
                bf16 and float32, timed in bf16 beside SDPA, with the
                query tile each takes and the d 128 instantiations'
                ptxas registers.
+ 6a. query_split — the two flash kernels through their training entries
+               (``kernels.ops.flash_inhibitor`` / ``flash_attention``) on
+               M query slices of one attention, each at its ``q_offset``
+               over every key, one after the other as M ``model`` ranks
+               would under sequence parallelism: smollm-135m (9 / 3 heads
+               of 64, b 8 x 1,024, causal, M 4, both mechanisms) and
+               hymba-1.5b (25 / 5 of 64, b 1 x 4,096, window 1,024, M 16:
+               the Softmax, and the inhibitor's forward), bf16.  The
+               slices' outputs concatenated against the whole call
+               (offset 0, expected bit-equal) and the plain version, the
+               slices at offset 0 outside the tolerance; the backward (in
+               float32) dq concatenated and dk, dv summed over the slices
+               against the whole backward;
+               one launch a slice, no plain call; each slice's device µs
+               from one trace beside its bound.
   7. train   — smollm-135m@inhibitor, then smollm-135m, at full width and
                depth (float32 parameters, bf16 compute, remat "full"),
                through ``repro_torch.train.loop.train`` (the loop the
@@ -321,6 +336,7 @@ Then the ``kernels`` summary line, the ``nvidia-smi`` line and, last,
     python3 chip_smoke.py --only encdec
     python3 chip_smoke.py --only train_families
     python3 chip_smoke.py --only flash_parity
+    python3 chip_smoke.py --only query_split
     python3 chip_smoke.py --only distributed
 
 run phases 1, 2 and 3 (or 9, or 13, or 4, or 14, or 15, or 16, or 4
@@ -1567,6 +1583,228 @@ def phase_flash_parity(torch, kops, ptxas=()):
           "ptxas_d128": ptxas_registers(list(ptxas), "flash", "Li128E"),
           "results": results, "timings": timings})
     return results, timings
+
+
+# phase 6a: (label, kernels, forward only, batch, n, heads, kv heads,
+# head_dim, window, M) -- smollm-135m's attention at the train shape over
+# 4 ``model`` ranks, hymba-1.5b's over 16 at 4,096 positions (its first
+# slices lie inside the 1,024-key window's reach, the later ones slide)
+QUERY_SPLIT_SHAPES = [
+    ("smollm-135m", ("flash_inhibitor", "flash_attention"), (), 8, 1024,
+     9, 3, 64, None, 4),
+    ("hymba-1.5b", ("flash_attention", "flash_inhibitor"),
+     ("flash_inhibitor",), 1, 4096, 25, 5, 64, 1024, 16),
+]
+# the backward is held in float32 (the training entries at float32
+# operands: the forward kernel's float32 variant, then the same VJP): in
+# bf16 each slice's dk and dv are rounded per query head before the GQA
+# group's heads are summed, so a slice's part carries roundings of terms
+# that cancel in the whole and no per-element bound of its own
+QUERY_SPLIT_GRAD_TOL = ("float32: 1e-5 (sum of |each slice's part| + "
+                        "|whole|) + 1e-5 max|whole|: float32 sums over "
+                        "the query rows in another grouping")
+
+
+def slice_bound(name: str, b: int, n_q: int, off: int, heads: int,
+                kv_heads: int, d: int, window, elem: int) -> dict:
+    """Least time for one query slice at ``off``: q and out of its n_q
+    rows and K, V of the keys its rows attend (causal: 0 .. off + n_q - 1,
+    from off - window + 1 with a window) moved once; the operations of
+    :func:`flash_bound` on its attended (query head, key) pairs."""
+    lo = max(0, off - window + 1) if window else 0
+    keys = off + n_q - lo
+    nbytes = elem * (2 * b * n_q * heads * d + 2 * b * keys * kv_heads * d)
+    pairs = b * heads * sum(min(p + 1, window) if window else p + 1
+                            for p in range(off, off + n_q))
+    ops = OPS_PER_ELEMENT[name] * pairs * d
+    if name == "flash_inhibitor":   # the prefix sums of v, added per query
+        ops += b * (keys * kv_heads + n_q * heads) * d
+    rate = (FP32_INSTR_PER_S if name == "flash_inhibitor"
+            else FP32_OPS_PER_S if elem == 4 else BF16_TENSOR_OPS_PER_S)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / rate
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def slice_device_us(torch, launch, m: int, attempts: int = 3) -> list:
+    """Each of ``m`` slices' device µs: ``launch(i)`` for i < m, once
+    each, in one ``traced_records`` range; the flash kernels' records in
+    launch order, one a slice (a range that lost any record is traced
+    again with four times the pad)."""
+    for i in range(m):
+        launch(i)
+    torch.cuda.synchronize()
+    pad = 1000
+    for attempt in range(1, attempts + 1):
+        records, _, lost = traced_records(
+            lambda: [launch(i) for i in range(m)], pad, "query_split")
+        hits = sorted((e for e in records if e["cat"] == "kernel"
+                       and "flash" in e["name"]), key=lambda e: e["ts"])
+        if lost == 0 and len(hits) == m:
+            return [float(e["dur"]) for e in hits]
+        check(attempt < attempts, f"query_split: {len(hits)} flash kernel "
+              f"records of {m} slices, {lost} records lost")
+        pad *= 4
+    return []
+
+
+def query_split_case(torch, kops, results, gen, label, name, backward, b,
+                     n, heads, kv_heads, d, window, m) -> dict:
+    """One kernel on the ``m`` query slices of one attention (see phase
+    6a); returns its timings and checks."""
+    plain = flash_fns(name)[1]
+    entry = kops.flash_inhibitor if name == "flash_inhibitor" \
+        else kops.flash_attention
+    bf16 = torch.bfloat16
+    q, k, v = flash_operands(torch, gen, name, bf16, b, n, d=d, heads=heads,
+                             kv_heads=kv_heads)
+    g = torch.randn(q.shape, generator=gen, device="cuda").to(bf16)
+    s = n // m
+    kw = dict(causal=True, window=window)
+
+    # each rank's queries, projected from its own positions: contiguous
+    qs = [q[:, i * s:(i + 1) * s].contiguous() for i in range(m)]
+
+    def launch(i, offset=None):
+        return entry(qs[i], k, v, q_offset=i * s if offset is None
+                     else offset, **kw)
+
+    kops.reset_counts()
+    with torch.no_grad():
+        out = torch.cat([launch(i) for i in range(m)], dim=1)
+    torch.cuda.synchronize()
+    c = kops.counts()
+    check(c[name] == m and c[name + "_plain"] == 0,
+          f"query_split {label} {name}: counts {c} for {m} slices")
+    launches = c[name]
+    with torch.no_grad():
+        whole = entry(q, k, v, **kw)
+        ref = plain(q, k, v, **kw)
+        control = torch.cat([launch(i, 0) for i in range(m)], dim=1)
+    tol = flash_tol(torch, ref, bf16, n)
+    record(torch, results, name, f"query_split {label} M={m} bf16", out,
+           ref, control, tol)
+    err_whole = (out.float() - whole.float()).abs()
+    check(bool((err_whole <= tol).all()),
+          f"query_split {label} {name}: slices differ from the whole call "
+          f"by {err_whole.max().item()}")
+    t = {"shape": {"batch": b, "n": n, "heads": heads, "kv_heads": kv_heads,
+                   "head_dim": d, "window": window, "slices": m,
+                   "n_q": s},
+         "launches": launches,
+         "bit_equal_whole": bool(torch.equal(out, whole)),
+         "max_abs_err_whole": err_whole.max().item(),
+         "max_abs_err_plain": (out.float() - ref.float()).abs().max().item(),
+         "control_err_over_tol": ((control.float() - ref.float()).abs()
+                                  / tol).max().item()}
+    del whole, ref, control, out
+    if backward:
+        q32, k32, v32, g32 = (x.float() for x in (q, k, v, g))
+        leaves = [x.requires_grad_() for x in (q32.clone(), k32.clone(),
+                                               v32.clone())]
+        want = torch.autograd.grad(entry(*leaves, **kw), leaves, g32)
+        kops.reset_counts()
+        dq, dk, dv, mag = [], 0.0, 0.0, [0.0, 0.0]
+        for i in range(m):
+            off = i * s
+            qi = q32[:, off:off + s].clone().requires_grad_()
+            kv = [x.clone().requires_grad_() for x in (k32, v32)]
+            gq, gk, gv = torch.autograd.grad(
+                entry(qi, *kv, q_offset=off, **kw), [qi] + kv,
+                g32[:, off:off + s].contiguous())
+            dq.append(gq)
+            dk = dk + gk
+            dv = dv + gv
+            mag = [mag[0] + gk.abs(), mag[1] + gv.abs()]
+        c = kops.counts()
+        check(c[name] == m and c[name + "_plain"] == 0,
+              f"query_split {label} {name} backward: counts {c}")
+        launches += c[name]
+        dq = torch.cat(dq, dim=1)
+        errs = {}
+        for key, got, w, parts in (("dq", dq, want[0], None),
+                                   ("dk", dk, want[1], mag[0]),
+                                   ("dv", dv, want[2], mag[1])):
+            parts = got.abs() if parts is None else parts
+            gtol = 1e-5 * (parts + w.abs()) + 1e-5 * w.abs().max()
+            err = (got - w).abs()
+            check(bool((err <= gtol).all()),
+                  f"query_split {label} {name} {key}: {err.max().item()} "
+                  f"beyond tol")
+            share = (w.abs() > gtol).float().mean().item()
+            check(share >= MIN_NONZERO_SHARE,
+                  f"query_split {label} {name} {key}: only {share} of the "
+                  f"whole gradient exceeds tol")
+            errs[key] = {"max_abs_err": err.max().item(),
+                         "max_err_over_tol": (err / gtol).max().item(),
+                         "share_above_tol": share}
+        t["backward"] = errs
+        t["launches"] = launches
+        del want, dq, dk, dv, mag, leaves, q32, k32, v32, g32
+    us = slice_device_us(torch, lambda i: launch(i), m)
+    elem = 2
+    bounds = [slice_bound(name, b, s, i * s, heads, kv_heads, d, window,
+                          elem) for i in range(m)]
+    t["slices"] = [{"offset": i * s, "device_us": us[i],
+                    "bound_ms": bounds[i]["bound_ms"],
+                    "bound_by": bounds[i]["bound_by"]} for i in range(m)]
+    t["device_us"] = sum(us)
+    t["bound_ms"] = sum(x["bound_ms"] for x in bounds)
+    t["bound_by"] = max(bounds, key=lambda x: x["bound_ms"])["bound_by"]
+    t["ms"] = cuda_ms(lambda i: [launch(j) for j in range(m)], 5)
+    t["whole_ms"] = cuda_ms(lambda i: entry(q, k, v, **kw), 5)
+    t["plain_ms"] = cuda_ms(lambda i: plain(q, k, v, **kw), 1, warm=1)
+    t["library_ms"] = None
+    if name == "flash_attention":
+        import torch.nn.functional as F
+
+        # SDPA over the same slices, each with its offset's bool mask
+        def library(i):
+            outs = []
+            for j in range(m):
+                mask = offset_mask(torch, s, n, j * s, window)
+                outs.append(F.scaled_dot_product_attention(
+                    qs[j].transpose(1, 2), k.transpose(1, 2),
+                    v.transpose(1, 2), attn_mask=mask, enable_gqa=True))
+            return outs
+
+        t["library_ms"] = cuda_ms(library, 3)
+    del q, k, v, g, qs
+    torch.cuda.empty_cache()
+    return t
+
+
+def offset_mask(torch, n_q: int, n_k: int, off: int, window):
+    """(n_q, n_k) attendability of queries at off + i: causal, and within
+    ``window`` keys when given."""
+    qi = torch.arange(off, off + n_q, device="cuda")[:, None]
+    kj = torch.arange(n_k, device="cuda")[None, :]
+    m = kj <= qi
+    if window:
+        m = m & (kj > qi - window)
+    return m
+
+
+def phase_query_split(torch, kops) -> tuple:
+    """6a. The flash kernels' training entries on M query slices with an
+    offset (see the module docstring).  Returns (results, timings,
+    launches per kernel)."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    results, timings, launches = {}, {}, {}
+    for (label, names, fwd_only, b, n, heads, kv_heads, d, window,
+         m) in QUERY_SPLIT_SHAPES:
+        for name in names:
+            t = query_split_case(torch, kops, results, gen, label, name,
+                                 name not in fwd_only, b, n, heads,
+                                 kv_heads, d, window, m)
+            timings.setdefault(label, {})[name] = t
+            launches[name] = launches.get(name, 0) + t["launches"]
+    for r in results.values():
+        r["tol"] = FLASH_TOL
+    emit({"phase": "query_split", "results": results,
+          "grad_tol": QUERY_SPLIT_GRAD_TOL, "timings": timings,
+          "launches": launches})
+    return results, timings, launches
 
 
 def train_kernel(cfg) -> str:
@@ -4329,10 +4567,18 @@ def dist_arm(torch, kops, mesh, arch: str, depth, b: int = TRAIN_B,
     out["split_layers"] = split_layers(dparams, mesh, cfg)
     torch.cuda.empty_cache()
     kops.reset_counts()
-    dparams, losses, out["sharded"] = run(
-        shlib.make_sharded_train_step(api, opt, mesh), dparams, dstate,
-        dbatch)
+    # at one ``model`` rank no attention splits its query rows: offset 0,
+    # the training entry, never the cursor-carrying cached one
+    cached = []
+    with recording(kops, "flash_inhibitor_cached", cached), \
+            recording(kops, "flash_attention_cached", cached):
+        dparams, losses, out["sharded"] = run(
+            shlib.make_sharded_train_step(api, opt, mesh), dparams, dstate,
+            dbatch)
     counts = kops.counts()
+    out["cached_entry_calls"] = len(cached)
+    check(not cached, f"{arch}: the sharded step reached a cached flash "
+          f"entry {len(cached)} times")
     got = [shlib.local(p).detach() for p in tree_leaves(dparams)]
     out["losses"] = losses
     out["unsharded_losses"] = ref_losses
@@ -4831,7 +5077,7 @@ def main() -> int:
                                        "serve_moe", "serve_hybrid",
                                        "serve_vlm", "encdec",
                                        "train_families", "flash_parity",
-                                       "distributed"],
+                                       "query_split", "distributed"],
                     default=None,
                     help="run the device and build phases and this one, "
                     "then end")
@@ -4893,6 +5139,8 @@ def main() -> int:
             phase_train_families(torch, kops, smi)
         elif args.only == "flash_parity":
             phase_flash_parity(torch, kops, ptxas)
+        elif args.only == "query_split":
+            phase_query_split(torch, kops)
         elif args.only == "distributed":
             phase_distributed(torch, kops, smi)
         elif args.only == "serve_analysis":
@@ -4917,6 +5165,13 @@ def main() -> int:
     results.update(flash_results)
     timings.update(flash_timings)
     t_phase["parity"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    split_results, split_timings, split_launches = phase_query_split(torch,
+                                                                     kops)
+    for name, r in split_results.items():
+        results[name]["max_abs_err"] = max(results[name]["max_abs_err"],
+                                           r["max_abs_err"])
+    t_phase["query_split"] = time.perf_counter() - t0
     launches = {}
     serve_outs = []
     t0 = time.perf_counter()
@@ -5015,6 +5270,14 @@ def main() -> int:
             k["launches_train_families"] = train_family_launches.get(
                 k["name"], 0)
             k["launches_distributed"] = dist_launches.get(k["name"], 0)
+            # phase 6a: the training entries on query slices with offsets
+            k["launches_query_split"] = split_launches[k["name"]]
+            k["query_split"] = {
+                label: {key: t[k["name"]][key] for key in
+                        ("shape", "ms", "whole_ms", "device_us", "bound_ms",
+                         "bound_by", "plain_ms", "library_ms",
+                         "bit_equal_whole")}
+                for label, t in split_timings.items() if k["name"] in t}
             k["family_shapes"] = {
                 label: {key: t[k["name"]][key] for key in
                         ("ms", "device_us", "bound_ms", "bound_by",

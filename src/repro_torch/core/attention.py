@@ -20,6 +20,15 @@ after the reduce), and every count comes from the local weights.  Where
 K and V are projected whole, enter the region, and each rank keeps the
 kv heads its query heads attend (:func:`split_kv_heads`); a cache then
 holds those heads only.
+
+Query rows over ``model`` (:func:`query_split`): an attention computed
+whole (its heads do not fall into whole kv groups over ``model``) on a
+sequence-parallel stream computes only the rank's s/M query rows, as the
+reference's ``constrain(..., ("batch", "heads", "seq_sp"))`` shards its
+score rows where the heads do not divide.  Its queries come from the
+rank's own positions, its keys and values from the whole sequence, and
+every weight's gradient, a share of the rank's rows, is summed over
+``model`` (:func:`~repro_torch.distributed.sharding.at_positions`).
 """
 
 from __future__ import annotations
@@ -33,8 +42,9 @@ from repro_torch.core.mechanism import (
     DEFAULT_BLOCKED_THRESHOLD, DEFAULT_CHUNKED_THRESHOLD,
     MASK_FREE_BACKENDS, AttnShapes, PagedLayout, Structural, execute_plan,
     get_mechanism, plan_attention)
-from repro_torch.distributed.sharding import (into_model, is_split,
-                                              model_rank, model_size)
+from repro_torch.distributed.sharding import (
+    at_positions, enter_seq, into_model, is_split, model_rank, model_size,
+    seq_parallel_on)
 from repro_torch.nn.linear import apply_dense, dense_axes, init_dense
 
 
@@ -228,8 +238,17 @@ def _write_contiguous(cache: KVCache, k, v, n_q: int) -> None:
     cache.v[rows, pos] = v.to(cache.v.dtype)
 
 
+def query_split(params) -> bool:
+    """Does an attention of these gathered parameters compute only this
+    ``model`` rank's query rows?  Where it is computed whole (not handed
+    as a :class:`~repro_torch.distributed.sharding.ModelShards`) on a
+    sequence-parallel stream: its input holds the rank's s/M positions."""
+    return seq_parallel_on() and not is_split(params)
+
+
 def apply_attention(params: dict, cfg: AttentionConfig, x: torch.Tensor, *,
                     x_kv: Optional[torch.Tensor] = None,
+                    seq_kv: Optional[torch.Tensor] = None,
                     positions: Optional[torch.Tensor] = None,
                     cache=None, attn_mask: Optional[torch.Tensor] = None,
                     compute_dtype=None):
@@ -241,6 +260,14 @@ def apply_attention(params: dict, cfg: AttentionConfig, x: torch.Tensor, *,
     RoPE, plans with ``is_cross`` (so never a mask-free backend: it has
     no structural mask) and masks its keys only by the cache's valid
     length, when a cache is given.
+
+    Under :func:`query_split` ``x`` holds this ``model`` rank's s/M
+    positions of the sequence and ``y`` is its output there: the queries
+    are those rows, the keys and values the whole sequence's, from
+    ``seq_kv`` (b, s, embed), the norm output gathered by
+    :func:`~repro_torch.distributed.sharding.enter_seq` (gathered here,
+    with a reduce-scatter backward, when not given), or from ``x_kv``;
+    ``positions`` then are the whole sequence's (b, s).
     """
     from repro_torch.nn.rotary import apply_rope
 
@@ -248,6 +275,22 @@ def apply_attention(params: dict, cfg: AttentionConfig, x: torch.Tensor, *,
     b, n_q, _ = x.shape
     dev = x.device
     src = x if x_kv is None else x_kv
+    q_start = 0
+
+    rows = query_split(params)
+    if rows:
+        # each weight applied to the rank's share of the rows: its
+        # gradient a partial, summed over ``model`` to stay whole
+        params = {name: {k: at_positions(t) for k, t in leaf.items()}
+                  for name, leaf in params.items()}
+        if x_kv is None:
+            src = seq_kv if seq_kv is not None else enter_seq(x, summed=True)
+        # K / V's input gradient holds the rank's queries' share: summed
+        # by the gather's reduce-scatter where it entered ``summed``,
+        # else (a gather whose other readers compute whole, the
+        # encoder's memory) all-reduced here
+        src = into_model(src)
+        q_start = model_rank() * n_q
 
     split = is_split(params)
     kv_whole = split and "wk" in params.whole
@@ -265,22 +308,26 @@ def apply_attention(params: dict, cfg: AttentionConfig, x: torch.Tensor, *,
         v = into_model(v)[:, :, first:first + count]
 
     if positions is None:
-        ar = torch.arange(n_q, device=dev)[None, :]
+        n_pos = k.shape[1] if rows else n_q
+        ar = torch.arange(n_pos, device=dev)[None, :]
         if cache is None:
             positions = ar
         else:
             off = cache.length.long()
             positions = off[:, None] + ar if off.dim() == 1 else ar + off
-        positions = positions.expand(b, n_q)
+        positions = positions.expand(b, n_pos)
+    # a query split's queries sit at rank · s/M + i, its keys at 0 … s−1:
+    # rotated from 0, a slice would agree with the reference on rank 0 only
+    q_positions = positions[:, q_start:q_start + n_q] if rows else positions
 
     if cfg.use_rope and x_kv is None:
         if cfg.rope_pct >= 1.0:
-            q = apply_rope(q, positions, base=cfg.rope_base)
+            q = apply_rope(q, q_positions, base=cfg.rope_base)
             k = apply_rope(k, positions, base=cfg.rope_base)
         else:
             rd = int(cfg.head_dim * cfg.rope_pct)
             rd -= rd % 2
-            q = torch.cat([apply_rope(q[..., :rd], positions,
+            q = torch.cat([apply_rope(q[..., :rd], q_positions,
                                       base=cfg.rope_base), q[..., rd:]], -1)
             k = torch.cat([apply_rope(k[..., :rd], positions,
                                       base=cfg.rope_base), k[..., rd:]], -1)
@@ -303,7 +350,11 @@ def apply_attention(params: dict, cfg: AttentionConfig, x: torch.Tensor, *,
 
     if paged_layout is None:
         n_k = k.shape[1]
-    q_offset = cache.length if cache is not None else 0
+    # the offset moves the causal / window structure, and with it the
+    # inhibitor's count of attended keys a row (``normalize``) and the
+    # rows its backward visits a key chunk; a query split's keys past its
+    # last query are causally masked but valid (no kv_valid_len)
+    q_offset = cache.length if cache is not None else q_start
     scalar_cursor = cache is None or cache.length.dim() == 0
 
     shapes = AttnShapes(

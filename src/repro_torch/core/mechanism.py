@@ -567,11 +567,13 @@ def _inhibitor_blocked(q, k, v, *, mask=None, params, structural=None):
 
 
 def _structural_is_plain(s: Structural) -> bool:
-    """True when the Structural carries no decode-cache cursors: the
-    differentiable training kernel applies; otherwise the cursor-carrying
-    (inference only) entry point."""
-    return (s.kv_valid_len is None
-            and isinstance(s.q_offset, int) and s.q_offset == 0)
+    """True when the Structural carries no decode-cache cursors, only an
+    integer query offset (0, or a ``model`` rank's first query row of a
+    sequence-parallel attention, every key valid): the differentiable
+    training kernel applies, at that offset; otherwise the
+    cursor-carrying (inference only) entry point."""
+    return (s.kv_valid_len is None and isinstance(s.q_offset, int)
+            and not isinstance(s.q_offset, bool))
 
 
 def _inhibitor_pallas(q, k, v, *, mask=None, params, structural=None):
@@ -584,7 +586,7 @@ def _inhibitor_pallas(q, k, v, *, mask=None, params, structural=None):
         return kops.flash_inhibitor(q, k, v, params.score_scale,
                                     params.score_shift, params.signed,
                                     params.normalize, s.causal, s.window,
-                                    choice)
+                                    choice, s.q_offset)
     return kops.flash_inhibitor_cached(
         q, k, v, s.q_offset, s.kv_valid_len, score_scale=params.score_scale,
         score_shift=params.score_shift, signed=params.signed,
@@ -658,7 +660,7 @@ def _dotprod_pallas(q, k, v, *, mask=None, params, structural=None):
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     if _structural_is_plain(s):
         return kops.flash_attention(q, k, v, params.score_scale, s.causal,
-                                    s.window, choice)
+                                    s.window, choice, s.q_offset)
     return kops.flash_attention_cached(
         q, k, v, s.q_offset, s.kv_valid_len, score_scale=params.score_scale,
         causal=s.causal, window=s.window, choice=choice)

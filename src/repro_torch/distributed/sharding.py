@@ -44,7 +44,11 @@ parameters applied there through :func:`at_positions`).  A region is
 entered by :func:`enter_seq` (an all-gather over the sequence) and a
 split layer leaves it by :func:`region_exit` (a reduce-scatter over the
 sequence, which replaces :func:`out_of_model`'s all-reduce); a layer
-computed whole returns to the rank's positions by :func:`own_positions`.
+computed whole returns to the rank's positions by :func:`own_positions`,
+except an attention: one computed whole computes only the rank's query
+rows over the whole sequence's keys
+(:func:`repro_torch.core.attention.query_split`), its output already at
+the rank's positions and its weights' gradients summed over ``model``.
 Outside :func:`seq_parallel` (a sequence that does not divide over
 ``model`` or is shorter than M, every decode step) :func:`region_exit`
 all-reduces and the other two are the identity.
@@ -634,15 +638,16 @@ def enter_seq(x, summed: bool):
     ``model`` (identity outside :func:`seq_parallel`).  The all-gather's
     backward must match what the gathered tensor feeds:
 
-      * ``summed``: only split layers read it, each rank's gradient a
-        partial sum, so the backward is a reduce-scatter, and the layers'
-        :func:`into_model` passes the tensor through (it has entered);
+      * ``summed``: only split layers (or a query-split attention) read
+        it, each rank's gradient a partial sum, so the backward is a
+        reduce-scatter, and the layers' :func:`into_model` passes the
+        tensor through (it has entered);
       * else some reader computes alike on every rank (a whole layer, the
         RWKV ddlerp, the MoE's routing, K / V projected whole) and every
         reader's gradient is whole and the same on every rank (the split
-        ones sum theirs in :func:`into_model`), so the backward is the
-        rank's own positions of it, no sum: a sum would count it M
-        times."""
+        ones, and an attention computing the rank's query rows, sum theirs
+        in :func:`into_model`), so the backward is the rank's own
+        positions of it, no sum: a sum would count it M times."""
     if not seq_parallel_on():
         return x
     out = _EnterSeq.apply(x, model_group(), model_rank(), model_size(),
@@ -678,7 +683,12 @@ def own_positions(y, n: int):
     rank, at the rank's ``n`` = s/M positions of the residual under
     :func:`seq_parallel` (a slice forward, an all-gather backward, so the
     layer's gradient is whole and the same on every rank); unchanged
-    where it already has ``n`` positions or the stream is whole."""
+    where it already has ``n`` positions or the stream is whole.  Its
+    users: an MLP, a Mamba branch or an RWKV-6 mixer computed whole, the
+    MoE's output, the channel-mix gate, the embedding behind image
+    positions and the encoder's input projection.  Not an attention
+    computed whole: it computes only the rank's query rows
+    (:func:`repro_torch.core.attention.query_split`)."""
     if not seq_parallel_on() or y.shape[1] == n:
         return y
     return _OwnSeq.apply(y, model_group(), model_rank(), model_size())

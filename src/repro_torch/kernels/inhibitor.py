@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import functools
 import math
+import numbers
 from typing import Optional
 
 import torch
@@ -54,10 +55,15 @@ def pack_cursors(batch: int, q_offset, kv_valid_len, n_k: int,
                  device) -> torch.Tensor:
     """Per-row decode cursors as one (2, batch) int32 tensor: row 0 the
     query offsets, row 1 the KV valid lengths.  Scalars broadcast;
-    ``None`` means offset 0 / all ``n_k`` keys."""
+    ``None`` means offset 0 / all ``n_k`` keys.  A Python scalar is
+    filled on ``device`` (no host-to-device copy, which would wait for
+    the card at every launch of a training entry's query slice)."""
     def one(x, default):
-        t = torch.as_tensor(default if x is None else x, dtype=torch.int32,
-                            device=device)
+        x = default if x is None else x
+        if isinstance(x, numbers.Integral):
+            t = torch.full((), int(x), dtype=torch.int32, device=device)
+        else:
+            t = torch.as_tensor(x, dtype=torch.int32, device=device)
         return t.reshape(-1).expand(batch)
 
     return torch.stack([one(q_offset, 0), one(kv_valid_len, n_k)])

@@ -13,8 +13,11 @@ Port of :mod:`repro.kernels.ops`:
     kernels under ``torch.autograd.Function``: the forward is the kernel,
     the backward recomputes through the reference (as the reference's
     ``_fi_bwd`` / ``_fa_bwd``): the analytic, key-chunked inhibitor
-    backward and the lean Softmax backward of :mod:`repro_torch.core`.
-    ``*_cached`` carry per-row decode cursors and are inference only.
+    backward and the lean Softmax backward of :mod:`repro_torch.core`;
+    an integer ``q_offset`` places the queries at ``q_offset + i`` of the
+    keys' sequence (a ``model`` rank's query rows under sequence
+    parallelism), forward and backward.  ``*_cached`` carry per-row
+    decode cursors and are inference only.
   * :func:`wkv6` — the RWKV-6 WKV scan: from a zero state the kernel
     under ``torch.autograd.Function``, its backward the chunk-by-chunk
     autograd of :func:`repro_torch.nn.ssm.wkv6_chunked_vjp`; with a
@@ -300,17 +303,40 @@ def _prefill_choice(family: str, q, k, causal, window, cached: bool,
     return c
 
 
+def _offset(q_offset) -> int:
+    """A training entry's query offset: a Python int (the rank's first
+    query row of a sequence-parallel attention), never a tensor."""
+    if isinstance(q_offset, bool) or not isinstance(q_offset, int) \
+            or q_offset < 0:
+        raise TypeError(f"q_offset must be an int >= 0, got {q_offset!r}")
+    return q_offset
+
+
+def _backward_mask(q, k, causal, window, q_offset: int):
+    """The backward's mask at the forward's cursors: queries at
+    ``q_offset + i``, every key valid.  Keys past the last query are
+    causally masked but live, unlike a decode cache's (whose valid length
+    never passes its last query)."""
+    cursors = None
+    if q_offset:
+        cursors = kinhibitor.pack_cursors(q.shape[0], q_offset, None,
+                                          k.shape[1], q.device)
+    return kref.prefill_mask(q.shape[1], k.shape[1], causal=causal,
+                             window=window, cursors=cursors, device=q.device)
+
+
 class _FlashInhibitor(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, score_scale, score_shift, signed, normalize,
-                causal, window, choice):
+                causal, window, choice, q_offset):
         _prefill_choice("inhibitor", q, k, causal, window, False, choice)
         ctx.save_for_backward(q, k, v)
         ctx.kw = dict(score_scale=score_scale, score_shift=score_shift,
                       signed=signed, normalize=normalize)
-        ctx.mask = (causal, window)
+        ctx.mask = (causal, window, q_offset)
         return kinhibitor.flash_inhibitor_fwd(
-            q, k, v, causal=causal, window=window, **ctx.kw)
+            q, k, v, causal=causal, window=window,
+            q_offset=q_offset or None, **ctx.kw)
 
     @staticmethod
     def backward(ctx, g):
@@ -318,21 +344,29 @@ class _FlashInhibitor(torch.autograd.Function):
 
         q, k, v = ctx.saved_tensors
         with torch.profiler.record_function(BACKWARD_RANGE):
-            mask = kref._mask_for(q.shape[1], k.shape[1], *ctx.mask,
-                                  q.device)
+            # the offset mask also sets each row's count of attended keys
+            # (``normalize``) and the query rows each key chunk visits
+            # (``core.inhibitor._chunk_rows``)
+            mask = _backward_mask(q, k, *ctx.mask)
             grads = inhibitor_attention_vjp(q, k, v, g, mask=mask, **ctx.kw)
-        return grads + (None,) * 7
+        return grads + (None,) * 8
 
 
 def flash_inhibitor(q, k, v, score_scale=None, score_shift=0.5, signed=True,
-                    normalize=True, causal=True, window=None, choice=None):
+                    normalize=True, causal=True, window=None, choice=None,
+                    q_offset: int = 0):
     """Flash-inhibitor attention with a recompute-based backward: the
     forward runs the kernel (its plain version on the CPU), the backward
     the reference's analytic VJP (no score matrix is saved).  ``choice``
-    (a :class:`KernelChoice`) overrides the registry's launch choice."""
+    (a :class:`KernelChoice`) overrides the registry's launch choice.
+    ``q_offset`` (an int): the queries sit at positions ``q_offset + i``
+    of the keys' sequence, every key valid (a ``model`` rank's query rows
+    of a sequence-parallel attention); the causal / window structure
+    moves with it, forward and backward."""
     _local_only(q, k, v)
     return _FlashInhibitor.apply(q, k, v, score_scale, score_shift, signed,
-                                 normalize, causal, window, choice)
+                                 normalize, causal, window, choice,
+                                 _offset(q_offset))
 
 
 def flash_inhibitor_cached(q, k, v, q_offset, kv_valid_len, *,
@@ -352,35 +386,34 @@ def flash_inhibitor_cached(q, k, v, q_offset, kv_valid_len, *,
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, score_scale, causal, window, choice):
+    def forward(ctx, q, k, v, score_scale, causal, window, choice, q_offset):
         c = _prefill_choice("flash", q, k, causal, window, False, choice)
         ctx.save_for_backward(q, k, v)
-        ctx.cfg = (score_scale, causal, window)
+        ctx.cfg = (score_scale, causal, window, q_offset)
         return kflash.flash_attention_fwd(
             q, k, v, score_scale=score_scale, causal=causal, window=window,
-            block_q=c.block_q)
+            block_q=c.block_q, q_offset=q_offset or None)
 
     @staticmethod
     def backward(ctx, g):
         from repro_torch.core.dotprod import dot_product_attention_vjp
 
         q, k, v = ctx.saved_tensors
-        score_scale, causal, window = ctx.cfg
+        score_scale, causal, window, q_offset = ctx.cfg
         with torch.profiler.record_function(BACKWARD_RANGE):
-            mask = kref._mask_for(q.shape[1], k.shape[1], causal, window,
-                                  q.device)
+            mask = _backward_mask(q, k, causal, window, q_offset)
             grads = dot_product_attention_vjp(q, k, v, g, mask=mask,
                                               score_scale=score_scale)
-        return tuple(grads) + (None,) * 4
+        return tuple(grads) + (None,) * 5
 
 
 def flash_attention(q, k, v, score_scale=None, causal=True, window=None,
-                    choice=None):
+                    choice=None, q_offset: int = 0):
     """Flash (Softmax) attention with a recompute-based backward (see
-    :func:`flash_inhibitor`)."""
+    :func:`flash_inhibitor`, ``q_offset`` too)."""
     _local_only(q, k, v)
     return _FlashAttention.apply(q, k, v, score_scale, causal, window,
-                                 choice)
+                                 choice, _offset(q_offset))
 
 
 def flash_attention_cached(q, k, v, q_offset, kv_valid_len, *,

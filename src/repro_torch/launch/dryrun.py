@@ -34,13 +34,17 @@ rank's share of those layers (the RWKV-6 time-mix's h/M heads, the
 channel-mix's and the Mamba block's d_ff/M and c/M channels among
 them), and the record lists the regions' all-reduces over the ``model``
 groups.  The layers that compute whole on every ``model`` rank are
-charged whole: an attention whose heads per rank do not fall into whole
-kv groups (smollm-135m's 9 / 3 heads, hymba-1.5b's 25 / 5 on 16), the
-channel-mix's ``receptance`` gate, and any dim that does not divide over
-``model``.  Where ``model`` divides the sequence (the train and prefill
-cells) the norm regions are sequence-parallel, and the record lists the
-all-gathers that enter the regions and the reduce-scatters that leave
-them where an all-reduce left them before.
+charged whole: the channel-mix's ``receptance`` gate and any dim that
+does not divide over ``model``; so is an attention whose heads per rank
+do not fall into whole kv groups (smollm-135m's 9 / 3 heads, hymba-1.5b's
+25 / 5 on 16) where the sequence does not divide.  Where ``model``
+divides the sequence (the train and prefill cells) the norm regions are
+sequence-parallel, and the record lists the all-gathers that enter the
+regions and the reduce-scatters that leave them where an all-reduce left
+them before; such an attention is then charged at the rank's s/M query
+rows (its score and value products and its ``wq`` / ``wo`` products; ``wk``
+/ ``wv`` project the whole gathered sequence), and the record lists the
+all-reduces that sum its weights' gradients over ``model``.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch smollm-135m --shape train_4k

@@ -46,11 +46,16 @@ query heads per rank do not fall into whole kv groups, an RWKV-6
 time-mix whose heads do not divide over ``model``, and any layer whose
 dim does not divide over ``model`` (``param_spec``'s fallback).  Where
 ``model`` divides the sequence, the no-cache forwards (the train and
-prefill steps) keep the norm regions sequence-parallel (the reference's
-``seq_sp``): the residual on each rank's s/M positions, each region
-entered by an all-gather and left by a reduce-scatter over the
-sequence; elsewhere (every decode step) regions all-reduce their
-output.
+prefill steps, with or without microbatches, and the remat recompute,
+which takes the sequence split again) keep the norm regions
+sequence-parallel (the reference's ``seq_sp``): the residual on each
+rank's s/M positions, each region entered by an all-gather and left by a
+reduce-scatter over the sequence, and an attention computed whole
+computes only the rank's s/M query rows over the whole sequence's keys
+(``core.attention.query_split``: the reference's score rows over
+``model``), its weights' gradients summed over ``model``; elsewhere
+(every decode step) regions all-reduce their output and such an
+attention computes every row.
 
 Global semantics the local compute keeps, so that the sharded step
 equals the single-device one: the loss is the all-reduced NLL sum over
@@ -544,7 +549,9 @@ def make_sharded_prefill_step(api, mesh, batch_chunks: int = 8) -> Callable:
     :func:`repro_torch.train.step.make_prefill_step` on the rank's rows
     under the mesh, each chunk's last-position logits all-gathered over
     ``model`` where they are vocab-parallel; the logits a batch-sharded
-    DTensor."""
+    DTensor.  Under sequence parallelism the last position lies on the
+    last ``model`` rank's slice; the final norm's output is gathered over
+    the sequence into the head, so every rank's logits hold it."""
     from torch.distributed.tensor import DTensor
 
     from repro_torch.train.step import make_prefill_step

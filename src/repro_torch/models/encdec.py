@@ -27,7 +27,9 @@ layer's new rows into its slice in place and advances every cursor.
 
 Under the sharded steps the self- and cross-attentions, the MLPs, the
 embedding and the head compute tensor-parallel over ``model`` through
-the same layers as the decoder-only families.
+the same layers as the decoder-only families; on a sequence-parallel
+stream an attention computed whole computes the rank's query rows, over
+the whole sequence's keys (self) or the whole memory (cross).
 """
 
 from __future__ import annotations
@@ -40,7 +42,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.attention import (AttentionConfig, KVCache,
                                         apply_attention, attention_axes,
-                                        init_attention)
+                                        init_attention, query_split)
 from repro_torch.device import resolve_device
 from repro_torch.distributed.sharding import (
     constrain, enter_seq, into_region, model_size, own_positions,
@@ -161,13 +163,24 @@ def _sublayer(lp, h, fn):
                          h.shape[1])
 
 
+def _attend(lp, acfg: AttentionConfig, h, cdt, **kw):
+    """The attention ``lp`` on the norm output ``h`` (at the residual's
+    positions) -> (its output at those positions, cache').  One computed
+    whole on a sequence-parallel stream takes its queries from ``h``
+    itself (:func:`~repro_torch.core.attention.query_split`); a split one
+    reads ``h`` gathered over the sequence and leaves its region at the
+    rank's positions."""
+    x = h if query_split(lp) else enter_seq(h, summed=tfm.reads_split(lp))
+    return apply_attention(lp, acfg, x, compute_dtype=cdt, **kw)
+
+
 def _enc_block(lp, cfg: ModelConfig, h, positions, sp: bool = False):
     cdt = cfg.cdtype
     with seq_parallel(sp):
-        h = h + _sublayer(lp["attn"], tfm._apply_norm(cfg, lp["ln1"], h),
-                          lambda g: apply_attention(
-                              lp["attn"], _enc_attn_cfg(cfg), g,
-                              positions=positions, compute_dtype=cdt)[0])
+        # non-causal: a query split's offset moves no mask
+        h = h + _attend(lp["attn"], _enc_attn_cfg(cfg),
+                        tfm._apply_norm(cfg, lp["ln1"], h), cdt,
+                        positions=positions)[0]
         h = h + _sublayer(lp["ffn"], tfm._apply_norm(cfg, lp["ln2"], h),
                           lambda g: _apply_ffn(lp["ffn"], g, cdt))
     return constrain(h, "batch", "seq_sp", "embed")
@@ -189,7 +202,10 @@ def encode(params: dict, cfg: ModelConfig,
         for lp in params["encoder"]:
             x = (tfm.remat_block(cfg, _enc_block, lp, cfg, x, positions, sp)
                  if remat else _enc_block(lp, cfg, x, positions, sp))
-        # gathered whole before the decoder's cross-attentions read it
+        # gathered whole before the decoder's cross-attentions read it;
+        # its gradient arrives whole and alike on every rank (a split or a
+        # query-split cross-attention sums its own share over ``model``),
+        # so the backward keeps the rank's positions
         return enter_seq(tfm._apply_norm(cfg, params["enc_norm"], x),
                          summed=False)
 
@@ -198,18 +214,15 @@ def _dec_block(lp, cfg: ModelConfig, h, memory, positions, cache=None,
                sp: bool = False):
     cdt = cfg.cdtype
     with seq_parallel(sp):
-        sa = lp["self_attn"]
-        a, new_kv = apply_attention(
-            sa, cfg.attention,
-            enter_seq(tfm._apply_norm(cfg, lp["ln1"], h),
-                      summed=tfm.reads_split(sa)),
-            positions=positions, cache=cache, compute_dtype=cdt)
-        h = h + own_positions(a, h.shape[1])
-        h = h + _sublayer(lp["cross_attn"],
-                          tfm._apply_norm(cfg, lp["ln_cross"], h),
-                          lambda g: apply_attention(
-                              lp["cross_attn"], _cross_attn_cfg(cfg), g,
-                              x_kv=memory, compute_dtype=cdt)[0])
+        a, new_kv = _attend(lp["self_attn"], cfg.attention,
+                            tfm._apply_norm(cfg, lp["ln1"], h), cdt,
+                            positions=positions, cache=cache)
+        h = h + a
+        # a query split's rows attend the whole memory: its gradient into
+        # the memory is the rank's rows' share, summed in apply_attention
+        h = h + _attend(lp["cross_attn"], _cross_attn_cfg(cfg),
+                        tfm._apply_norm(cfg, lp["ln_cross"], h), cdt,
+                        x_kv=memory)[0]
         h = h + _sublayer(lp["ffn"], tfm._apply_norm(cfg, lp["ln2"], h),
                           lambda g: _apply_ffn(lp["ffn"], g, cdt))
     return constrain(h, "batch", "seq_sp", "embed"), new_kv

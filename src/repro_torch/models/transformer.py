@@ -40,8 +40,10 @@ Under the sharded steps (:mod:`repro_torch.launch.shardings`) a layer
 handed as a :class:`~repro_torch.distributed.sharding.ModelShards`
 computes tensor-parallel over ``model`` (attention heads, MLP hidden,
 experts, the hybrid family's Mamba inner channels, vocabulary rows: the
-logits are then this rank's vocabulary columns).  Outside a mesh every
-layer is whole and the logits cover the vocabulary.
+logits are then this rank's vocabulary columns).  On a sequence-parallel
+stream an attention computed whole computes only the rank's query rows
+(``core.attention.query_split``).  Outside a mesh every layer is whole
+and the logits cover the vocabulary.
 """
 
 from __future__ import annotations
@@ -55,7 +57,8 @@ import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.attention import (
-    KVCache, PagedKVCache, apply_attention, attention_axes, init_attention)
+    KVCache, PagedKVCache, apply_attention, attention_axes, init_attention,
+    query_split)
 from repro_torch.device import resolve_device
 from repro_torch.distributed.sharding import (
     at_positions, constrain, enter_seq, into_region, is_split, model_size,
@@ -181,15 +184,20 @@ def apply_block(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
     h = constrain(h, "batch", "seq_sp", "embed")
     readers = [params["attn"]] + ([params["mamba"]]
                                   if cfg.family == "hybrid" else [])
-    h = enter_seq(h, summed=reads_split(*readers))
-    a, new_cache = apply_attention(params["attn"], cfg.attention, h,
-                                   positions=positions, cache=cache,
-                                   compute_dtype=cdt)
-    a = own_positions(a, n)
+    hs = enter_seq(h, summed=reads_split(*readers))
+    # a split attention reads the whole sequence and leaves its region at
+    # the rank's positions; one computed whole takes its queries from
+    # them, its keys and values from the whole sequence: either way its
+    # output lies at the residual's positions
+    rows = query_split(params["attn"])
+    a, new_cache = apply_attention(
+        params["attn"], cfg.attention, h if rows else hs,
+        seq_kv=hs if rows else None, positions=positions, cache=cache,
+        compute_dtype=cdt)
     carries = None
     if cfg.family == "hybrid":
         m, carries = ssmnn.apply_mamba(
-            params["mamba"], h, state_dim=cfg.ssm.state_dim, ssm_state=ssm,
+            params["mamba"], hs, state_dim=cfg.ssm.state_dim, ssm_state=ssm,
             conv_state=conv, compute_dtype=cdt)
         # two branches in one block: each split branch leaves its region
         # (summed over the ranks) before its scale, so branch_scale's
@@ -216,15 +224,18 @@ def apply_block(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
 
 
 def reads_split(*layers) -> bool:
-    """Do these layers, which read one gathered norm output, all compute
-    split from it, each rank's gradient of it a partial sum (the
-    all-gather's backward a reduce-scatter,
-    :func:`~repro_torch.distributed.sharding.enter_seq`)?  Not a layer
-    computed whole, an attention that projects K / V whole or an MoE (its
-    router).  (The RWKV-6 blocks gather for their mixers with ``summed``
-    False: the ddlerp mix and the receptance gate compute alike on every
-    rank.)"""
-    return all(is_split(p) and "wk" not in p.whole and "router" not in p
+    """Do these layers, which read one gathered norm output, each take a
+    partial sum of its gradient on every rank (the all-gather's backward
+    then a reduce-scatter,
+    :func:`~repro_torch.distributed.sharding.enter_seq`)?  A split layer
+    does, and so does an attention computing the rank's query rows
+    (:func:`~repro_torch.core.attention.query_split`: its K / V gradient
+    is its queries' share); not another layer computed whole, an
+    attention that projects K / V whole, or an MoE (its router).  (The
+    RWKV-6 blocks gather for their mixers with ``summed`` False: the
+    ddlerp mix and the receptance gate compute alike on every rank.)"""
+    return all(("wq" in p and query_split(p))
+               or (is_split(p) and "wk" not in p.whole and "router" not in p)
                for p in layers)
 
 

@@ -73,6 +73,20 @@ def _mesh(shape, names):
     return init_device_mesh("cpu", tuple(shape), mesh_dim_names=tuple(names))
 
 
+def with_fields(cfg, cfg_kw=None):
+    """``cfg`` with the fields of ``cfg_kw`` replaced; its ``"attention"``
+    entry, a tuple of (field, value) pairs (hashable, for the reference's
+    parameter cache), replaces fields of ``cfg.attention``.  Works on the
+    port's configs and the JAX package's alike."""
+    import dataclasses
+
+    kw = dict(cfg_kw or {})
+    if "attention" in kw:
+        kw["attention"] = dataclasses.replace(cfg.attention,
+                                              **dict(kw["attention"]))
+    return dataclasses.replace(cfg, **kw) if kw else cfg
+
+
 def _np(tree):
     from repro_torch.tree import tree_map
 
@@ -92,8 +106,6 @@ def sharded_train(rank, world, shape, names, arch, overrides, jax_params,
     parameters.  Every rank returns its local shards of the embedding
     table, its first moment and the tokens (the placement check); rank 0
     also the losses, metrics and the gathered parameters."""
-    import dataclasses
-
     import torch
 
     from repro_torch.configs import get_config
@@ -104,9 +116,7 @@ def sharded_train(rank, world, shape, names, arch, overrides, jax_params,
     from repro_torch.optim import AdamWConfig, init_adamw
     from repro_torch.tree import tree_leaves
 
-    cfg = get_config(arch).reduced(**overrides)
-    if cfg_kw:
-        cfg = dataclasses.replace(cfg, **cfg_kw)
+    cfg = with_fields(get_config(arch).reduced(**overrides), cfg_kw)
     api = get_model(cfg)
     mesh = _mesh(shape, names)
     opt = AdamWConfig(**opt_kw)
@@ -422,10 +432,10 @@ def tp_probe(rank, world, shape, names, arch, overrides, jax_params, batch,
 def _tp_run(rank, world, shape, names, arch, overrides, jax_params, batch,
             steps, opt_kw, probes, cfg_kw):
     """(:func:`sharded_train`'s results with the ``regions`` of one forward
-    of the sharded loss and the gradient ``probes``, the gathered
-    parameters, the config) for :func:`tp_train` and :func:`tp_probe`."""
-    import dataclasses
-
+    of the sharded loss, the gradient ``probes`` and the ``attention``
+    calls of that forward (:class:`_record_attention`), the gathered
+    parameters, the config) for :func:`tp_train`, :func:`tp_probe` and
+    :func:`sp_attention`."""
     import torch
 
     from repro_torch.configs import get_config
@@ -439,9 +449,7 @@ def _tp_run(rank, world, shape, names, arch, overrides, jax_params, batch,
 
     out = sharded_train(rank, world, shape, names, arch, overrides,
                         jax_params, batch, steps, 1, opt_kw, cfg_kw)
-    cfg = get_config(arch).reduced(**overrides)
-    if cfg_kw:
-        cfg = dataclasses.replace(cfg, **cfg_kw)
+    cfg = with_fields(get_config(arch).reduced(**overrides), cfg_kw)
     api = get_model(cfg)
     mesh = _mesh(shape, names)
     params = params_from_jax(jax_params, cfg, device="cpu")
@@ -456,7 +464,7 @@ def _tp_run(rank, world, shape, names, arch, overrides, jax_params, batch,
     dp = shlib.place(params, psh, requires_grad=True)
     db = shlib.place(tb, shlib.batch_shardings(tb, mesh))
     with sh.use_mesh(mesh):
-        with _count_regions() as counter:
+        with _count_regions() as counter, _record_attention() as attn:
             gp = shlib.gather_params(dp, mesh, cfg=cfg)
             share, _ = shlib._sharded_loss(api, gp, {k: shlib.local(v)
                                                      for k, v in db.items()},
@@ -476,7 +484,7 @@ def _tp_run(rank, world, shape, names, arch, overrides, jax_params, batch,
                      "err": float((g - want).abs().max()
                                   / full[name].abs().max()),
                      "grad": g.detach().numpy().copy()}
-    out.update(regions=counter.counts, probes=got)
+    out.update(regions=counter.counts, probes=got, attention=attn.calls)
     return out, gp, cfg
 
 
@@ -527,6 +535,86 @@ class _count_regions:
             "exit"]
         self.counts["seq_shapes"] = sorted(self.shapes)
         return False
+
+
+class _record_attention:
+    """Records, while active, every attention this rank computes
+    (``core.attention.apply_attention``), in call order: its query and
+    key rows (``q``, ``k``: the shapes its backend gets), the query
+    offset of its mask (``offset``: None where it builds none, the
+    cross-attention), and the RoPE positions of its queries and keys
+    (``q_positions``, ``k_positions``: row 0's, None without RoPE)."""
+
+    def __enter__(self):
+        from repro_torch.core import attention as att
+        from repro_torch.nn import rotary
+
+        self.calls, self.saved = [], {}
+        pending = {"offset": None, "rope": []}
+        calls = self.calls
+
+        def build_mask(cfg, n_q, n_k, q_offset, *args, **kw):
+            pending["offset"] = int(q_offset)
+            return self.saved["_build_mask"](cfg, n_q, n_k, q_offset, *args,
+                                             **kw)
+
+        def rope(x, positions, **kw):
+            pending["rope"].append(positions[0].tolist())
+            return self.saved["apply_rope"](x, positions, **kw)
+
+        def execute(plan, q, k, v, **kw):
+            structural = kw.get("structural")
+            offset = pending["offset"]
+            if structural is not None:
+                offset = int(structural.q_offset)
+            rope_rows = pending["rope"] or [None, None]
+            calls.append({"q": list(q.shape), "k": list(k.shape),
+                          "offset": offset, "q_positions": rope_rows[0],
+                          "k_positions": rope_rows[1],
+                          "backend": plan.backend})
+            pending.update(offset=None, rope=[])
+            return self.saved["execute_plan"](plan, q, k, v, **kw)
+
+        for mod, name, fn in ((att, "_build_mask", build_mask),
+                              (rotary, "apply_rope", rope),
+                              (att, "execute_plan", execute)):
+            self.saved[name] = getattr(mod, name)
+            setattr(mod, name, fn)
+        self.mods = {"_build_mask": att, "apply_rope": rotary,
+                     "execute_plan": att}
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.mods[name], name, fn)
+        return False
+
+
+def sp_attention(rank, world, shape, names, arch, overrides, jax_params,
+                 batch, steps, opt_kw, probes, cfg_kw=None):
+    """:func:`sharded_train`'s steps, then one forward of the sharded loss
+    on this rank (:func:`_tp_run`): its region operators, every attention
+    as the rank computed it (:class:`_record_attention`), the gradient
+    ``probes``; and the paths of the attentions handed split."""
+    from repro_torch.distributed import sharding as sh
+
+    out, gp, _ = _tp_run(rank, world, shape, names, arch, overrides,
+                         jax_params, batch, steps, opt_kw, probes, cfg_kw)
+
+    def attentions(node, path=()):
+        if isinstance(node, dict):
+            if "wq" in node:
+                yield path, node
+                return
+            for k in sorted(node):
+                yield from attentions(node[k], path + (k,))
+        elif isinstance(node, (list, tuple)):
+            for i, x in enumerate(node):
+                yield from attentions(x, path + (i,))
+
+    out["split_attn"] = ["/".join(map(str, p)) for p, a in attentions(gp)
+                         if sh.is_split(a)]
+    return out
 
 
 def vocab_nll(rank, world, logits, labels, weights):

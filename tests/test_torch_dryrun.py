@@ -193,6 +193,52 @@ def test_split_layers_do_a_quarter_of_the_matmul_flops_at_model_4():
     assert four["all_reduces"] > one["all_reduces"]
 
 
+def test_whole_attention_splits_its_query_rows_at_model_4():
+    """The same cell with 6 / 3 heads, which do not divide over 4: the
+    attention is computed whole on every rank of (1, 4), but on the
+    rank's s/4 query rows only (``core.attention.query_split``), so every
+    matmul but the K / V projections of the whole sequence splits four
+    ways (the score and value products and wq / wo with the rows, the MLP
+    and the vocabulary with their shards): 4 × a rank's matmul FLOPs are
+    the (1, 1) cell's plus 3 × those projections' (2 · rows · d · 3 · 16,
+    forward, input and weight gradients, two a layer)."""
+    code = textwrap.dedent("""
+        import json
+        import torch.distributed as dist
+        from torch.distributed.device_mesh import init_device_mesh
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+        import torch.distributed._tools.fake_collectives
+        from repro_torch.analysis.costmodel import MATMUL_OPS
+        from repro_torch.configs import get_config
+        from repro_torch.configs.base import ShapeConfig
+        from repro_torch.launch import dryrun
+
+        cfg = get_config("smollm-135m").reduced(num_heads=6,
+                                                num_kv_heads=3)
+        shape = ShapeConfig("tiny_train", 32, 8, "train")
+        out = {"kv": (cfg.num_layers * 2 * 3 * 2 * 8 * 32 * cfg.d_model
+                      * 3 * cfg.attention.head_dim)}
+        for m in (1, 4):
+            dist.init_process_group("fake", store=FakeStore(), rank=0,
+                                    world_size=m)
+            mesh = init_device_mesh("cpu", (1, m),
+                                    mesh_dim_names=("data", "model"))
+            rec, _ = dryrun._lower_one(cfg, shape, mesh, {"microbatches": 1})
+            dist.destroy_process_group()
+            out[m] = {"matmul": rec["costs"].flops_of(MATMUL_OPS),
+                      "flops": rec["costs"].flops}
+        print(json.dumps(out))
+    """)
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=ENV,
+                       capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0, r.stderr[-3000:]
+    out = json.loads(r.stdout.strip().splitlines()[-1])
+    one, four, kv = out["1"], out["4"], out["kv"]
+    assert 0 < kv < one["matmul"]
+    assert four["matmul"] * 4 == one["matmul"] + 3 * kv, (one, four, kv)
+    assert four["flops"] * 2 < one["flops"], (one, four)
+
+
 KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
          "collective-permute")
 

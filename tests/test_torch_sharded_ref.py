@@ -22,7 +22,6 @@ in tests/test_torch_train_optim.py.
 
 from __future__ import annotations
 
-import dataclasses
 import functools
 
 import jax
@@ -35,6 +34,7 @@ from repro.nn.module import unbox
 from repro.optim.adamw import AdamWConfig as JaxAdamWConfig
 from repro.optim.adamw import init_adamw as jax_init_adamw
 from repro.train.step import make_train_step as jax_make_train_step
+from test_torch_dist_ranks import with_fields
 
 OPT = dict(lr=1e-3, eps=1e-6)
 LOSS_REL = 1e-5
@@ -47,8 +47,7 @@ B, S = 8, 16
 
 
 def jax_cfg(arch, overrides, cfg_kw=None):
-    cfg = jax_config(arch).reduced(**overrides)
-    return dataclasses.replace(cfg, **cfg_kw) if cfg_kw else cfg
+    return with_fields(jax_config(arch).reduced(**overrides), cfg_kw)
 
 
 @functools.lru_cache(maxsize=None)
@@ -132,9 +131,7 @@ def check_against_reference(rank0, arch, overrides, batch, steps,
                                        microbatches, cfg_kw)
     got = [m["loss"] for m in rank0["metrics"]]
     np.testing.assert_allclose(got, losses, rtol=LOSS_REL)
-    cfg = get_config(arch).reduced(**overrides)
-    if cfg_kw:
-        cfg = dataclasses.replace(cfg, **cfg_kw)
+    cfg = with_fields(get_config(arch).reduced(**overrides), cfg_kw)
     assert_close_tree(rank0["params"], port_leaves(params, cfg), PARAM_REL,
                       "params")
     assert_close_tree(rank0["mu"], port_leaves(mu, cfg), MU_REL, "mu")

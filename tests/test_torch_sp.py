@@ -15,8 +15,10 @@ computed whole by a slice of its output (``own_positions``):
     forward, its all-gathers and reduce-scatters included, runs again in
     the backward): every layer splits, so every gather's backward is a
     reduce-scatter, and no activation is all-reduced;
-  * 6 / 3 heads on (1, 4): the attention computes whole on the gathered
-    sequence and keeps its own positions;
+  * 6 / 3 heads on (1, 4): the attention is computed whole, so each rank
+    computes its own query rows over the gathered sequence's keys (its
+    K / V's gather a reduce-scatter backward, its output at the rank's
+    positions: no slice);
   * reduced rwkv6-7b on (2, 2): the mixers read the whole sequence (token
     shift, WKV scan) behind a gather whose backward is the rank's slice
     (the ddlerp and the receptance gate compute alike on every rank);
@@ -48,7 +50,7 @@ CASES = {
                              out_of_model=0), (4, 8, 32)),
     "dense-1x4-whole-attention": (
         "smollm-135m", dict(ref.DENSE, num_heads=6, num_kv_heads=3), (1, 4),
-        None, 16, dict(enter_summed=3, enter_own=2, exit=3, own=2,
+        None, 16, dict(enter_summed=5, enter_own=0, exit=3, own=0,
                        out_of_model=0), (8, 4, 32)),
     "rwkv-2x2": ("rwkv6-7b", {}, (2, 2), None, 16,
                  dict(enter_summed=1, enter_own=4, exit=5, own=2,
