@@ -558,8 +558,8 @@ def audit_engine_file(path: Optional[str] = None) -> Dict[str, Any]:
 #: — export/validation/CLI code is deliberately outside (it runs when a
 #: trace is written, not while serving).
 TELEMETRY_SYNC_ROOTS = (
-    "_emit", "now", "begin", "end", "instant", "complete", "counter",
-    "set_meta", "set_thread_name", "request_submit", "request_admitted",
+    "_emit", "now", "begin", "end", "instant", "complete", "set_meta",
+    "set_thread_name", "request_submit", "request_admitted",
     "request_chunks", "request_paused", "request_resumed",
     "request_restaged", "request_decode", "request_finish",
     "request_cancel", "record", "histogram",

@@ -77,8 +77,16 @@ buckets at construction (with the tables zeroed, so warm-up writes land
 on the trash page, and the cursors restored), and the drain checks the
 counts against the proven retrace budget
 (``repro_torch.analysis.serve_static``).  ``EngineConfig.telemetry``
-turns on the span tracer and flight recorder (``serve.telemetry``); off,
+turns on the span tracer and flight recorder (``serve.telemetry``): the
+tick's phases on the engine track (inside ``tick``: ``prefill_pass``,
+whose admissions run inside ``scheduler``, with a ``prefill_chunk``
+around each chunk's step; then ``decode_step``, and ``emit``: the token
+appends, callbacks and finishing after the readback), each mirrored as a
+``torch.profiler`` range; off,
 ``Engine.tel`` is None and every hook is one ``is not None`` test.
+A token's latency samples (``Engine.stats()``' ``ttft_ms`` and
+``itl_ms``) are stamped on the host clock just after the readback that
+delivered it.
 """
 
 from __future__ import annotations
@@ -794,8 +802,8 @@ class Engine:
             self._tables_dirty = True
         return True
 
-    def _exec_chunks(self, slot: int, part: _PartialPrefill, upto: int,
-                     now: float) -> Optional[Request]:
+    def _exec_chunks(self, slot: int, part: _PartialPrefill,
+                     upto: int) -> Optional[Request]:
         """Run schedule chunks ``[part.next_chunk, upto)`` through the
         static prefill steps.  Between ticks the slot's cursor is pinned to
         the resume point ``pos``.  Returns the request when the batch
@@ -829,7 +837,11 @@ class Engine:
             if step.slot is not None:
                 step.slot.fill_(slot)
             self.counters["prefill_chunks"] += 1
+            if tr is not None:
+                tr.begin("prefill_chunk", start=start, width=cb)
             step()
+            if tr is not None:
+                tr.end("prefill_chunk")
             # each schedule entry covers exactly min(chunk, L - pos) new
             # tokens (left-shifted windows rewrite, they don't advance)
             part.pos = min(part.pos + self.cfg.prefill_chunk, L)
@@ -850,7 +862,7 @@ class Engine:
             return None
         nxt = self._select(step.out[0, last][None])[0]
         part.last_tok = int(nxt)  # sync: required — prefill's first token feeds host-side finish/stream logic
-        return self._complete_admission(slot, now)
+        return self._complete_admission(slot, time.perf_counter())
 
     # ---- public API ----
     def submit(self, req: Request):
@@ -1014,20 +1026,19 @@ class Engine:
     def _batch_cost(self, part: _PartialPrefill, upto: int) -> int:
         return sum(cb for _s, cb in part.schedule[part.next_chunk:upto])
 
-    def _append_token(self, req: Request, tok: int,
-                      now: Optional[float] = None):
-        """Record a generated token, stamp its latency sample, and fire
-        the streaming callback."""
+    def _append_token(self, req: Request, tok: int, now: float):
+        """Record a generated token, stamp its latency sample at ``now``
+        (the host clock just after the readback that delivered it), and
+        fire the streaming callback."""
         tok = int(tok)  # sync: host — tok is a host int from the tick's one readback
         req.output.append(tok)
         self.counters["generated_tokens"] += 1
-        if now is not None:
-            if len(req.output) == 1:
-                req.ttft_ms = (now - req._t_submit) * 1e3
-                self._lat["ttft_ms"].record(req.ttft_ms)
-            else:
-                self._lat["itl_ms"].record((now - req._t_last) * 1e3)
-            req._t_last = now
+        if len(req.output) == 1:
+            req.ttft_ms = (now - req._t_submit) * 1e3
+            self._lat["ttft_ms"].record(req.ttft_ms)
+        else:
+            self._lat["itl_ms"].record((now - req._t_last) * 1e3)
+        req._t_last = now
         if req.on_token is not None:
             try:
                 req.on_token(req, tok)
@@ -1064,7 +1075,7 @@ class Engine:
         return None
 
     def _advance_one(self, slot: int, quota: Optional[int], spent: int,
-                     now: float, reserved_upto: Optional[int] = None
+                     reserved_upto: Optional[int] = None
                      ) -> Tuple[int, Optional[Request]]:
         """Advance one in-progress admission by this tick's share of the
         budget.  Returns (padded tokens spent, finished request or None).
@@ -1092,7 +1103,7 @@ class Engine:
                         self._tables_dirty = True
                     if self.tel is not None:
                         self.tel.request_restaged(req.request_id)
-                    return self._advance_one(slot2, quota, spent, now)
+                    return self._advance_one(slot2, quota, spent)
                 self._prefill_stalled = True
                 part.paused = True
                 self.counters["paused_prefills"] += 1
@@ -1104,10 +1115,9 @@ class Engine:
                 return 0, None
         cost = self._batch_cost(part, upto)
         self._flush_tables("prefill")
-        return cost, self._exec_chunks(slot, part, upto, now)
+        return cost, self._exec_chunks(slot, part, upto)
 
-    def _run_prefills(self, quota: Optional[int],
-                      now: float) -> List[Request]:
+    def _run_prefills(self, quota: Optional[int]) -> List[Request]:
         """The tick's chunked-prefill pass: resume in-progress admissions
         first (staging order), then admit from the scheduler while slots
         and budget allow."""
@@ -1118,7 +1128,7 @@ class Engine:
         for slot in list(self.admitting):
             if slot not in self.admitting:
                 continue        # re-staged uncached under a new slot id
-            cost, fin = self._advance_one(slot, quota, spent, now)
+            cost, fin = self._advance_one(slot, quota, spent)
             spent += cost
             if fin is not None:
                 finished.append(fin)
@@ -1172,7 +1182,7 @@ class Engine:
             self._reset_slot(slot, part.pos)
             if self.paged:
                 self._tables_dirty = True
-            cost, fin = self._advance_one(slot, quota, spent, now,
+            cost, fin = self._advance_one(slot, quota, spent,
                                           reserved_upto=upto)
             spent += cost
             if fin is not None:
@@ -1234,7 +1244,6 @@ class Engine:
         # max_len hard-stop
         self._tick += 1
         self._progressed = False
-        now = time.perf_counter()
         tr = self.tel
         if tr is not None:
             tr.begin("tick", n=self._tick, active=len(self.active),
@@ -1250,7 +1259,7 @@ class Engine:
                 finished.append(self._finish(slot))
         if tr is not None:
             tr.begin("prefill_pass")
-        finished.extend(self._run_prefills(self._prefill_quota(), now))
+        finished.extend(self._run_prefills(self._prefill_quota()))
         if tr is not None:
             tr.end("prefill_pass")
         if not self.active:
@@ -1285,8 +1294,10 @@ class Engine:
                 self._set_cursor(slot, part.pos)
         self._progressed = True
         nxt = self._select(step.out).tolist()  # sync: required — the tick's one d2h readback (next tokens drive host finish logic)
+        now = time.perf_counter()
         if tr is not None:
             tr.end("decode_step")
+            tr.begin("emit")
         for slot in list(self.active):
             req = self.active[slot]
             self._append_token(req, nxt[slot], now)
@@ -1296,6 +1307,7 @@ class Engine:
                         and req.output[-1] == req.eos_id)):
                 finished.append(self._finish(slot))
         if tr is not None:
+            tr.end("emit")
             tr.end("tick")
         return finished
 

@@ -10,11 +10,16 @@ Port of :mod:`repro.serve.telemetry`, host-only and allocation-bounded:
     scheduler, decode step) plus instants for table uploads, CoW forks,
     evictions, and first-seen decode buckets (with kernel/plan
     provenance attached as args).  Events are 6-tuples appended to a
-    plain list — no objects, no I/O, no ``torch`` call — and the same
-    append feeds a bounded ``deque`` ring (the flight recorder).
-    Timestamps are host ``time.perf_counter`` readings, never device
-    events, so a trace says when the host issued work, not when the
-    card ran it.
+    plain list — no objects, no I/O — and the same append feeds a
+    bounded ``deque`` ring (the flight recorder).  Timestamps are host
+    ``time.perf_counter`` readings, never device events, so a trace says
+    when the host issued work, not when the card ran it;
+    ``Tracer.origin`` is the ``perf_counter`` reading at timestamp 0.
+    Each engine-track span is mirrored as a ``torch.profiler`` range
+    named ``repro_torch.serve.<span>`` (its only ``torch`` call, two
+    dispatcher calls a span and no transfer), so that a profiler trace
+    attributes device time to the tick's phases; request spans, which
+    cross ticks and do not nest, are not.
   * **Flight recorder** — the last ``ring`` events, dumped to JSON by
     the engine's error paths (:func:`dump_flight`).
   * **MetricsRegistry** — the engine's counters plus bounded reservoir
@@ -46,6 +51,7 @@ from pathlib import Path
 from typing import Any, Dict, List, Optional
 
 import numpy as np
+import torch
 
 SCHEMA = 1
 
@@ -60,8 +66,13 @@ REQ_TID_BASE = 1000
 #: terminal request states (exactly one instant per request track)
 TERMINALS = ("finish", "cancel", "truncated")
 
+#: an engine-track span ``name`` is mirrored as the profiler range
+#: RANGE_PREFIX + name
+RANGE_PREFIX = "repro_torch.serve."
+
 __all__ = [
     "SCHEMA", "PID", "TID_ENGINE", "REQ_TID_BASE", "TERMINALS",
+    "RANGE_PREFIX",
     "Histogram", "MetricsRegistry", "TelemetryConfig", "Tracer",
     "make_tracer", "to_chrome_trace", "write_trace", "dump_flight",
     "validate_chrome_trace", "summarize_chrome_trace", "main",
@@ -154,9 +165,6 @@ class MetricsRegistry:
         self.counters: Dict[str, int] = {}
         self.histograms: Dict[str, Histogram] = {}
 
-    def counter(self, name: str, inc: int = 1) -> None:
-        self.counters[name] = self.counters.get(name, 0) + inc
-
     def histogram(self, name: str, capacity: int = 512) -> Histogram:
         h = self.histograms.get(name)
         if h is None:
@@ -188,7 +196,7 @@ class TelemetryConfig:
 class Tracer:
     """Append-only span/event recorder.  An event is the 6-tuple
     ``(ts_us, ph, name, cat, tid, args)`` — ``ph`` is the Chrome
-    trace-event phase (B/E/i/X/C).  Emission is two list appends at
+    trace-event phase (B/E/i/X).  Emission is two list appends at
     most; export/validation cost is paid only when a trace is written.
 
     The ``request_*`` helpers encode the lifecycle span grammar in ONE
@@ -210,12 +218,16 @@ class Tracer:
         self.dropped = 0           # events evicted from the ring
         self.meta: Dict[str, Any] = {}
         self.thread_names: Dict[int, str] = {TID_ENGINE: "engine ticks"}
-        self._t0 = time.perf_counter()
+        # the open engine-track spans' profiler ranges, innermost last
+        self._ranges: List[torch.profiler.record_function] = []
+        #: ``time.perf_counter()`` at timestamp 0: an event at ``ts`` µs
+        #: happened at ``origin + ts * 1e-6`` on the host's clock
+        self.origin = time.perf_counter()
 
     # ---- core emit path (audited: zero host<->device transfers) ----
     def now(self) -> float:
         """Microseconds since tracer construction (trace timebase)."""
-        return (time.perf_counter() - self._t0) * 1e6
+        return (time.perf_counter() - self.origin) * 1e6
 
     def _emit(self, ts: Optional[float], ph: str, name: str, cat: str,
               tid: int, args: Optional[Dict[str, Any]]) -> None:
@@ -231,8 +243,14 @@ class Tracer:
     def begin(self, name: str, tid: int = TID_ENGINE, cat: str = "tick",
               **args) -> None:
         self._emit(None, "B", name, cat, tid, args or None)
+        if tid == TID_ENGINE:
+            rng = torch.profiler.record_function(RANGE_PREFIX + name)
+            rng.__enter__()
+            self._ranges.append(rng)
 
     def end(self, name: str, tid: int = TID_ENGINE) -> None:
+        if tid == TID_ENGINE and self._ranges:
+            self._ranges.pop().__exit__(None, None, None)
         self._emit(None, "E", name, "", tid, None)
 
     def instant(self, name: str, tid: int = TID_ENGINE, cat: str = "tick",
@@ -244,9 +262,6 @@ class Tracer:
         """X event spanning [start, now) — ``start`` from :meth:`now`."""
         args["_dur"] = self.now() - start
         self._emit(start, "X", name, cat, tid, args)
-
-    def counter(self, name: str, tid: int = TID_ENGINE, **series) -> None:
-        self._emit(None, "C", name, "tick", tid, series)
 
     def set_meta(self, key: str, value: Any) -> None:
         """Trace-level metadata (plan/kernel provenance, engine config);

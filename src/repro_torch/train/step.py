@@ -19,6 +19,12 @@ Cross-entropy: logits stay in the compute dtype; :class:`_TokenNLL` saves
 only them and the float32 log-sum-exp, and its backward forms
 ``exp(x − lse) − onehot`` without a float32 logits-sized residual.
 Label positions < 0 are masked out of the loss.
+
+Profiler ranges: each microbatch's forward and cross-entropy runs inside
+:data:`FORWARD_RANGE`, its ``torch.autograd.grad`` inside
+:data:`BACKWARD_RANGE`, and the step's AdamW update (the clip included)
+inside :data:`OPTIMIZER_RANGE`.  Outside a ``torch.profiler`` session a
+range costs one dispatcher call on entry and one on exit.
 """
 
 from __future__ import annotations
@@ -30,6 +36,18 @@ import torch
 from repro_torch.models.registry import ModelApi
 from repro_torch.optim.adamw import AdamWConfig, adamw_update, init_adamw
 from repro_torch.tree import tree_leaves, tree_unflatten
+
+#: profiler range around ``loss_fn``: the forward and the cross-entropy
+FORWARD_RANGE = "repro_torch.train.forward"
+#: profiler range around the gradient's ``torch.autograd.grad`` (and,
+#: with microbatches, its float32 accumulation); under remat "full" it
+#: holds the forward recompute too.  The backward's CUDA work is launched
+#: from autograd's device thread, so its device time lies under this
+#: range by time (its launches fall inside the range), as it does for
+#: ``kernels.ops.BACKWARD_RANGE``, which nests in this one
+BACKWARD_RANGE = "repro_torch.train.backward"
+#: profiler range around ``adamw_update``, the gradient clip included
+OPTIMIZER_RANGE = "repro_torch.train.optimizer"
 
 
 class _TokenNLL(torch.autograd.Function):
@@ -120,18 +138,23 @@ def make_grad_fn(api: ModelApi, microbatches: int = 1) -> Callable:
     def grad_fn(params, batch) -> Tuple[dict, dict]:
         leaves = tree_leaves(params)
         if microbatches == 1:
-            loss, metrics = loss_fn(params, batch)
-            grads = _grads(loss, leaves, _unreached(params, batch))
+            with torch.profiler.record_function(FORWARD_RANGE):
+                loss, metrics = loss_fn(params, batch)
+            with torch.profiler.record_function(BACKWARD_RANGE):
+                grads = _grads(loss, leaves, _unreached(params, batch))
             return tree_unflatten(params, grads), _detached(metrics)
         acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
                for p in leaves]
         ms = []
         splits = {k: v.chunk(microbatches, dim=0) for k, v in batch.items()}
         for i in range(microbatches):
-            loss, m = loss_fn(params, {k: v[i] for k, v in splits.items()})
-            for a, g in zip(acc, _grads(loss, leaves,
-                                        _unreached(params, batch))):
-                a.add_(g.float())
+            with torch.profiler.record_function(FORWARD_RANGE):
+                loss, m = loss_fn(params,
+                                  {k: v[i] for k, v in splits.items()})
+            with torch.profiler.record_function(BACKWARD_RANGE):
+                for a, g in zip(acc, _grads(loss, leaves,
+                                            _unreached(params, batch))):
+                    a.add_(g.float())
             ms.append(_detached(m))
         grads = [a / microbatches for a in acc]
         metrics = {k: torch.stack([m[k] for m in ms]).mean() for k in ms[0]}
@@ -173,8 +196,9 @@ def make_train_step(api: ModelApi, opt_cfg: AdamWConfig,
 
     def train_step(params, opt_state, batch):
         grads, metrics = grad_fn(params, batch)
-        new_params, new_opt, opt_metrics = adamw_update(
-            grads, opt_state, params, opt_cfg)
+        with torch.profiler.record_function(OPTIMIZER_RANGE):
+            new_params, new_opt, opt_metrics = adamw_update(
+                grads, opt_state, params, opt_cfg)
         return new_params, new_opt, {**metrics, **opt_metrics}
 
     return train_step

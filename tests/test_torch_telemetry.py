@@ -6,7 +6,8 @@ against the JAX package's.
   and resume, eviction and copy-on-write instants, the flight dump on the
   no-progress error) run on both packages' engines over the same reduced
   model and requests; each engine must emit the same sequence of (phase,
-  name, track) events, timestamps and args aside.
+  name, track) events, timestamps and args aside, and the port's own
+  engine-track spans (``prefill_chunk``, ``emit``) left out.
 * Each package's validator accepts the other's traces; the port's
   validator, exporter, CLI and ring behave as the reference's.
 * ``telemetry=None`` constructs no tracer.
@@ -58,8 +59,32 @@ def _prompts(seed, lens):
     return [rng.integers(1, 127, n).astype(np.int32) for n in lens]
 
 
+#: the engine-track spans the port adds to the reference's, each with the
+#: span it lies in: each prefill chunk's step, and the tick's token
+#: emission
+PORT_SPANS = {"prefill_chunk": "prefill_pass", "emit": "tick"}
+
+
 def _sequence(events):
-    return [(e[1], e[2], e[4]) for e in events]
+    """(phase, name, track) of each event, the port's own engine-track
+    spans left out once each is checked to open inside its span and to
+    close before anything else on the engine track closes."""
+    out, open_ = [], []
+    for _ts, ph, name, _cat, tid, _args in events:
+        engine_span = tid == ttel.TID_ENGINE and ph in ("B", "E")
+        if engine_span and ph == "B":
+            assert name not in PORT_SPANS or PORT_SPANS[name] in open_, \
+                (name, open_)
+            open_.append(name)
+        elif engine_span:
+            assert name in open_, (name, open_)
+            assert open_[-1] == name or name not in PORT_SPANS \
+                and open_[-1] not in PORT_SPANS, (name, open_)
+            del open_[len(open_) - 1 - open_[::-1].index(name)]
+        if not (engine_span and name in PORT_SPANS):
+            out.append((ph, name, tid))
+    assert not set(open_) & set(PORT_SPANS), open_
+    return out
 
 
 def scenario_finish(models, pkg, tmp_path):
