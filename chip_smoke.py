@@ -65,7 +65,15 @@ Phases, each printing one JSON line; any failure exits non-zero:
                128), one launch a call, held in
                bf16 and float32, timed in bf16 beside SDPA, with the
                query tile each takes and the d 128 instantiations'
-               ptxas registers.
+               ptxas registers.  Then the inhibitor's backward kernel
+               (``flash_inhibitor_bwd``: dq, dk, dv) against its plain
+               version, the analytic VJP on float32 copies, with q and k
+               free (plus the tie allowance) and on a 2^-6 grid
+               (FLASH_BWD_TOL), at the train phase's shape
+               in bf16 and at the inhibitor's other cases' shapes in
+               both dtypes, two calls bit-equal; its ms and device µs a
+               call at the train shape beside its bound (9 instructions
+               an element, ``flash_bound``) and the plain version's ms.
  6a. query_split — the two flash kernels through their training entries
                (``kernels.ops.flash_inhibitor`` / ``flash_attention``) on
                M query slices of one attention, each at its ``q_offset``
@@ -88,8 +96,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
                fitting one batch 8 x seq 1024 of the seeded LM stream.
                The planner must pick ``pallas`` on its own; the arm's
                flash kernel must launch steps x 30 x 2 times (forward and
-               remat recompute), its plain version never; every loss
-               finite and the last below the first by TRAIN_MIN_FALL.
+               remat recompute), the inhibitor's backward kernel steps x
+               30 times, their plain versions never; every loss finite
+               and the last below the first by TRAIN_MIN_FALL.
   8. train_xcheck — one full-width train step at depth 2, b 1 x n 1024,
                through the kernel path and the plain path (backend forced
                to chunked / fused): loss and every gradient must agree
@@ -393,14 +402,35 @@ TF32_PASSES = 3
 # The sum of v over the attended keys is shared by the query heads of a
 # kv head (flash: a prefix sum shared by every query): the bounds add one
 # add per (kv head, key, d) and one per (query head, query, d).
+# The inhibitor's backward (dq, dk, dv): 9 instructions, the least that
+# compute it: 2 for the score, 3 for the dv indicator and the pair's sum
+# of sigma g [|v| > Z] (a compare, a predicated add, a predicated fma),
+# 4 for sign(q - k) t into dq and dk (two compares, two predicated adds
+# of +-t); its kernel recomputes the score and the pair's sum in a second
+# pass (17).
 OPS_PER_ELEMENT = {"paged_inhibitor": 4, "paged_attention": 4,
-                   "flash_inhibitor": 4, "flash_attention": 4}
+                   "flash_inhibitor": 4, "flash_attention": 4,
+                   "flash_inhibitor_bwd": 9}
+# each training kernel's backward kernel, where it has one: a train step
+# launches it once a kernel site, the forward kernel twice (remat "full"
+# and "dots" recompute the forward)
+BACKWARD_KERNEL = {"flash_inhibitor": "flash_inhibitor_bwd"}
 
 H, H_KV, D, PS, BATCH, WIDTH = 9, 3, 64, 16, 8, 32
 LENGTHS = [1, 15, 16, 17, 100, 300, 511, 512]
 SHARED_ROWS, SHARED_PAGES = (5, 6), 10     # rows 5 and 6 share 160 tokens
 LAYERS = 30                                # pools cycled when timing
 WINDOW = 64
+
+
+def train_launches_ok(counts: dict, kernel: str, launches: int) -> bool:
+    """A training run's counts: ``kernel`` launched ``launches`` times, its
+    backward kernel (if any) half as often, every other kernel and every
+    plain version never."""
+    want = {kernel: launches}
+    if kernel in BACKWARD_KERNEL:
+        want[BACKWARD_KERNEL[kernel]] = launches // 2
+    return all(n == want.get(name, 0) for name, n in counts.items())
 
 
 def emit(obj) -> None:
@@ -1283,6 +1313,81 @@ FLASH_INHIBITOR_CASES = [
 ]
 
 
+# the backward kernel against its plain version, the analytic VJP run on
+# float32 copies of the same operands, q and k of stddev 1/sqrt(d) free
+# and on a 2^-6 grid.  Free, the two sum the score Z in other orders, so an
+# indicator 1[|v| > Z] or a gate 1[raw > alpha] within rounding of its tie
+# may fall on one side only and move a row by a whole term: the tie
+# allowance (kernels.ref.inhibitor_bwd_tie_allowance) is added, and must
+# stay under 2% of each gradient by norm.  On the grid every sum of |q - k|
+# is exact and both compute Z, each indicator and each gate alike.  The
+# rest is float32 summation order over up to n_k terms of either sign,
+# and in bf16 the kernel's single rounding of each element
+FLASH_BWD_TOL = ("1e-5 |ref| + 1e-5 max|ref| (bf16: + 2^-7 |ref|); free q, "
+                 "k: + the tie allowance, under 2% by norm; on a 2^-6 grid: "
+                 "none")
+BWD_TIE_SHARE = 0.02
+
+
+def bwd_operands(torch, gen, dtype, b, n, d=D, grid=False):
+    """q, k, v, g for the backward kernel at smollm-135m's heads: q and k
+    of stddev 1/sqrt(d) (with ``grid`` on a 2^-6 grid), v and g unit
+    normal."""
+    q, k, v = flash_operands(torch, gen, "flash_inhibitor", torch.float32,
+                             b, n, d=d)
+    g = torch.randn(q.shape, generator=gen, device=gen.device)
+    if grid:
+        q, k = (torch.round(x * 64) / 64 for x in (q, k))
+    return tuple(x.to(dtype) for x in (q, k, v, g))
+
+
+def bwd_parity_checks(torch, gen, results: dict) -> None:
+    """The backward kernel's dq, dk and dv against its plain version at
+    the train phase's shape (bf16) and at FLASH_INHIBITOR_CASES' shapes
+    (bf16 and float32), free and on the grid, each non-vacuous
+    (``record``); two calls give the same bits."""
+    from repro_torch.kernels import inhibitor as kinh
+    from repro_torch.kernels import ref as kref
+
+    cases = [(dict(), TRAIN_B, TRAIN_N, D, (torch.bfloat16,))]
+    cases += [(kw, b, n, d, (torch.bfloat16, torch.float32))
+              for _, kw, b, n, d in FLASH_INHIBITOR_CASES]
+    ties_share = 0.0
+    for kw, b, n, d, dtypes in cases:
+        for dtype, grid in [(t, on) for t in dtypes for on in (False, True)]:
+            q, k, v, g = bwd_operands(torch, gen, dtype, b, n, d, grid)
+            label = (f"{kw} b={b} n={n} d={d} {dtype} "
+                     f"{'grid' if grid else 'free'}")
+            got = kinh.flash_inhibitor_bwd(q, k, v, g, **kw)
+            again = kinh.flash_inhibitor_bwd(q, k, v, g, **kw)
+            check(all(torch.equal(x, y) for x, y in zip(got, again)),
+                  f"flash_inhibitor_bwd {label}: two calls differ")
+            q, k, v, g = (x.float() for x in (q, k, v, g))
+            want = kinh.flash_inhibitor_bwd_plain(q, k, v, g, **kw)
+            control = kinh.flash_inhibitor_bwd_plain(
+                q, k, v.roll(1, dims=1), g, **kw)
+            allow = (0.0, 0.0, 0.0)
+            if not grid:
+                allow = kref.inhibitor_bwd_tie_allowance(q, k, v, g,
+                                                         **kw)[:3]
+            for key, x, w, c, a in zip(("dq", "dk", "dv"), got, want,
+                                       control, allow):
+                tol = 1e-5 * w.abs() + 1e-5 * w.abs().max() + a
+                if dtype == torch.bfloat16:
+                    tol = tol + 2.0 ** -7 * w.abs()
+                record(torch, results, "flash_inhibitor_bwd",
+                       f"{key} {label}", x, w, c, tol)
+                if not grid:
+                    share = float(a.expand_as(w).norm() / w.norm())
+                    check(share <= BWD_TIE_SHARE,
+                          f"flash_inhibitor_bwd {key} {label}: tie "
+                          f"allowance {share} of the norm")
+                    ties_share = max(ties_share, share)
+            del got, again, want, control, allow
+    results["flash_inhibitor_bwd"]["tol"] = FLASH_BWD_TOL
+    results["flash_inhibitor_bwd"]["tie_allowance_share_max"] = ties_share
+
+
 def flash_fns(name):
     from repro_torch.kernels import flash as kflash
     from repro_torch.kernels import inhibitor as kinh
@@ -1405,17 +1510,21 @@ def record(torch, results, name, label, out, ref, control, tol):
 def flash_bound(name: str, b: int, n: int, elem: int, heads: int = H,
                 kv_heads: int = H_KV, d: int = D, causal: bool = True) -> dict:
     """Least time at (b, n), causal or not (smollm-135m's heads by
-    default): q, k, v read and out written once; the operations on each
+    default): q, k, v read and out written once (the inhibitor's
+    backward: q, k, v, g read, dq, dk, dv written); the operations on each
     attended (query head, key) pair: the inhibitor as float32
     instructions that are not FMAs on the CUDA cores (no tensor core
     computes a sum of absolute differences), the Softmax products on the
     bf16 tensor cores (float32: FMAs on the CUDA cores)."""
+    inhibitor = name.startswith("flash_inhibitor")
     nbytes = elem * (2 * b * n * heads * d + 2 * b * n * kv_heads * d)
+    if name == "flash_inhibitor_bwd":   # g read, dq, dk, dv written
+        nbytes = elem * (3 * b * n * heads * d + 4 * b * n * kv_heads * d)
     pairs = b * heads * (n * (n + 1) // 2 if causal else n * n)
     ops = OPS_PER_ELEMENT[name] * pairs * d
     if name == "flash_inhibitor":   # the prefix sums of v, added per query
         ops += b * n * (kv_heads + heads) * d
-    rate = (FP32_INSTR_PER_S if name == "flash_inhibitor"
+    rate = (FP32_INSTR_PER_S if inhibitor
             else FP32_OPS_PER_S if elem == 4 else BF16_TENSOR_OPS_PER_S)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / rate
     return {"bound_ms": max(t_bytes, t_ops) * 1e3,
@@ -1573,6 +1682,22 @@ def phase_flash_parity(torch, kops, ptxas=()):
             t["library_ms"] = None
         t.update(flash_bound(name, TRAIN_B, TRAIN_N, 2))
         timings[name] = t
+    # the inhibitor's backward kernel: parity, then at the train shape its
+    # time beside the bound and the plain version's (four sets cycled)
+    from repro_torch.kernels import inhibitor as kinh
+
+    bwd_parity_checks(torch, gen, results)
+    sets = [bwd_operands(torch, gen, torch.bfloat16, TRAIN_B, TRAIN_N)
+            for _ in range(4)]
+    t = {"ms": cuda_ms(lambda i: kinh.flash_inhibitor_bwd(*sets[i % 4]), 20),
+         "plain_ms": cuda_ms(lambda i: kinh.flash_inhibitor_bwd_plain(
+             *sets[i % 4]), 2, warm=1), "library_ms": None}
+    dev = device_us(lambda i: kinh.flash_inhibitor_bwd(*sets[i % 4]), 20)
+    t.update(device_us=dev["us"], kernels_per_call=dev["kernels_per_call"],
+             trace_attempts=dev["trace_attempts"])
+    t.update(flash_bound("flash_inhibitor_bwd", TRAIN_B, TRAIN_N, 2))
+    timings["flash_inhibitor_bwd"] = t
+    del sets
     timings["family_shapes"] = flash_family_shapes(torch, kops, results, gen)
     emit({"phase": "flash_parity", "heads": H, "kv_heads": H_KV,
           "head_dim": D, "cursors": {"q_offset": CURSOR_OFFS,
@@ -1717,7 +1842,9 @@ def query_split_case(torch, kops, results, gen, label, name, backward, b,
             dv = dv + gv
             mag = [mag[0] + gk.abs(), mag[1] + gv.abs()]
         c = kops.counts()
-        check(c[name] == m and c[name + "_plain"] == 0,
+        bwd = BACKWARD_KERNEL.get(name)
+        check(c[name] == m and c[name + "_plain"] == 0
+              and (bwd is None or (c[bwd], c[bwd + "_plain"]) == (m, 0)),
               f"query_split {label} {name} backward: counts {c}")
         launches += c[name]
         dq = torch.cat(dq, dim=1)
@@ -1865,11 +1992,10 @@ def train_fixed_batch(torch, kops, cfg, kernel: str, arch: str, plan: str):
     # each step runs every layer's forward twice: once, and once more in
     # the backward (remat "full" recomputes the block)
     expected = TRAIN_STEPS * cfg.num_layers * 2
-    check(counts[kernel] == expected,
-          f"{arch}: {kernel} launched {counts[kernel]} times, expected "
-          f"{TRAIN_STEPS} steps x {cfg.num_layers} layers x 2")
-    check(all(n == 0 for name, n in counts.items() if name != kernel),
-          f"{arch}: unexpected launches or plain calls {counts}")
+    check(train_launches_ok(counts, kernel, expected),
+          f"{arch}: launches {counts}, expected {kernel} {TRAIN_STEPS} "
+          f"steps x {cfg.num_layers} layers x 2 (its backward kernel x 1), "
+          f"no plain call")
     check(all(math.isfinite(x) for x in losses), f"{arch}: losses {losses}")
     check(losses[-1] < losses[0] - TRAIN_MIN_FALL,
           f"{arch}: loss fell {losses[0] - losses[-1]} < {TRAIN_MIN_FALL}")
@@ -1928,8 +2054,11 @@ def phase_train_xcheck(torch, kops):
                 blk["attn"]["wv"]["kernel"].neg_()
         g_c, _ = make_grad_fn(get_model(plain_cfg))(params, batch)
         counts = kops.counts()
+        bwd = BACKWARD_KERNEL.get(kernel)
         check(launches == 2 * cfg.num_layers and counts[kernel] == launches
-              and counts[kernel + "_plain"] == 0,
+              and counts[kernel + "_plain"] == 0
+              and (bwd is None or (counts[bwd], counts[bwd + "_plain"])
+                   == (cfg.num_layers, 0)),
               f"{arch}: xcheck launches {counts}")
 
         def rel(a, b):
@@ -3831,9 +3960,8 @@ def train_family_arm(torch, kops, smi: str, arch: str, depth, b: int,
            "frames_per_s": b * frames / p50 if frames else None,
            "peak_memory_bytes": torch.cuda.max_memory_allocated()}
     emit(out)
-    check(counts[kernel] == expected and all(
-        v == 0 for k, v in counts.items() if k != kernel),
-        f"{arch}: launches {counts}, expected {kernel} {expected}")
+    check(train_launches_ok(counts, kernel, expected),
+          f"{arch}: launches {counts}, expected {kernel} {expected}")
     check(all(math.isfinite(x) for x in losses), f"{arch}: losses {losses}")
     check(losses[-1] < losses[0] - TRAIN_FAMILY_MIN_FALL,
           f"{arch}: loss fell {losses[0] - losses[-1]} < "
@@ -4339,9 +4467,7 @@ def resume_arm(torch, kops, arch: str, depth) -> dict:
                  and out["committed_after_resume"] == [RESUME_CUT,
                                                        RESUME_STEPS]
                  and out["resumed_from"] == RESUME_CUT
-                 and counts[kernel] == expected
-                 and all(n == 0 for name, n in counts.items()
-                         if name != kernel))
+                 and train_launches_ok(counts, kernel, expected))
     return out
 
 
@@ -4385,9 +4511,8 @@ def remat_arm(torch, kops, arch: str) -> dict:
                       "grad_wall_ms_p50": statistics.median(walls) * 1e3,
                       "peak_memory_bytes": torch.cuda.max_memory_allocated(),
                       "launches": counts,
-                      "launches_ok": counts[kernel] == REMAT_REPS * 2 * 2
-                      and all(n == 0 for name, n in counts.items()
-                              if name != kernel)}
+                      "launches_ok": train_launches_ok(
+                          counts, kernel, REMAT_REPS * 2 * 2)}
         del params, g
     rel = max(((a.float() - b.float()).abs().max()
                / a.float().abs().max().clamp_min(1e-30)).item()
@@ -4613,8 +4738,7 @@ def dist_arm(torch, kops, mesh, arch: str, depth, b: int = TRAIN_B,
     check(out["param_rel_max"] <= DIST_REL,
           f"{arch}: sharded parameters off by {out['param_rel_max']}")
     check(out["control_rel"] > DIST_REL, f"{arch}: control not caught")
-    check(counts[kernel] == expected and all(
-        n == 0 for name, n in counts.items() if name != kernel),
+    check(train_launches_ok(counts, kernel, expected),
           f"{arch}: launches {counts}, expected {kernel} {expected}")
     del dparams, dstate, got, ref
     gc.collect()
@@ -4896,8 +5020,7 @@ def dist_resume_arm(torch, kops, mesh, arch: str, depth) -> dict:
     check(out["save_peak_growth_bytes"] <= out["largest_leaf_bytes"],
           f"{arch}: a save grew the card's memory by "
           f"{out['save_peak_growth_bytes']} bytes")
-    check(counts[kernel] == expected and all(
-        n == 0 for name, n in counts.items() if name != kernel),
+    check(train_launches_ok(counts, kernel, expected),
           f"{arch}: launches {counts}, expected {kernel} {expected}")
     return {"kernel": kernel, "launches": counts[kernel]}
 
@@ -5010,9 +5133,9 @@ def dist_moe_microbatched(torch, kops, mesh) -> dict:
           f"{losses} vs {ref_losses}, parameters {out['param_rel_max']}")
     for run in ("sharded", "unsharded"):
         counts = out[run]["launches"]
-        check(counts[kernel] == expected and all(
-            v == 0 for k, v in counts.items() if k != kernel),
-            f"{arch} {run}: launches {counts}, expected {kernel} {expected}")
+        check(train_launches_ok(counts, kernel, expected),
+              f"{arch} {run}: launches {counts}, expected {kernel} "
+              f"{expected}")
     return {"kernel": kernel, "launches": out["sharded"]["launches"][kernel]}
 
 
@@ -5184,8 +5307,11 @@ def main() -> int:
     t_phase["serve"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     for arch in ("smollm-135m@inhibitor", "smollm-135m"):
-        kernel, n, _ = phase_train(torch, kops, arch)
+        kernel, n, train_out = phase_train(torch, kops, arch)
         launches[kernel] = n
+        if kernel in BACKWARD_KERNEL:
+            bwd = BACKWARD_KERNEL[kernel]
+            launches[bwd] = train_out["launches"][bwd]
     phase_train_xcheck(torch, kops)
     t_phase["train"] = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -5232,7 +5358,10 @@ def main() -> int:
 
     sources = {"paged": "src/repro_torch/csrc/paged_decode.cu",
                "flash": "src/repro_torch/csrc/flash_prefill.cu",
+               "flash_inhibitor_bwd":
+               "src/repro_torch/csrc/flash_inhibitor_bwd.cu",
                "wkv6": "src/repro_torch/csrc/wkv6.cu"}
+    # the WKV kernel last (its entry is amended below)
     replaces = {"paged_inhibitor":
                 "src/repro/kernels/paged.py:124 _paged_inhibitor_kernel",
                 "paged_attention":
@@ -5241,13 +5370,16 @@ def main() -> int:
                 "src/repro/kernels/inhibitor.py:99 _flash_inhibitor_kernel",
                 "flash_attention":
                 "src/repro/kernels/flash.py:35 _flash_attention_kernel",
+                "flash_inhibitor_bwd": "none: the reference recomputes "
+                "through its analytic VJP (src/repro/kernels/ops.py "
+                "_fi_bwd)",
                 "wkv6": "src/repro/kernels/rwkv6.py:43 _wkv6_kernel"}
     kernels = []
     for name in replaces:
         t = timings[name]
         kernels.append({
             "name": name, "route": "cuda",
-            "source": sources[name.split("_")[0]],
+            "source": sources.get(name, sources[name.split("_")[0]]),
             "replaces": replaces[name], "launches": launches[name],
             "max_abs_err": results[name]["max_abs_err"],
             "tol": results[name]["tol"], "ms": t["ms"],

@@ -10,7 +10,8 @@ Port of :mod:`repro.core.inhibitor`:
   * :func:`inhibitor_attention`     — multi-head GQA entry point, with the
     reference's analytic custom VJP as a ``torch.autograd.Function``
   * :func:`inhibitor_attention_vjp` — that backward on its own (the
-    training kernel's backward recomputes through it)
+    plain version of the training backward kernel,
+    ``kernels.inhibitor.flash_inhibitor_bwd``)
   * :func:`inhibitor_attention_chunked` — blockwise streaming form
 
 Notation follows the paper: ``Z[i,j] = (1/γ)·Σ_k |Q[i,k] − K[j,k]|`` with

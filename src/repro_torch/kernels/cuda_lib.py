@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
 The sources under ``repro_torch/csrc/`` (the paged decode kernels, the
-blockwise flash forward kernels and the RWKV-6 WKV scan) are compiled
+blockwise flash forward kernels, the flash inhibitor's backward and the
+RWKV-6 WKV scan) are compiled
 with ``nvcc`` for ``sm_90a`` into one shared library with a plain C
 interface, loaded with ``ctypes`` (no PyTorch headers, so a build takes
 seconds).  Each source compiles to an object in its own ``nvcc``
@@ -26,6 +27,7 @@ from typing import Optional
 _PKG = Path(__file__).resolve().parents[1]
 SOURCES = (_PKG / "csrc" / "paged_decode.cu",
            _PKG / "csrc" / "flash_prefill.cu",
+           _PKG / "csrc" / "flash_inhibitor_bwd.cu",
            _PKG / "csrc" / "wkv6.cu")
 BUILD_DIR = _PKG.parents[1] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -142,6 +144,9 @@ def library() -> ctypes.CDLL:
     lib.flash_attention_prefill.argtypes = [
         I, P, P, P, P, P, I, I, I, I, I, I, I, F, I, I, P]
     lib.flash_attention_prefill.restype = I
+    lib.flash_inhibitor_backward.argtypes = [
+        I, P, P, P, P, P, P, P, I, I, I, I, I, I, F, F, I, I, I, I, I, P]
+    lib.flash_inhibitor_backward.restype = I
     lib.flash_prefill_smem_bytes.argtypes = [I, I, I]
     lib.flash_prefill_smem_bytes.restype = ctypes.c_longlong
     lib.flash_prefill_max_outputs.argtypes = []

@@ -26,6 +26,13 @@ counts kernel launches and ``<plain>.calls`` plain calls
 ``q_offset`` / ``kv_valid_len`` (the decode-cache form): queries of row r
 sit at positions ``q_offset[r] + i`` and only its first ``kv_valid_len[r]``
 keys are live (:func:`pack_cursors`).
+
+:func:`flash_inhibitor_bwd` is the training form's backward: on the card
+the two-pass kernel of ``csrc/flash_inhibitor_bwd.cu`` (pass A dk and dv
+per 64-key tile over the group's query heads, pass B dq per 64-query
+tile, each recomputing the scores; no atomics), on the CPU its plain
+version :func:`flash_inhibitor_bwd_plain`, the reference's analytic VJP.
+It counts launches and plain calls the same way.
 """
 
 from __future__ import annotations
@@ -111,6 +118,29 @@ def _block_q(group: int, d: int, block_q: int, tiles) -> int:
     return bq
 
 
+def _check_on_card(what: str, qkv, others=(), *, aligned: bool) -> None:
+    """The card kernels' operand checks: every tensor on one CUDA device
+    and contiguous, q / k / v (and whatever joins them, as the backward's
+    g) of one supported dtype and head_dim, and with ``aligned`` (the
+    kernels' 16-byte copies) each of them 16-byte aligned."""
+    q = qkv[0]
+    tensors = tuple(qkv) + tuple(others)
+    if q.device.type != "cuda" or any(t.device != q.device for t in tensors):
+        raise ValueError(f"{what}: all operands must be on one CUDA "
+                         f"device, got {[str(t.device) for t in tensors]}")
+    if q.dtype not in _DTYPE_CODE or any(t.dtype != q.dtype for t in qkv):
+        raise TypeError(f"{what}: q/k/v must share one of "
+                        f"{list(_DTYPE_CODE)}, got "
+                        f"{', '.join(str(t.dtype) for t in qkv)}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{what}: operands must be contiguous")
+    if q.shape[-1] not in _HEAD_DIMS:
+        raise ValueError(f"{what}: head_dim {q.shape[-1]} not in "
+                         f"{_HEAD_DIMS}")
+    if aligned and any(t.data_ptr() % 16 for t in qkv):
+        raise ValueError(f"{what}: q/k/v must be 16-byte aligned")
+
+
 def launch_prefill(entry: str, q, k, v, cursors, *, block_q: int,
                    scale: float, extra: tuple, causal: bool, window,
                    tiles=None):
@@ -123,23 +153,11 @@ def launch_prefill(entry: str, q, k, v, cursors, *, block_q: int,
     from repro_torch.kernels import cuda_lib
 
     batch, n_q, n_k, heads, kv_heads, d = _layout(q, k, v)
-    tensors = (q, k, v) + (() if cursors is None else (cursors,))
-    if q.device.type != "cuda" or any(t.device != q.device for t in tensors):
-        raise ValueError("prefill kernel: all operands must be on one CUDA "
-                         f"device, got {[str(t.device) for t in tensors]}")
-    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"prefill kernel: q/k/v must share one of "
-                        f"{list(_DTYPE_CODE)}, got {q.dtype}, {k.dtype}, "
-                        f"{v.dtype}")
     if cursors is not None and (cursors.dtype != torch.int32
                                 or tuple(cursors.shape) != (2, batch)):
         raise TypeError("prefill kernel: cursors must be (2, batch) int32")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("prefill kernel: operands must be contiguous")
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"prefill kernel: head_dim {d} not in {_HEAD_DIMS}")
-    if tiles is not None and any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("prefill kernel: q/k/v must be 16-byte aligned")
+    _check_on_card("prefill kernel", (q, k, v), () if cursors is None
+                   else (cursors,), aligned=tiles is not None)
     bq = _block_q(heads // kv_heads, d, int(block_q), tiles)
     lib = cuda_lib.library()
     out = torch.empty_like(q)
@@ -223,3 +241,82 @@ def flash_inhibitor_fwd(
 
 
 flash_inhibitor_fwd.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the backward
+# ---------------------------------------------------------------------------
+
+def flash_inhibitor_bwd_plain(q, k, v, g, *, score_scale=None,
+                              score_shift=0.5, signed=True, normalize=True,
+                              causal=True, window=None, q_offset: int = 0):
+    """Plain version of the backward kernel: the reference's analytic VJP
+    (``core.inhibitor.inhibitor_attention_vjp``, key-chunked float32
+    cubes) under ``kernels.ref.backward_mask``, which also sets each row's
+    count of attended keys and the query rows each key chunk visits."""
+    flash_inhibitor_bwd_plain.calls += 1
+    from repro_torch.core.inhibitor import inhibitor_attention_vjp
+
+    mask = kref.backward_mask(q, k, causal, window, q_offset)
+    return inhibitor_attention_vjp(
+        q, k, v, g, mask=mask, score_scale=score_scale,
+        score_shift=score_shift, signed=signed, normalize=normalize)
+
+
+flash_inhibitor_bwd_plain.calls = 0
+
+
+def flash_inhibitor_bwd(
+    q: torch.Tensor,            # (batch, n_q, heads, d)
+    k: torch.Tensor,            # (batch, n_k, kv_heads, d)
+    v: torch.Tensor,            # (batch, n_k, kv_heads, d)
+    g: torch.Tensor,            # (batch, n_q, heads, d): the cotangent
+    *,
+    score_scale: Optional[float] = None,
+    score_shift: float = 0.5,
+    signed: bool = True,
+    normalize: bool = True,
+    causal: bool = True,
+    window: Optional[int] = None,
+    q_offset: int = 0,
+):
+    """(dq, dk, dv) of :func:`flash_inhibitor_fwd` (the training form: the
+    queries at ``q_offset + i``, every key valid) for the output
+    cotangent ``g``, in q's dtype.  On the card the two-pass kernel of
+    ``csrc/flash_inhibitor_bwd.cu`` (deterministic: no atomics, dk and dv
+    summed over the group's heads in order), on the CPU its plain
+    version; a CUDA tensor launches the kernel or raises."""
+    batch, n_q, n_k, heads, kv_heads, d = _layout(q, k, v)
+    kw = dict(score_scale=score_scale, score_shift=score_shift,
+              signed=signed, normalize=normalize, causal=causal,
+              window=window, q_offset=q_offset)
+    if q.device.type == "cpu":
+        return flash_inhibitor_bwd_plain(q, k, v, g, **kw)
+    from repro_torch.kernels import cuda_lib
+
+    if g.shape != q.shape:
+        raise ValueError(f"backward kernel: g {tuple(g.shape)} must be "
+                         f"shaped as q {tuple(q.shape)}")
+    if not g.is_contiguous() or g.data_ptr() % 16:
+        g = g.clone(memory_format=torch.contiguous_format)
+    _check_on_card("backward kernel", (q, k, v, g), aligned=True)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if batch == 0 or n_q == 0 or n_k == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    gamma = score_scale if score_scale is not None else math.sqrt(d)
+    lib = cuda_lib.library()
+    err = cuda_lib.call_on_stream(
+        q.get_device(), lib.flash_inhibitor_backward, _DTYPE_CODE[q.dtype],
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), batch, n_q, n_k, heads,
+        kv_heads, d, 1.0 / gamma, float(score_shift), int(bool(signed)),
+        int(bool(normalize)), int(bool(causal)),
+        -1 if window is None else int(window), int(q_offset))
+    if err:
+        raise RuntimeError("flash_inhibitor_backward launch failed: "
+                           f"{lib.paged_decode_error_string(err).decode()}")
+    flash_inhibitor_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_inhibitor_bwd.launches = 0

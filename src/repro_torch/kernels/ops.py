@@ -10,10 +10,11 @@ Port of :mod:`repro.kernels.ops`:
     kernel_native``) and the RWKV model registry key kernel preference on
     this table.
   * :func:`flash_inhibitor` / :func:`flash_attention` — the training
-    kernels under ``torch.autograd.Function``: the forward is the kernel,
-    the backward recomputes through the reference (as the reference's
-    ``_fi_bwd`` / ``_fa_bwd``): the analytic, key-chunked inhibitor
-    backward and the lean Softmax backward of :mod:`repro_torch.core`;
+    kernels under ``torch.autograd.Function``: the forward is the kernel;
+    the inhibitor's backward is a kernel too
+    (``kernels.inhibitor.flash_inhibitor_bwd``, its plain version the
+    reference's analytic VJP), the Softmax's recomputes through the lean
+    backward of :mod:`repro_torch.core` (as the reference's ``_fa_bwd``);
     an integer ``q_offset`` places the queries at ``q_offset + i`` of the
     keys' sequence (a ``model`` rank's query rows under sequence
     parallelism), forward and backward.  ``*_cached`` carry per-row
@@ -312,19 +313,6 @@ def _offset(q_offset) -> int:
     return q_offset
 
 
-def _backward_mask(q, k, causal, window, q_offset: int):
-    """The backward's mask at the forward's cursors: queries at
-    ``q_offset + i``, every key valid.  Keys past the last query are
-    causally masked but live, unlike a decode cache's (whose valid length
-    never passes its last query)."""
-    cursors = None
-    if q_offset:
-        cursors = kinhibitor.pack_cursors(q.shape[0], q_offset, None,
-                                          k.shape[1], q.device)
-    return kref.prefill_mask(q.shape[1], k.shape[1], causal=causal,
-                             window=window, cursors=cursors, device=q.device)
-
-
 class _FlashInhibitor(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, score_scale, score_shift, signed, normalize,
@@ -340,15 +328,12 @@ class _FlashInhibitor(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        from repro_torch.core.inhibitor import inhibitor_attention_vjp
-
         q, k, v = ctx.saved_tensors
+        causal, window, q_offset = ctx.mask
         with torch.profiler.record_function(BACKWARD_RANGE):
-            # the offset mask also sets each row's count of attended keys
-            # (``normalize``) and the query rows each key chunk visits
-            # (``core.inhibitor._chunk_rows``)
-            mask = _backward_mask(q, k, *ctx.mask)
-            grads = inhibitor_attention_vjp(q, k, v, g, mask=mask, **ctx.kw)
+            grads = kinhibitor.flash_inhibitor_bwd(
+                q, k, v, g, causal=causal, window=window, q_offset=q_offset,
+                **ctx.kw)
         return grads + (None,) * 8
 
 
@@ -356,8 +341,9 @@ def flash_inhibitor(q, k, v, score_scale=None, score_shift=0.5, signed=True,
                     normalize=True, causal=True, window=None, choice=None,
                     q_offset: int = 0):
     """Flash-inhibitor attention with a recompute-based backward: the
-    forward runs the kernel (its plain version on the CPU), the backward
-    the reference's analytic VJP (no score matrix is saved).  ``choice``
+    forward and the backward run their kernels (their plain versions on
+    the CPU; the backward's is the reference's analytic VJP), and no score
+    matrix is saved.  ``choice``
     (a :class:`KernelChoice`) overrides the registry's launch choice.
     ``q_offset`` (an int): the queries sit at positions ``q_offset + i``
     of the keys' sequence, every key valid (a ``model`` rank's query rows
@@ -401,7 +387,7 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v = ctx.saved_tensors
         score_scale, causal, window, q_offset = ctx.cfg
         with torch.profiler.record_function(BACKWARD_RANGE):
-            mask = _backward_mask(q, k, causal, window, q_offset)
+            mask = kref.backward_mask(q, k, causal, window, q_offset)
             grads = dot_product_attention_vjp(q, k, v, g, mask=mask,
                                               score_scale=score_scale)
         return tuple(grads) + (None,) * 5
@@ -481,6 +467,9 @@ _COUNTERS = {
     "flash_inhibitor": (kinhibitor.flash_inhibitor_fwd, "launches"),
     "flash_attention": (kflash.flash_attention_fwd, "launches"),
     "flash_inhibitor_plain": (kinhibitor.flash_inhibitor_plain, "calls"),
+    "flash_inhibitor_bwd": (kinhibitor.flash_inhibitor_bwd, "launches"),
+    "flash_inhibitor_bwd_plain": (kinhibitor.flash_inhibitor_bwd_plain,
+                                  "calls"),
     "flash_attention_plain": (kflash.flash_attention_plain, "calls"),
     "wkv6": (kwkv6.wkv6_chunked, "launches"),
     "wkv6_plain": (kwkv6.wkv6_chunked_plain, "calls"),

@@ -316,6 +316,249 @@ def test_tiled_min_form_matches_plain_version(signed, case):
     _check_against_plain(case, signed, tiled)
 
 
+def _key_ranges(n_q, n_k, *, causal, window, q_offset):
+    """Each query's attended keys [lo, hi) in closed form, as the kernels
+    take them: query i at q_offset + i, every key valid, a window implies
+    causality."""
+    pos = q_offset + torch.arange(n_q)
+    lo, hi = torch.zeros(n_q, dtype=torch.long), torch.full((n_q,), n_k)
+    if causal or window is not None:
+        hi = torch.minimum(hi, pos + 1)
+    if window is not None:
+        lo = torch.clamp(pos - window + 1, min=0)
+    return lo, hi
+
+
+def _mirror_bwd(q, k, v, g, *, tile, signed, normalize, causal=True,
+                window=None, q_offset=0, score_shift=0.5):
+    """The backward kernel's decomposition in float32 torch, tile by tile:
+    per query tile, Z (+inf on masked pairs) and t of each pair over a
+    key tile, then pass B's dq = sum_j t sign(q - k) over the union of
+    its queries' key ranges; per key tile and kv head, pass A's dk = sum_i
+    t sign(k - q) and dv = sum_i g / count [|v| > Z] over the group's
+    query heads in order and the query tiles that attend its keys (closed
+    form).  sign(0) is 0; the gate 1[raw > alpha] is Z > 0."""
+    b, n_q, h, d = q.shape
+    n_k, hk = k.shape[1], k.shape[2]
+    group = h // hk
+    inv = torch.tensor(1.0 / d ** 0.5, dtype=torch.float32)
+    lo, hi = _key_ranges(n_q, n_k, causal=causal, window=window,
+                         q_offset=q_offset)
+    ic = (1.0 / torch.clamp(hi - lo, min=1).float() if normalize
+          else torch.ones(n_q))
+
+    def pair(head, i0, j0):
+        """(Z, t, ind) of queries [i0, i0 + tile) of ``head`` against keys
+        [j0, j0 + tile) of its kv head: (b, tq, tk), (b, tq, tk, d)."""
+        i = torch.arange(i0, min(i0 + tile, n_q))
+        j = torch.arange(j0, min(j0 + tile, n_k))
+        qt, gt = q[:, i, head], g[:, i, head]
+        kt, vt = k[:, j, head // group], v[:, j, head // group]
+        raw = (qt[:, :, None] - kt[:, None]).abs().sum(-1) * inv
+        z = torch.relu(raw - score_shift) if score_shift else raw
+        live = (j[None] >= lo[i, None]) & (j[None] < hi[i, None])
+        z = torch.where(live, z, torch.inf)
+        av = vt.abs() if signed else vt
+        sg = torch.where(vt > 0, 1.0, -1.0) if signed else torch.ones_like(vt)
+        ind = (av[:, None] > z[..., None]).float()
+        t = -(ind * sg[:, None] * gt[:, :, None]).sum(-1) * inv * ic[i, None]
+        if score_shift:
+            t = torch.where(z > 0, t, torch.zeros_like(t))
+        return z, t, ind, i, j
+
+    dq, dk, dv = torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    for head in range(h):                          # pass B
+        for i0 in range(0, n_q, tile):
+            i_last = min(i0 + tile, n_q) - 1
+            for j0 in range(int(lo[i0]) // tile * tile, int(hi[i_last]),
+                            tile):
+                _, t, _, i, j = pair(head, i0, j0)
+                sgn = torch.sign(q[:, i, None, head] - k[:, None, j,
+                                                         head // group])
+                dq[:, i, head] += (t[..., None] * sgn).sum(2)
+    for kvh in range(hk):                          # pass A
+        for j0 in range(0, n_k, tile):
+            j1 = min(j0 + tile, n_k)
+            i_first = (max(0, j0 - q_offset) if causal or window is not None
+                       else 0)
+            i_end = (n_q if window is None
+                     else min(n_q, max(0, j1 + window - 1 - q_offset)))
+            for head in range(kvh * group, (kvh + 1) * group):
+                for i0 in range(i_first // tile * tile, i_end, tile):
+                    _, t, ind, i, j = pair(head, i0, j0)
+                    sgn = torch.sign(k[:, None, j, kvh]
+                                     - q[:, i, None, head])
+                    dk[:, j, kvh] += (t[..., None] * sgn).sum(1)
+                    gh = g[:, i, head] * ic[i, None]
+                    dv[:, j, kvh] += (ind * gh[:, :, None]).sum(1)
+    return dq, dk, dv
+
+
+def _naive_grads(q, k, v, g, *, signed, normalize, causal=True, window=None,
+                 q_offset=0):
+    """Autograd through the eq. 6 / 7 oracles (``inhibit_naive`` /
+    ``inhibit_signed_naive``) under the training entries' mask."""
+    from repro_torch.core import inhibitor as tinh
+
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    qq, kk, vv = leaves
+    b, n_q, h, d = q.shape
+    group = h // k.shape[2]
+    qt = qq.transpose(1, 2)
+    kt = kk.repeat_interleave(group, dim=2).transpose(1, 2)
+    vt = vv.repeat_interleave(group, dim=2).transpose(1, 2)
+    z = tinh.manhattan_scores(qt, kt, score_shift=0.5)
+    mask = kref.backward_mask(q, k, causal, window, q_offset)
+    if mask is not None:
+        z = tinh.mask_scores(z, mask)
+    naive = tinh.inhibit_signed_naive if signed else tinh.inhibit_naive
+    out = naive(vt, z)
+    if normalize:
+        cnt = (mask.expand(b, h, n_q, k.shape[1]).float().sum(-1)
+               if mask is not None else torch.full((b, h, n_q), k.shape[1]))
+        out = out / cnt.clamp(min=1)[..., None]
+    return torch.autograd.grad(out.transpose(1, 2), leaves, g)
+
+
+def _grid(x, step=2.0 ** -6):
+    """x on a grid of ``step``: every sum of |q - k| is then exact in
+    float32, so Z (and each indicator and gate) is the same bits whatever
+    order the sum takes."""
+    return torch.round(x / step) * step
+
+
+# (kwargs, n_q, n_k, heads, kv_heads): every mask form the training
+# entries take, ragged against the 8-row tiles, groups 1, 3 and 4
+BWD_CASES = {
+    "causal_gqa": (dict(), 37, 37, 6, 2),
+    "not_causal": (dict(causal=False), 33, 33, 3, 3),
+    "window": (dict(window=8), 37, 37, 8, 2),
+    "window_edge_in_tile": (dict(window=13, signed=False), 37, 37, 6, 2),
+    "q_offset": (dict(q_offset=20), 17, 37, 6, 2),
+    "q_offset_window": (dict(q_offset=19, window=7), 18, 37, 6, 2),
+    "q_offset_not_causal": (dict(q_offset=8, causal=False), 9, 25, 4, 4),
+    "unnormalized_unsigned": (dict(normalize=False, signed=False), 37, 37,
+                              6, 2),
+}
+
+
+def _assert_grads_close(got, want, allow=(0.0, 0.0, 0.0)):
+    """Each of dq, dk, dv within GRAD_TOL of ``want``, plus ``allow`` (the
+    tie allowance, ``kernels.ref.inhibitor_bwd_tie_allowance``)."""
+    for name, a, w, extra in zip(("dq", "dk", "dv"), got, want, allow):
+        err = (a - w).abs() - extra
+        tol = GRAD_TOL["atol"] + GRAD_TOL["rtol"] * w.abs()
+        assert bool((err <= tol).all()), \
+            f"{name}: {float((err - tol).max())} beyond the tolerance"
+
+
+@pytest.mark.parametrize("inputs", ["grid", "free"])
+@pytest.mark.parametrize("case", sorted(BWD_CASES))
+def test_backward_mirror_matches_plain_vjp_and_naive_autograd(case, inputs):
+    """The kernel's two-pass decomposition (8-row tiles) against the plain
+    VJP and against autograd through the naive oracles, dq, dk and dv
+    within float32 summation order (stddev 1/sqrt(d)).  On a 2^-6 grid
+    (ties q = k included) the three compute Z alike and no indicator or
+    gate sits on the other side of a tie; on free inputs the tie allowance
+    is added, for pairs within rounding of one."""
+    kw, n_q, n_k, h, hk = BWD_CASES[case]
+    kw = dict(kw)
+    signed, normalize = kw.pop("signed", True), kw.pop("normalize", True)
+    q, k, v = map(torch.from_numpy, _operands(21, 2, n_q, n_k, h, hk, 16,
+                                              16 ** -0.5))
+    g = torch.from_numpy(np.random.default_rng(22).normal(
+        size=q.shape).astype(np.float32))
+    allow = (0.0, 0.0, 0.0)
+    if inputs == "grid":
+        q, k = _grid(q), _grid(k)
+        assert bool((q[:, :, None, :1] == k[:, None, :, :1]).any())  # ties
+    else:
+        allow = kref.inhibitor_bwd_tie_allowance(
+            q, k, v, g, signed=signed, normalize=normalize, **kw)[:3]
+    got = _mirror_bwd(q, k, v, g, tile=8, signed=signed, normalize=normalize,
+                      **kw)
+    plain = kinh.flash_inhibitor_bwd_plain(q, k, v, g, signed=signed,
+                                           normalize=normalize, **kw)
+    naive = _naive_grads(q, k, v, g, signed=signed, normalize=normalize,
+                         **kw)
+    for p in plain:
+        assert p.abs().max() > 1e-2
+    _assert_grads_close(got, plain, allow)
+    _assert_grads_close(got, naive, allow)
+
+
+def test_tie_allowance_covers_another_summation_order():
+    """The plain VJP with q's and k's head dims permuted (so every score
+    is summed in another order) against the plain VJP, within float32
+    summation order plus the tie allowance; the shape holds ties, and the
+    allowance stays small beside each gradient (by norm under 2%)."""
+    q, k, v = map(torch.from_numpy, _operands(25, 2, 192, 192, 4, 2, 32,
+                                              32 ** -0.5))
+    g = torch.from_numpy(np.random.default_rng(26).normal(
+        size=q.shape).astype(np.float32))
+    perm = torch.from_numpy(np.random.default_rng(27).permutation(32))
+    want = kinh.flash_inhibitor_bwd_plain(q, k, v, g)
+    dq, dk, dv = kinh.flash_inhibitor_bwd_plain(
+        q[..., perm].contiguous(), k[..., perm].contiguous(), v, g)
+    inv = torch.argsort(perm)
+    got = (dq[..., inv], dk[..., inv], dv)
+    *allow, ties = kref.inhibitor_bwd_tie_allowance(q, k, v, g)
+    assert int(ties) > 0
+    _assert_grads_close(got, want, allow)
+    for a, w in zip(allow, want):
+        assert float(a.expand_as(w).norm()) <= 0.02 * float(w.norm())
+
+
+@pytest.mark.parametrize("signed", [True, False])
+def test_tie_allowance_holds_a_pair_placed_on_its_tie(signed):
+    """A value set to its pair's exact Z (and a score set to the shift)
+    gets at least its term's allowance: |g^| on dv, |g^| / gamma on the
+    query's dq and the key's dk; the gate's sum_k |g^| / gamma."""
+    q, k, v = map(torch.from_numpy, _operands(28, 1, 12, 12, 2, 1, 16,
+                                              0.25))
+    g = torch.from_numpy(np.random.default_rng(29).normal(
+        size=q.shape).astype(np.float32))
+    i, j, c, gamma = 9, 4, 5, 4.0
+    raw = float((q[0, i, 0].double() - k[0, j, 0].double()).abs().sum())
+    v[0, j, 0, c] = (1.0 if signed else -1.0) * (raw / gamma - 0.5)
+    aq, ak, av, ties = kref.inhibitor_bwd_tie_allowance(q, k, v, g,
+                                                        signed=signed)
+    term = abs(float(g[0, i, 0, c])) / (i + 1)          # g / count, causal
+    if not signed:                 # unsigned: only v > Z can tie
+        assert float(av[0, j, 0, c]) < term and int(ties) == 0
+        return
+    assert int(ties) >= 1 and float(av[0, j, 0, c]) >= term
+    assert float(aq[0, i, 0, 0]) >= term / gamma
+    assert float(ak[0, j, 0, 0]) >= term / gamma
+    # the gate: key j's raw score against query i's at the shift
+    q2 = q.clone()
+    q2[0, i, 0] = k[0, j, 0]
+    q2[0, i, 0, 0] += 0.5 * gamma
+    aq2, ak2, _, _ = kref.inhibitor_bwd_tie_allowance(q2, k, v, g)
+    whole = float(g[0, i, 0].double().abs().sum()) / (i + 1) / gamma
+    assert float(aq2[0, i, 0, 0]) >= whole
+    assert float(ak2[0, j, 0, 0]) >= whole
+
+
+def test_cpu_backward_takes_the_plain_vjp():
+    """On CPU tensors ``ops.flash_inhibitor``'s backward is the plain VJP,
+    unchanged: one plain call a backward, no kernel launch, and the
+    gradients of the plain VJP itself."""
+    q, k, v = map(torch.from_numpy, _operands(23, 2, 24, 24, 4, 2, 16,
+                                              16 ** -0.5))
+    g = torch.from_numpy(np.random.default_rng(24).normal(
+        size=q.shape).astype(np.float32))
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    kops.reset_counts()
+    got = torch.autograd.grad(kops.flash_inhibitor(*leaves, window=6,
+                                                   q_offset=0), leaves, g)
+    c = kops.counts()
+    assert (c["flash_inhibitor_bwd"], c["flash_inhibitor_bwd_plain"]) == (0, 1)
+    want = kinh.flash_inhibitor_bwd_plain(q, k, v, g, window=6)
+    for a, w in zip(got, want):
+        assert torch.equal(a, w)
+
+
 # (op, kwargs, heads, kv_heads)
 GRAD_CASES = {
     "inhibitor_signed": ("inhibitor", dict(), 4, 2),
