@@ -56,8 +56,8 @@ def main(argv=None) -> int:
             if args.fault:
                 step_fn, params, opt, paths, ocfg = train.program(
                     cell, api, seed, device, fault=args.fault)
-                other = train.first_steps(cell, step_fn, params, opt, paths,
-                                          ocfg, seed, device)
+                other, _, _ = train.first_steps(cell, step_fn, params, opt,
+                                                paths, ocfg, seed, device)
                 del step_fn, params, opt
             else:
                 other = train.reference_train(cell, seed, device, prec="fp8")

@@ -1,7 +1,8 @@
 """What the per-layer metrics read, shared by the readers under
 ``bench/metrics/``.  ``r`` is a driver's record: ``r.kind``, ``r.model``,
 ``r.mix``, ``r.window_s``, ``r.trace`` (the traced slice after the
-window, or None) and, for training, ``r.window_steps``; for serving,
+window, or None; over several chips rank 0's) and, for training,
+``r.window_steps``, ``r.chips`` and ``r.mesh`` (data, model); for serving,
 ``r.window_ticks`` / ``r.tail_ticks`` (what each tick did),
 ``r.counters`` (the engine's counters over the window), ``r.spans`` (its
 telemetry spans in the window).  A reader returns None where it finds
@@ -28,11 +29,13 @@ def _complete_ranges(r, name: str) -> List[Tuple[float, float]]:
 
 
 def train_mfu_pct(r) -> Optional[float]:
+    """The window's least time over its wall time on ``r.chips`` chips
+    (the steps' global batch over all of their peaks)."""
     if r.kind != "train" or not r.window_steps:
         return None
     least = r.window_steps * roofline.train_step_least_s(
         r.model, r.mix["batch"], r.mix["seq_len"])
-    return 100.0 * least / r.window_s
+    return 100.0 * least / (r.window_s * r.chips)
 
 
 def backward_ms_per_step(r) -> Optional[float]:

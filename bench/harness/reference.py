@@ -1,21 +1,18 @@
 """The plain reference: the configuration's model in float32 PyTorch.
 
-It follows the published description of a Llama-shaped decoder (SmolLM,
-Mistral) with the paper's attention in place of Softmax, and reads its
-sizes from the configuration file, never from the program:
+The model is its family's (``bench/families/<family>.py``, found by
+``harness.families``), which reads its sizes from the configuration file,
+never from the program.  Here is what every family shares:
 
-* RMSNorm: x / sqrt(mean(x^2) + eps) * scale;
-* rotary embeddings, "rotate half", at absolute positions, base
-  ``rope_theta``;
-* grouped-query attention: query head i reads kv head i // (h / h_kv);
 * the attention the configuration names, from
   ``bench/attention/<mechanism>.py`` (the paper's inhibitor in
   ``inhibitor.py``), which refuses any value of the configuration's
   ``attention`` it does not implement;
-* the gated-SiLU MLP, a tied or separate head;
-* the mean token cross-entropy, and AdamW (global-norm clip, bias
-  corrections, decoupled weight decay, warm-up then cosine learning
-  rate), in float32.
+* RMSNorm and rotary embeddings ("rotate half", at absolute positions);
+* the parameters spread over a list of devices, a layer to a device, with
+  no collective (``spread``);
+* the gradients, and AdamW (global-norm clip, bias corrections, decoupled
+  weight decay, warm-up then cosine learning rate), in float32.
 
 TF32 is off while the reference runs.
 
@@ -28,16 +25,15 @@ gradient passes the rounding unchanged.
 from __future__ import annotations
 
 import contextlib
-import importlib.util
 import math
-from pathlib import Path
 from typing import Callable, Optional
 
 import torch
-import torch.nn.functional as F
+
+from harness import cell, families
 
 FP8_MAX = 448.0
-ATTENTION = Path(__file__).resolve().parents[1] / "attention"
+ATTENTION = cell.ROOT / "bench" / "attention"
 # the keys of ``attention`` that the loader and ``weights.draw`` take
 TAKEN = {"mechanism", "query_key_init_scale"}
 
@@ -89,76 +85,62 @@ def rope(x, positions, base):
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
 
 
-def _load(path: Path):
-    spec = importlib.util.spec_from_file_location(
-        "bench_attention_" + path.stem.replace("-", "_"), path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
 def attention(model: dict) -> Callable:
     """``attend(q, k, v, attention)`` of ``bench/attention/<mechanism>.py``,
     once that module implements every value the configuration's
     ``attention`` states; a value it does not implement raises."""
     a = model["attention"]
-    path = ATTENTION / f"{a['mechanism']}.py"
-    if not path.is_file():
+    mod = cell.module(ATTENTION / f"{a['mechanism']}.py")
+    if mod is None:
         raise ValueError(f"the reference implements no attention "
                          f"{a['mechanism']!r}: no bench/attention/"
-                         f"{path.name}")
-    mod = _load(path)
+                         f"{a['mechanism']}.py")
     off = {k: v for k, v in a.items() if k not in TAKEN | mod.READS
            and (k not in mod.HOLDS or mod.HOLDS[k] != v)}
     off.update({k: "not stated" for k in set(mod.HOLDS) | mod.READS
                 if k not in a})
     if off:
-        raise ValueError(f"bench/attention/{path.name} does not implement "
-                         f"{off}; it holds {mod.HOLDS} and reads "
+        raise ValueError(f"bench/attention/{a['mechanism']}.py does not "
+                         f"implement {off}; it holds {mod.HOLDS} and reads "
                          f"{sorted(mod.READS)}")
     return mod.attend
 
 
-def _block(p: dict, model: dict, attend, x, positions, prec):
-    b, s, d = x.shape
-    h, hk, hd = (model["num_attention_heads"], model["num_key_value_heads"],
-                 model["head_dim"])
-    eps, base = model["rms_norm_eps"], model["rope_theta"]
-    a = p["attn"]
-    y = rmsnorm(x, p["ln1"]["scale"], eps)
-    q = _mm(y, a["wq"]["kernel"].reshape(d, h * hd), prec).view(b, s, h, hd)
-    k = _mm(y, a["wk"]["kernel"].reshape(d, hk * hd), prec).view(b, s, hk, hd)
-    v = _mm(y, a["wv"]["kernel"].reshape(d, hk * hd), prec).view(b, s, hk, hd)
-    q, k = rope(q, positions, base), rope(k, positions, base)
-    o = attend(_round(q, prec), _round(k, prec), _round(v, prec),
-               model["attention"])
-    x = x + _mm(o.reshape(b, s, h * hd), a["wo"]["kernel"].reshape(h * hd, d),
-                prec)
-    y = rmsnorm(x, p["ln2"]["scale"], eps)
-    f = p["ffn"]
-    g = F.silu(_mm(y, f["wg"]["kernel"], prec)) * _mm(y, f["wu"]["kernel"],
-                                                       prec)
-    return x + _mm(g, f["wd"]["kernel"], prec)
+def device_of(tree) -> torch.device:
+    """The device of a parameter tree's first leaf."""
+    while isinstance(tree, (dict, list, tuple)):
+        tree = next(iter(tree.values())) if isinstance(tree, dict) else tree[0]
+    return tree.device
+
+
+def spread(params: dict, devices: list) -> dict:
+    """Autograd leaves copied from ``params`` by ``.to()``, with no
+    collective: of each list of layers (``blocks``, wherever it lies), layer
+    i on ``devices[i * len(devices) // layers]``; every other leaf on the
+    first device.  One device gives a copy of the tree on it."""
+    def walk(node, dev, key=None):
+        if isinstance(node, dict):
+            return {k: walk(v, dev, k) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            n = len(node)
+            return [walk(v, devices[i * len(devices) // n]
+                         if key == "blocks" else dev)
+                    for i, v in enumerate(node)]
+        return node.detach().to(dev, copy=True).requires_grad_(True)
+
+    return walk(params, devices[0])
 
 
 def logits(params: dict, model: dict, tokens: torch.Tensor,
            prec: Optional[str] = None) -> torch.Tensor:
-    """tokens (b, s) -> float32 logits (b, s, V), positions 0 .. s - 1."""
-    x = params["embed"]["table"][tokens.long()].float()
-    positions = torch.arange(tokens.shape[1], device=tokens.device)
-    attend = attention(model)
-    for p in params["blocks"]:
-        x = _block(p, model, attend, x, positions, prec)
-    x = rmsnorm(x, params["final_norm"]["scale"], model["rms_norm_eps"])
-    head = (params["embed"]["table"].t() if model["tie_word_embeddings"]
-            else params["lm_head"]["kernel"])
-    return _mm(x, head, prec)
+    """tokens (b, s) -> float32 logits (b, s, V) of the configuration's
+    family, positions 0 .. s - 1."""
+    return families.of(model).logits(params, model, tokens, prec)
 
 
 def loss(params, model, tokens, labels, prec=None) -> torch.Tensor:
-    lg = logits(params, model, tokens, prec)
-    return F.cross_entropy(lg.reshape(-1, lg.shape[-1]),
-                           labels.reshape(-1).long())
+    """The mean token cross-entropy of the configuration's family."""
+    return families.of(model).loss(params, model, tokens, labels, prec)
 
 
 def grads(loss: torch.Tensor, leaves: list) -> list:
@@ -188,10 +170,12 @@ def learning_rate(train: dict, step: int) -> float:
 def adamw(params: list, grads: list, mu: list, nu: list, step: int,
           train: dict) -> list:
     """One AdamW step in place; returns the clipped gradients."""
-    norm = torch.sqrt(sum(g.double().square().sum() for g in grads)).float()
+    first = grads[0].device
+    norm = torch.sqrt(sum(g.double().square().sum().to(first)
+                          for g in grads)).float()
     scale = torch.clamp(train["grad_clip_norm"] / norm.clamp(min=1e-12),
                         max=1.0)
-    grads = [g * scale for g in grads]
+    grads = [g * scale.to(g.device) for g in grads]
     b1, b2 = train["b1"], train["b2"]
     lr = learning_rate(train, step)
     with torch.no_grad():

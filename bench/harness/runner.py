@@ -9,14 +9,14 @@ from pathlib import Path
 from typing import Callable, Optional
 
 from harness import cell as cells
-from harness import checks
+from harness import checks, families
 
 DRIVERS = {"lm_stream": "train", "requests": "serve"}
 
 
 def program_config(model: dict):
-    """The program's configuration of ``model["arch"]``, held to every
-    size the configuration file states."""
+    """The program's configuration of ``model["arch"]``, held by the
+    configuration's family to every size and choice the file states."""
     import repro_torch
     from repro_torch.configs import get_config
 
@@ -25,28 +25,7 @@ def program_config(model: dict):
         raise SystemExit(f"bench: the program was imported from {src}, "
                          f"outside this checkout")
     cfg = get_config(model["arch"])
-    a = cfg.attention
-    stated = {
-        "num_hidden_layers": cfg.num_layers, "hidden_size": cfg.d_model,
-        "intermediate_size": cfg.d_ff, "vocab_size": cfg.vocab_size,
-        "num_attention_heads": a.num_heads,
-        "num_key_value_heads": a.num_kv_heads, "head_dim": a.head_dim,
-        "rope_theta": a.rope_base, "rms_norm_eps": cfg.norm_eps,
-        "tie_word_embeddings": cfg.tie_embeddings,
-        "param_dtype": cfg.param_dtype, "compute_dtype": cfg.compute_dtype,
-    }
-    held = {"mechanism": a.mechanism, "score_shift": a.score_shift,
-            "normalize": a.normalize, "causal": a.causal,
-            "sliding_window": a.sliding_window, "norm": cfg.norm,
-            "mlp": cfg.mlp, "remat": cfg.remat}
-    want = dict(model["attention"], norm="rmsnorm", mlp="gated_silu",
-                remat=model.get("train", {}).get("remat", cfg.remat))
-    bad = {k: (v, model[k]) for k, v in stated.items() if model[k] != v}
-    bad.update({k: (held[k], want[k]) for k in held if k in want
-                and held[k] != want[k]})
-    if bad:
-        raise SystemExit(f"bench: the program's {model['arch']} differs from "
-                         f"the configuration file: {bad}")
+    families.of(model).check(model, cfg)
     return cfg
 
 
@@ -62,6 +41,9 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device,
     cfg = program_config(cell.model) if cfg is None else cfg
     api = get_model(cfg)
     kind = DRIVERS[cell.mix["generator"]]
+    if cell.chips > 1 and kind != "train":
+        raise SystemExit(f"bench: {cell.name}: only a training cell runs "
+                         f"over several chips")
     if kind == "train":
         from harness import train as driver
     else:
@@ -87,7 +69,9 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device,
               "failed": out["failed"], "metrics": metrics, "device": dev}
     tr = out["r"].trace
     if trace and tr is not None:
-        dev["busy_s"] = tr.busy_us() * 1e-6
+        # over several chips the ranks' mean
+        busy = out["busy_us"] if "busy_us" in out else tr.busy_us()
+        dev["busy_s"] = busy * 1e-6
         dev["window_s"] = (tr.hi - tr.lo) * 1e-6
         result["breakdown"] = tr.breakdown()
     print(f"bench: {cell.name} seed {seed} setup_s {out['e2e']['setup_s']!r} "

@@ -1,11 +1,12 @@
 """Weights drawn from ``--seed`` on the device, in the program's parameter
-layout, in a few large calls.
+layout (the configuration's family gives it), in a few large calls.
 
 Every float32 weight of the model lies in one flat buffer filled with unit
 normals by a ``torch.Generator`` on the device, in slices of at most 2^30
 elements; each leaf is a view of it, scaled in place: a projection by
 1/sqrt(its fan-in), the embedding table and a head by their stated
-standard deviations, a norm's scale set to 1 and a bias to 0.  The query
+standard deviations, a norm's scale set to 1 and a bias to 0; a family
+fills a leaf of an init of its own (a constant, a range) itself.  The query
 and key projections are scaled by a further factor, the configuration's
 ``attention.query_key_init_scale``: "1/sqrt(head_dim)" under the
 inhibitor, so that the shifted score Z is about 0.6 and the inhibition is
@@ -21,41 +22,26 @@ from typing import List, Tuple
 
 import torch
 
+from harness import families
+
 SLICE = 1 << 30
-EMBED_STD = 0.02
 
 
 def layout(model: dict) -> List[Tuple[tuple, tuple, str]]:
-    """[(path, shape, init)] of the dense and vlm families' parameters, in
-    the program's tree: ``init`` is "fan_in:<n>", "std:<s>", "ones" or
-    "zeros"."""
-    d, ff, v = (model["hidden_size"], model["intermediate_size"],
-                model["vocab_size"])
-    h, hk, hd = (model["num_attention_heads"], model["num_key_value_heads"],
-                 model["head_dim"])
-    out = []
-    for i in range(model["num_hidden_layers"]):
-        blk = ("blocks", i)
-        out += [
-            (blk + ("ln1", "scale"), (d,), "ones"),
-            (blk + ("attn", "wq", "kernel"), (d, h, hd), f"fan_in:{d}"),
-            (blk + ("attn", "wk", "kernel"), (d, hk, hd), f"fan_in:{d}"),
-            (blk + ("attn", "wv", "kernel"), (d, hk, hd), f"fan_in:{d}"),
-            (blk + ("attn", "wo", "kernel"), (h, hd, d), f"fan_in:{h * hd}"),
-            (blk + ("ln2", "scale"), (d,), "ones"),
-            (blk + ("ffn", "wg", "kernel"), (d, ff), f"fan_in:{d}"),
-            (blk + ("ffn", "wu", "kernel"), (d, ff), f"fan_in:{d}"),
-            (blk + ("ffn", "wd", "kernel"), (ff, d), f"fan_in:{ff}"),
-        ]
-    out.append((("embed", "table"), (v, d), f"std:{EMBED_STD}"))
-    out.append((("final_norm", "scale"), (d,), "ones"))
-    if not model["tie_word_embeddings"]:
-        out.append((("lm_head", "kernel"), (d, v), f"fan_in:{d}"))
-    fe = model.get("frontend_embed_dim")
-    if fe:
-        out.append((("frontend_proj", "kernel"), (fe, d), f"fan_in:{fe}"))
-        out.append((("frontend_proj", "bias"), (d,), "zeros"))
-    return out
+    """[(path, shape, init)] of the configuration's parameters in the
+    program's tree, as its family lays them out: ``init`` is
+    "fan_in:<n>", "std:<s>", "ones" or "zeros"."""
+    return families.of(model).layout(model)
+
+
+def fill(model: dict, leaf: torch.Tensor, init: str) -> None:
+    """Fill ``leaf`` in place by an ``init`` of the family's own (a
+    constant decay, Mamba's log [1..n]): its module's ``fill``."""
+    fam = families.of(model)
+    if not hasattr(fam, "fill"):
+        raise ValueError(f"family {families.name(model)!r} names the init "
+                         f"{init!r} and gives no fill(leaf, init)")
+    fam.fill(leaf, init)
 
 
 def _set(tree: dict, path: tuple, value) -> None:
@@ -90,7 +76,6 @@ def draw(model: dict, seed: int, device) -> dict:
     buf = torch.empty(total, dtype=torch.float32, device=device)
     for lo in range(0, total, SLICE):
         buf[lo:lo + SLICE].normal_(generator=gen)
-    qk = query_key_scale(model)
     tree: dict = {}
     off = 0
     with torch.no_grad():
@@ -102,12 +87,14 @@ def draw(model: dict, seed: int, device) -> dict:
                 leaf.fill_(1.0)
             elif init == "zeros":
                 leaf.zero_()
-            else:
+            elif init.partition(":")[0] in ("fan_in", "std"):
                 kind, val = init.split(":")
                 std = float(val) ** -0.5 if kind == "fan_in" else float(val)
                 if path[-2] in ("wq", "wk"):
-                    std *= qk
+                    std *= query_key_scale(model)
                 leaf.mul_(std)
+            else:
+                fill(model, leaf, init)
             _set(tree, path, leaf)
     return tree
 

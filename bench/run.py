@@ -13,6 +13,11 @@ per-layer ones), ``device``, with ``--trace 1`` ``breakdown``, and last
 standard error.  The run exits non-zero, with no result, without enough
 CUDA devices, without the program, or when JAX has been loaded.
 
+A cell over several chips runs one process a rank, started from here
+(``harness/ranks.py``); this process keeps the clock that ``setup_s``
+starts from, runs the reference once the ranks have ended and prints the
+one result line.
+
 Every cache the program builds stays in the checkout: the kernel library
 in ``build/kernels/`` (the program's own), the CUDA JIT, Triton and
 extension caches under ``build/bench-cache/``.
@@ -84,7 +89,10 @@ def main(argv=None) -> int:
               "found", file=sys.stderr)
         return 2
     device = torch.device("cuda", 0)
-    torch.cuda.set_device(device)
+    if cell.chips == 1:
+        torch.cuda.set_device(device)
+    # else no card is touched here until the ranks, a process a card,
+    # have ended (harness/ranks.py)
     from harness import runner
 
     out, _ = runner.run_cell(cell, args.seed, args.seconds, bool(args.trace),

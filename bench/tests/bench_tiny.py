@@ -1,10 +1,10 @@
 """Small copies of the benchmark's cells for the harness's CPU tests: the
 cell's configuration file with small widths, and the program's
-configuration cut to the same sizes (float32 compute, no remat)."""
+configuration cut to the same sizes (float32 compute, no remat), at the
+sizes the configuration's family gives (``small``, ``small_program``)."""
 
 from __future__ import annotations
 
-import copy
 import sys
 from pathlib import Path
 
@@ -13,60 +13,26 @@ for p in (ROOT / "src", ROOT / "bench"):
     if str(p) not in sys.path:
         sys.path.insert(0, str(p))
 
-SIZES = {
-    "tiny": {
-        # a smollm-shaped copy: tied head, RoPE base 1e4, group 2
-        "smollm-135m@inhibitor": dict(layers=2, d=64, ff=128, v=256, h=4,
-                                      hk=2, hd=16),
-        # a llava-shaped copy: separate head, RoPE base 1e6, group 4
-        "llava-next-mistral-7b@inhibitor": dict(layers=2, d=64, ff=160,
-                                                v=320, h=8, hk=2, hd=8),
-    },
-    # where the float8 control is read: smollm at its published widths,
-    # both at 4 layers and a vocabulary of 8,192 / 4,096
-    "control": {
-        "smollm-135m@inhibitor": dict(layers=4, d=576, ff=1536, v=8192, h=9,
-                                      hk=3, hd=64),
-        "llava-next-mistral-7b@inhibitor": dict(layers=4, d=256, ff=640,
-                                                v=4096, h=8, hk=2, hd=32),
-    },
-}
-
 
 def tiny_model(model: dict, size: str = "tiny") -> dict:
-    m = copy.deepcopy(model)
-    s = SIZES[size][m["arch"]]
-    m.update(hidden_size=s["d"], intermediate_size=s["ff"],
-             num_hidden_layers=s["layers"], vocab_size=s["v"],
-             num_attention_heads=s["h"], num_key_value_heads=s["hk"],
-             head_dim=s["hd"])
-    if m.get("frontend_embed_dim"):
-        m["frontend_embed_dim"] = 32
-    return m
+    from harness import families
+
+    return families.of(model).small(model, size)
 
 
 def program_config(model: dict, size: str = "tiny"):
-    from repro_torch.configs import get_config
+    from harness import families
 
-    s = SIZES[size][model["arch"]]
-    cfg = get_config(model["arch"]).reduced(
-        num_layers=s["layers"], d_model=s["d"], d_ff=s["ff"],
-        vocab_size=s["v"], num_heads=s["h"], num_kv_heads=s["hk"],
-        head_dim=s["hd"], max_seq_len=4096)
-    if model.get("frontend_embed_dim"):
-        import dataclasses
-
-        cfg = dataclasses.replace(cfg, frontend=dataclasses.replace(
-            cfg.frontend, embed_dim=32))
-    return cfg
+    return families.of(model).small_program(model, size)
 
 
-def tiny_cell(name: str, size: str = "tiny", **mix):
-    """The cell ``name`` at a small size, its mix updated with ``mix``;
-    returns (cell, the program's configuration)."""
+def tiny_cell(name: str, size: str = "tiny", root: Path = ROOT, **mix):
+    """The cell ``name`` of the checkout at ``root``, at a small size, its
+    mix updated with ``mix``; returns (cell, the program's
+    configuration)."""
     from harness import cell as cells
 
-    c = cells.load(name)
+    c = cells.load(name, root)
     c.model = tiny_model(c.model, size)
     if c.mix["generator"] == "lm_stream":
         c.mix.update(batch=4, seq_len=48)
@@ -79,3 +45,41 @@ def tiny_cell(name: str, size: str = "tiny", **mix):
             c.mix.update(queue_depth=4)
     c.mix.update(mix)
     return c, program_config(c.model, size)
+
+
+def scratch_checkout(root: Path, *, program: bool = False) -> Path:
+    """A checkout of the benchmark at ``root``: ``BENCHMARK.json`` and
+    ``bench/`` (with ``program``, the program's ``src/repro_torch`` too)."""
+    import shutil
+
+    shutil.copy(ROOT / "BENCHMARK.json", root / "BENCHMARK.json")
+    ignore = shutil.ignore_patterns("__pycache__")
+    shutil.copytree(ROOT / "bench", root / "bench", ignore=ignore)
+    if program:
+        shutil.copytree(ROOT / "src" / "repro_torch",
+                        root / "src" / "repro_torch", ignore=ignore)
+    return root
+
+
+def add_mesh_cell(root: Path, name: str = "smollm-inh.train-dp2tp2",
+                  data: int = 2, model: int = 2, chips: int = 4) -> str:
+    """Add, as files and entries alone, a training cell of the SmolLM
+    configuration on a (data, model) mesh: the traffic ``lm-b8x1024`` with
+    its ``mesh``, and the cell in ``BENCHMARK.json`` with the training
+    cell's end-to-end metrics.  Returns the cell's name."""
+    import json
+
+    mix = json.loads((root / "bench/traffic/lm-b8x1024.json").read_text())
+    mix["mesh"] = {"data": data, "model": model}
+    traffic = f"lm-b8x1024-dp{data}tp{model}"
+    (root / "bench/traffic" / f"{traffic}.json").write_text(json.dumps(mix))
+    spec = json.loads((root / "BENCHMARK.json").read_text())
+    spec["workloads"].append({"name": name,
+                              "config": "smollm-135m.inhibitor",
+                              "traffic": traffic, "chips": chips,
+                              "why": "the training cell on a mesh"})
+    for m in spec["end_to_end"]:
+        if "smollm-inh.train" in m.get("workloads", ()):
+            m["workloads"].append(name)
+    (root / "BENCHMARK.json").write_text(json.dumps(spec))
+    return name

@@ -44,11 +44,7 @@ def test_no_card_no_result():
 
 
 def test_without_the_program_no_result(tmp_path):
-    import shutil
-
-    shutil.copy(bench_tiny.ROOT / "BENCHMARK.json", tmp_path)
-    shutil.copytree(bench_tiny.ROOT / "bench", tmp_path / "bench",
-                    ignore=shutil.ignore_patterns("__pycache__"))
+    bench_tiny.scratch_checkout(tmp_path)
     out = subprocess.run(
         [sys.executable, "bench/run.py", "--workload", "smollm-inh.train",
          "--seed", "1", "--seconds", "1", "--trace", "0"],

@@ -6,9 +6,8 @@ from __future__ import annotations
 
 import json
 import re
-import shutil
 
-import bench_tiny  # noqa: F401
+import bench_tiny
 import pytest
 
 from harness import cell as cells
@@ -17,16 +16,8 @@ ROOT = cells.ROOT
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 
 
-def _copy_checkout(tmp_path):
-    for rel in ("BENCHMARK.json",):
-        shutil.copy(ROOT / rel, tmp_path / rel)
-    shutil.copytree(ROOT / "bench", tmp_path / "bench",
-                    ignore=shutil.ignore_patterns("__pycache__"))
-    return tmp_path
-
-
 def test_cell_added_as_files_is_found(tmp_path):
-    root = _copy_checkout(tmp_path)
+    root = bench_tiny.scratch_checkout(tmp_path)
     spec = json.loads((root / "BENCHMARK.json").read_text())
     conf = json.loads((root / "bench/configs/smollm-135m.inhibitor.json")
                       .read_text())
@@ -61,7 +52,7 @@ def test_cell_added_as_files_is_found(tmp_path):
 
 
 def test_a_reader_that_finds_nothing_is_left_out(tmp_path):
-    root = _copy_checkout(tmp_path)
+    root = bench_tiny.scratch_checkout(tmp_path)
     c = cells.load("smollm-inh.chat", root)
     (root / "bench/metrics/mfu.chat.py").write_text(
         "def read(r):\n    return None\n")
